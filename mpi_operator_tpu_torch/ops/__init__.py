@@ -1,0 +1,5 @@
+"""Kernels of the port: each module holds a wrapper that launches a
+hand-written CUDA kernel for tensors on the card and a plain PyTorch
+version of the same function for tensors on the CPU."""
+
+from .paged_attention import paged_decode_attention  # noqa: F401

@@ -1,0 +1,923 @@
+"""Continuous batching for the KV-cache decode path.
+
+Counterpart of ``mpi_operator_tpu/serving/batcher.py``.  The batcher
+keeps B persistent cache slots and runs ONE decode step per tick across
+every slot; new requests are prefilled into free slots between ticks and
+finished slots are freed at once (iteration-level scheduling, per-slot
+greedy or top-k/nucleus sampling).  Each slot decodes at its own cache
+index, so mixed-length, mixed-arrival sequences share one batch.
+
+With ``page_size > 0`` the KV cache is paged: K/V live in a shared pool
+of fixed-size blocks and each slot holds a block-table row.  A slot's
+block budget (prompt + max_new_tokens) is reserved at admission and
+returned at retirement, so a pool below the worst case oversubscribes
+and admission waits for blocks when it runs dry.  Each decode step
+attends through the hand-written paged attention kernel once per layer.
+Prefill runs on the dense batch-1 layout at the prompt's exact length
+and is scattered into the slot's blocks.
+
+Paged mode also prefix-caches (``prefix_cache=True``): full prompt
+blocks are content-addressed by their token prefix, so a prompt that
+starts with a cached prefix maps the existing blocks (refcounted,
+evicted LRU at refcount 0 under pool pressure) and prefills only its
+suffix, through the paged multi-token branch of a batch-1 view of the
+cache.
+
+The steady-state tick is **pipelined** (``pipelined=True``, the
+default): step k+1 is launched from step k's still-on-device token
+tensor before step k's tokens are read, so the card computes step k+1
+while the host runs emission, stop checks, retirement and admission for
+step k.  Step k's tokens come to the host in ONE copy, on a side stream
+that waits only for step k, so the read never waits for step k+1.  A
+slot that retired or was replaced between launch and read has its
+overrun token discarded, so emitted streams equal the serialized loop's.
+Ticks, dispatches and transfers are counted in the ``serving_*``
+metrics, and ``transfers_total == ticks_total`` holds.
+
+Not in this slice (each raises NotImplementedError when asked for):
+speculative decoding, KV-page export/import and chunked prefill.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.llama import (_set_block_tables, _set_cache_index, init_cache,
+                            quantize_kv, select_rows)
+from ..telemetry.metrics import Registry, new_serving_metrics
+
+log = logging.getLogger(__name__)
+
+
+def _page_digest(parent_hex: str, page) -> str:
+    """Content digest of one prompt page CHAINED through its parent's
+    digest, so a digest identifies the whole token prefix up to and
+    including this page (byte-identical to the JAX package's)."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(parent_hex.encode())
+    h.update(",".join(str(int(t)) for t in page).encode())
+    return h.hexdigest()
+
+
+def prefix_page_digests(tokens, page_size: int) -> List[str]:
+    """Chain digests of a prompt's full pages eligible for prefix-cache
+    reuse (at least one token is always left to prefill, the same cap as
+    ContinuousBatcher._match_prefix).  Digest j covers tokens
+    [0, (j+1)*page_size)."""
+    if page_size <= 0:
+        raise ValueError(
+            f"prefix_page_digests requires a paged KV cache "
+            f"(page_size > 0), got page_size={page_size}")
+    out: List[str] = []
+    parent = ""
+    for j in range((len(tokens) - 1) // page_size):
+        parent = _page_digest(parent,
+                              tokens[j * page_size:(j + 1) * page_size])
+        out.append(parent)
+    return out
+
+
+class _WaitQueue:
+    """FIFO of requests with a *non-dequeuing* idle wait: the scheduler
+    blocks on the condition without taking the head, so submission
+    order is admission order."""
+
+    def __init__(self):
+        self._items: deque = deque()
+        self._cond = threading.Condition()
+
+    def put(self, item) -> None:
+        with self._cond:
+            self._items.append(item)
+            self._cond.notify_all()
+
+    def get_nowait(self):
+        with self._cond:
+            if not self._items:
+                raise queue.Empty
+            return self._items.popleft()
+
+    def qsize(self) -> int:
+        with self._cond:
+            return len(self._items)
+
+    def wait_nonempty(self, timeout: float) -> bool:
+        """Block until an item is present (without removing it) or the
+        timeout elapses; returns whether the queue is non-empty."""
+        with self._cond:
+            if not self._items:
+                self._cond.wait(timeout)
+            return bool(self._items)
+
+
+@dataclass
+class _Request:
+    tokens: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    seed: int = 0
+    stop_tokens: frozenset = frozenset()
+    done: threading.Event = field(default_factory=threading.Event)
+    output: List[int] = field(default_factory=list)
+    error: Optional[Exception] = None
+    on_token: Optional[object] = None  # callable(int), streaming hook
+    cancelled: threading.Event = field(default_factory=threading.Event)
+    # Telemetry: set at enqueue; emit() attributes TTFT and inter-token
+    # latency to the serving histograms.
+    metrics: Optional[dict] = None
+    submitted_at: float = 0.0
+    _last_emit: float = 0.0
+    was_deferred: bool = False
+
+    def emit(self, token: int) -> None:
+        if self.metrics is not None:
+            now = time.perf_counter()
+            if not self.output and self.submitted_at:
+                self.metrics["ttft_seconds"].observe(
+                    now - self.submitted_at)
+            elif self.output and self._last_emit:
+                self.metrics["token_latency_seconds"].observe(
+                    now - self._last_emit)
+            self._last_emit = now
+        self.output.append(token)
+        if self.on_token is not None:
+            self.on_token(token)
+
+    @property
+    def finished(self) -> bool:
+        """Budget exhausted or a stop token emitted (the stop token
+        itself is included in the output)."""
+        return (len(self.output) >= self.max_new_tokens
+                or (bool(self.stop_tokens)
+                    and self.output
+                    and self.output[-1] in self.stop_tokens))
+
+
+def _slot_seed(seed: int, prompt_len: int) -> int:
+    """Per-request generator seed from (seed, prompt length), the role
+    of the JAX batcher's fold_in(PRNGKey(seed), len(tokens))."""
+    return (int(seed) * 0x9E3779B97F4A7C15 + prompt_len) % (1 << 63)
+
+
+class ContinuousBatcher:
+    """Continuous-batching scheduler over ``model``'s decode path; each
+    slot carries its own (temperature, top_p, top_k, generator) so
+    greedy and sampling requests share decode ticks."""
+
+    def __init__(self, model, max_slots: int = 4,
+                 device_lock: Optional[threading.Lock] = None,
+                 page_size: int = 0, cache_blocks: int = 0,
+                 prefix_cache: bool = True, kv_cache_dtype: str = "auto",
+                 draft_model=None, draft_strategy: Optional[str] = None,
+                 prefill_chunk: int = 0, pipelined: bool = True,
+                 telemetry_registry: Optional[Registry] = None,
+                 device=None):
+        if draft_model is not None or draft_strategy is not None:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP.md, "
+                "queue 1, modules left out of the serving slice)")
+        if prefill_chunk:
+            raise NotImplementedError(
+                "chunked prefill is not ported yet (ROADMAP.md, queue 1, "
+                "modules left out of the serving slice)")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, batcher on "
+                             f"{self.device}")
+        cfg = model.config
+        if cfg.page_size > 0:
+            # Prefill runs on the dense layout and the batcher derives the
+            # paged layout itself: pass page_size= to this constructor.
+            raise ValueError(
+                "ContinuousBatcher requires a dense-layout model "
+                "(config.page_size == 0); use the page_size argument "
+                "to enable the paged cache")
+        if kv_cache_dtype != "auto" and page_size <= 0:
+            raise ValueError(
+                f"kv_cache_dtype={kv_cache_dtype!r} requires the paged "
+                f"cache (page_size > 0)")
+        self.model = model
+        self.max_slots = max_slots
+        self.telemetry = new_serving_metrics(telemetry_registry
+                                             or Registry())
+        self.pipelined = bool(pipelined)
+        # Tick accounting, written only by the scheduler thread (the
+        # source of the serving_pipeline_depth gauge).
+        self.ticks_dispatched = 0
+        self.ticks_fetched = 0
+        self._queue = _WaitQueue()
+        self._stop = threading.Event()
+        # Set when the scheduler loop dies unrecoverably; every later
+        # submit fails loudly, naming the tick phase that died.
+        self.fatal_error: Optional[BaseException] = None
+        self._fatal_phase: Optional[str] = None
+        self._thread: Optional[threading.Thread] = None
+        # Shared with the server's non-batched path so at most one model
+        # computation is launched at a time; taken per tick / prefill.
+        self._device_lock = device_lock or threading.Lock()
+        self._max_seq_len = cfg.max_seq_len
+        self.page_size = page_size
+        if page_size > 0:
+            decode_cfg = dataclasses.replace(
+                cfg, page_size=page_size, cache_blocks=cache_blocks,
+                kv_cache_dtype=kv_cache_dtype)
+            nb = decode_cfg.pool_blocks(max_slots)
+            self._free_blocks = list(range(1, nb))  # 0 = reserved scratch
+            self._total_blocks = nb - 1
+            self._slot_blocks: dict = {}
+            self._slot_shared: dict = {}   # slot -> shared-prefix blocks
+            self._blocks_per_row = decode_cfg.blocks_per_row
+            # Prefix cache: (parent block, page tokens) -> pool block;
+            # _block_meta refcounts registered blocks (refs = live slots
+            # mapping the block; refs-0 blocks stay cached until evicted).
+            self._prefix_cache = bool(prefix_cache)
+            self._registry: dict = {}
+            self._block_meta: dict = {}
+            # block id -> chain digest (prefix_page_digests form), the
+            # hit index advertised at /fleet-state.
+            self._block_digest: dict = {}
+            self._prefix_clock = 0
+            self._retire_count = 0
+            self.prefix_stats = {"lookups": 0, "hit_blocks": 0,
+                                 "hit_tokens": 0, "evicted": 0}
+        else:
+            decode_cfg = cfg
+        with torch.inference_mode():
+            cache = init_cache(decode_cfg, max_slots, self.device)
+            if page_size > 0:
+                # One block table shared by every layer, edited in place
+                # (the model only reads it).
+                self._table = torch.zeros(
+                    (max_slots, self._blocks_per_row), dtype=torch.int32,
+                    device=self.device)
+                cache = _set_block_tables(cache, self._table)
+        self._cache = cache
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._host_tokens = torch.empty((max_slots,), dtype=torch.int32,
+                                            pin_memory=True)
+
+    # -- device plumbing ---------------------------------------------------
+    def _tensor(self, values, dtype):
+        return torch.as_tensor(np.asarray(values), dtype=dtype,
+                               device=self.device)
+
+    def decode_step(self, tokens, temps, top_ps, gens, top_ks):
+        """One decode step across every slot (the step each tick
+        launches): tokens [max_slots] in, next tokens [max_slots] out,
+        left on the device."""
+        logits = self.model(tokens[:, None], cache=self._cache, decode=True)
+        return select_rows(logits[:, -1], temps, top_ps, gens,
+                           top_ks).to(torch.int32)
+
+    def _fetch(self, out, done) -> np.ndarray:
+        """One device->host copy of a step's [max_slots] tokens.  On the
+        card it runs on a side stream that waits for that step only (the
+        next step, already launched, keeps the card busy)."""
+        if done is None:
+            return out.numpy()
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(done)
+            self._host_tokens.copy_(out, non_blocking=True)
+        self._copy_stream.synchronize()
+        return self._host_tokens.numpy().copy()
+
+    def _cache_index(self):
+        return self._cache["layers_0"]["attention"]["cache_index"]
+
+    def _set_slot_index(self, slot: int, length: int) -> None:
+        """Every layer's cache_index holds the same values, so one
+        updated vector is shared by all layers (the model rebinds, never
+        mutates, that leaf)."""
+        idx = self._cache_index().clone()
+        idx[slot] = length
+        self._cache = _set_cache_index(self._cache, idx)
+
+    def _prefill(self, tokens: List[int], sample_args):
+        """Dense batch-1 prefill at the prompt's exact length ->
+        (row cache, first token [1])."""
+        prompt = self._tensor([tokens], torch.int32)
+        row_cache = init_cache(self.model.config, 1, self.device,
+                               max_len=len(tokens))
+        logits = self.model(prompt, cache=row_cache, decode=True)
+        temp, top_p, gen, top_k = sample_args
+        return row_cache, select_rows(logits[:, -1], temp, top_p, [gen],
+                                      top_k)
+
+    def _install(self, slot: int, row_cache, length: int) -> None:
+        """Copy a batch-1 prefill cache into persistent slot ``slot``."""
+        if self.page_size > 0:
+            self._install_paged(slot, row_cache)
+        else:
+            for name, node in self._cache.items():
+                dst = node["attention"]
+                src = row_cache[name]["attention"]
+                n = src["cached_key"].shape[1]
+                dst["cached_key"][slot, :n] = src["cached_key"][0]
+                dst["cached_value"][slot, :n] = src["cached_value"][0]
+        self._set_slot_index(slot, length)
+
+    # -- paged-pool plumbing -----------------------------------------------
+    def _blocks_needed(self, total_tokens: int) -> int:
+        return -(-total_tokens // self.page_size)
+
+    def _chain_key(self, parent: Optional[int], tokens: List[int], j: int):
+        """Content key of prompt block j: (parent pool block id, that
+        page's tokens); leaf-first eviction keeps stale parent ids from
+        ever matching."""
+        page = self.page_size
+        return (parent, tuple(tokens[j * page:(j + 1) * page]))
+
+    def _match_prefix(self, tokens: List[int]) -> List[int]:
+        """Longest chain of cached full prompt blocks, capped so at
+        least one prompt token is left to prefill."""
+        if not self._prefix_cache:
+            return []
+        hits: List[int] = []
+        parent: Optional[int] = None
+        max_full = (len(tokens) - 1) // self.page_size
+        self.prefix_stats["lookups"] += 1
+        self.telemetry["prefix_lookups"].inc()
+        for j in range(max_full):
+            blk = self._registry.get(self._chain_key(parent, tokens, j))
+            if blk is None:
+                break
+            hits.append(blk)
+            parent = blk
+        return hits
+
+    def _alloc_blocks(self, slot: int, total_tokens: int,
+                      tokens: Optional[List[int]] = None) -> bool:
+        """Reserve the slot's block budget or decline.  Cached prefix
+        blocks satisfy the head of the budget; refcount-0 cached blocks
+        are evicted LRU to make room before declining."""
+        shared = self._match_prefix(tokens) if tokens else []
+        need = self._blocks_needed(total_tokens) - len(shared)
+        shared_set = set(shared)
+        if need > len(self._free_blocks) + sum(
+                1 for b, m in self._block_meta.items()
+                if m["refs"] == 0 and b not in shared_set):
+            # Infeasible even after full eviction: decline without
+            # evicting, so the reusable prefix cache survives.
+            return False
+        while len(self._free_blocks) < need:
+            if not self._evict_one(shared_set):
+                return False
+        self._prefix_clock += 1
+        for blk in shared:
+            meta = self._block_meta[blk]
+            meta["refs"] += 1
+            meta["last"] = self._prefix_clock
+        self.prefix_stats["hit_blocks"] += len(shared)
+        self.prefix_stats["hit_tokens"] += len(shared) * self.page_size
+        if shared:
+            self.telemetry["prefix_hit_blocks"].inc(len(shared))
+            self.telemetry["prefix_hit_tokens"].inc(
+                len(shared) * self.page_size)
+        priv = [self._free_blocks.pop() for _ in range(need)]
+        self._slot_blocks[slot] = shared + priv
+        self._slot_shared[slot] = len(shared)
+        return True
+
+    def _evict_one(self, protect: set) -> bool:
+        """Evict ONE cached block back to the free list (leaf-first LRU:
+        no slot references it and no registered child chains through
+        it).  Scheduler thread only."""
+        victim = min(
+            (b for b, m in self._block_meta.items()
+             if m["refs"] == 0 and not m["children"]
+             and b not in protect),
+            key=lambda b: self._block_meta[b]["last"], default=None)
+        if victim is None:
+            return False
+        meta = self._block_meta.pop(victim)
+        del self._registry[meta["key"]]
+        self._block_digest.pop(victim, None)
+        if meta["parent"] is not None:
+            parent_meta = self._block_meta.get(meta["parent"])
+            if parent_meta is not None:
+                parent_meta["children"].discard(victim)
+        self._free_blocks.append(victim)
+        self.prefix_stats["evicted"] += 1
+        self.telemetry["prefix_evicted"].inc()
+        return True
+
+    def _register_blocks(self, slot: int, tokens: List[int]) -> None:
+        """Content-address this slot's full prompt blocks for future
+        prefix hits (the slot itself holds one reference on each)."""
+        if not self._prefix_cache:
+            return
+        blocks = self._slot_blocks[slot]
+        parent = (blocks[self._slot_shared[slot] - 1]
+                  if self._slot_shared[slot] else None)
+        for j in range(self._slot_shared[slot],
+                       len(tokens) // self.page_size):
+            key = self._chain_key(parent, tokens, j)
+            existing = self._registry.get(key)
+            if existing is not None:
+                # Concurrent duplicate: keep the first, chain onward
+                # through it.
+                parent = existing
+                continue
+            blk = blocks[j]
+            self._registry[key] = blk
+            self._block_meta[blk] = {"key": key, "refs": 1,
+                                     "last": self._prefix_clock,
+                                     "parent": parent, "children": set()}
+            self._block_digest[blk] = _page_digest(
+                "" if parent is None
+                else self._block_digest.get(parent, ""),
+                tokens[j * self.page_size:(j + 1) * self.page_size])
+            if parent is not None and parent in self._block_meta:
+                self._block_meta[parent]["children"].add(blk)
+            parent = blk
+
+    def prefix_digest(self) -> List[str]:
+        """The replica's advertised prefix-cache hit index: the chain
+        digests of every registered prompt block.  Read from HTTP
+        threads while the scheduler mutates the dict — retry the
+        snapshot on a concurrent resize."""
+        if self.page_size <= 0 or not self._prefix_cache:
+            return []
+        for _ in range(8):
+            try:
+                return sorted(self._block_digest.values())
+            except RuntimeError:
+                continue
+        return []
+
+    def free_blocks(self) -> int:
+        """Pool blocks not reserved by any live slot (cached refcount-0
+        blocks count as free).  Read from HTTP threads without a lock; a
+        momentarily stale value only skews routing."""
+        if self.page_size <= 0:
+            return 0
+        for _ in range(8):
+            try:
+                cached = sum(1 for m in self._block_meta.values()
+                             if m["refs"] == 0)
+                return len(self._free_blocks) + cached
+            except RuntimeError:
+                continue
+        return len(self._free_blocks)
+
+    def _retire_slot(self, slot: int) -> None:
+        """Drop the slot's block references and point its table row back
+        at scratch block 0, so the still-ticking inactive row cannot
+        write into blocks about to be reallocated.  Registered blocks
+        stay cached at refcount-1; unregistered ones return to the free
+        list."""
+        if self.page_size <= 0:
+            return
+        blocks = self._slot_blocks.pop(slot, None)
+        self._slot_shared.pop(slot, None)
+        if not blocks:
+            return
+        for blk in blocks:
+            meta = self._block_meta.get(blk)
+            if meta is not None:
+                meta["refs"] -= 1
+            else:
+                self._free_blocks.append(blk)
+        self._retire_count += 1
+        # In place, after every launched step in stream order.
+        self._table[slot] = 0
+
+    def _table_row(self, blocks: List[int]):
+        """Slot block-table row: allocated blocks in logical order,
+        unmapped tail entries at scratch block 0."""
+        row = np.zeros((self._blocks_per_row,), np.int32)
+        row[:len(blocks)] = blocks
+        return self._tensor(row, torch.int32)
+
+    def _install_paged(self, slot: int, row_cache) -> None:
+        """Scatter a batch-1 dense prefill row into the slot's allocated
+        pool blocks (in place) and publish its table row."""
+        blocks = self._slot_blocks[slot]
+        barr = self._tensor(blocks, torch.long)
+        span = len(blocks) * self.page_size
+        for name, node in self._cache.items():
+            dst = node["attention"]
+            src = row_cache[name]["attention"]
+            for pool, dense in (("pool_key", "cached_key"),
+                                ("pool_value", "cached_value")):
+                seq = src[dense][0]                  # [L, KH, D]
+                take = min(seq.shape[0], span)
+                chunk = seq.new_zeros((span,) + tuple(seq.shape[1:]))
+                chunk[:take] = seq[:take]
+                if pool + "_scale" in dst:
+                    # Prefill ran on the dense layout; the int8 pool
+                    # stores quantized values + per-token scales.
+                    q8, sc = quantize_kv(chunk)
+                    dst[pool][barr] = q8.view(len(blocks), self.page_size,
+                                              *seq.shape[1:])
+                    dst[pool + "_scale"][barr] = sc.view(
+                        len(blocks), self.page_size, seq.shape[1])
+                else:
+                    dst[pool][barr] = chunk.view(
+                        len(blocks), self.page_size,
+                        *seq.shape[1:]).to(dst[pool].dtype)
+        self._table[slot] = self._table_row(blocks)
+
+    def _prefill_suffix(self, slot: int, tokens: List[int], sample_args):
+        """Prefill only the uncached prompt suffix into ``slot``: a
+        batch-1 view of the cache maps the slot's table (shared prefix +
+        private blocks) at cache_index = shared_len, so the paged
+        multi-token branch attends across the cached prefix and writes
+        suffix K/V only into the private blocks.  The view shares the
+        pools, so those writes land in place (the JAX batcher donated
+        the whole cache to this apply and rebuilt it from the output).
+        Returns the first token [1]."""
+        shared_len = self._slot_shared[slot] * self.page_size
+        suffix = tokens[shared_len:]
+        table_row = self._table_row(self._slot_blocks[slot])
+        start = self._tensor([shared_len], torch.int32)
+        view = {name: {"attention": {**node["attention"],
+                                     "block_table": table_row[None],
+                                     "cache_index": start}}
+                for name, node in self._cache.items()}
+        logits = self.model(self._tensor([suffix], torch.int32),
+                            cache=view, decode=True)
+        temp, top_p, gen, top_k = sample_args
+        first = select_rows(logits[:, -1], temp, top_p, [gen], top_k)
+        self._table[slot] = table_row
+        self._set_slot_index(slot, len(tokens))
+        return first
+
+    # -- public API --------------------------------------------------------
+    def _enqueue(self, tokens, max_new_tokens, temperature, top_p, seed,
+                 on_token=None, stop_tokens=(), top_k=0) -> _Request:
+        if len(tokens) + max_new_tokens > self._max_seq_len:
+            raise ValueError(
+                f"prompt ({len(tokens)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_seq_len "
+                f"{self._max_seq_len}")
+        if self.page_size > 0:
+            need = self._blocks_needed(len(tokens) + max_new_tokens)
+            if need > self._total_blocks:
+                raise ValueError(
+                    f"request needs {need} cache blocks but the pool "
+                    f"only has {self._total_blocks} (cache_blocks too "
+                    f"small)")
+        if self._stop.is_set():
+            raise self._shutdown_error()
+        if seed is None:
+            import random
+            seed = random.getrandbits(31)
+        req = _Request(list(map(int, tokens)), max_new_tokens,
+                       temperature=float(temperature), top_p=float(top_p),
+                       top_k=int(top_k), seed=int(seed),
+                       on_token=on_token,
+                       stop_tokens=frozenset(map(int, stop_tokens)),
+                       metrics=self.telemetry,
+                       submitted_at=time.perf_counter())
+        self._queue.put(req)
+        # The scheduler may have stopped and drained between the check
+        # above and this put: re-check and fail the request here.
+        if self._stop.is_set():
+            req.error = self._shutdown_error()
+            req.done.set()
+            raise req.error
+        self.telemetry["queue_depth"].set(self._queue.qsize())
+        return req
+
+    def submit(self, tokens: List[int], max_new_tokens: int,
+               timeout: float = 300.0, temperature: float = 0.0,
+               top_p: float = 1.0, seed: Optional[int] = None,
+               stop_tokens=(), top_k: int = 0) -> List[int]:
+        if max_new_tokens <= 0:
+            return []
+        req = self._enqueue(tokens, max_new_tokens, temperature, top_p,
+                            seed, stop_tokens=stop_tokens, top_k=top_k)
+        if not req.done.wait(timeout):
+            raise TimeoutError("generation timed out")
+        if req.error is not None:
+            raise req.error
+        return req.output
+
+    def submit_iter(self, tokens: List[int], max_new_tokens: int,
+                    timeout: float = 300.0, temperature: float = 0.0,
+                    top_p: float = 1.0, seed: Optional[int] = None,
+                    stop_tokens=(), top_k: int = 0):
+        """Streaming submit: yields each generated id as the batcher
+        produces it."""
+        if max_new_tokens <= 0:
+            return
+        sentinel = object()
+        out: "queue.Queue" = queue.Queue()
+        req = self._enqueue(tokens, max_new_tokens, temperature, top_p,
+                            seed, on_token=out.put,
+                            stop_tokens=stop_tokens, top_k=top_k)
+        threading.Thread(
+            target=lambda: (req.done.wait(timeout), out.put(sentinel)),
+            daemon=True).start()
+        try:
+            while True:
+                item = out.get(timeout=timeout)
+                if item is sentinel:
+                    break
+                yield item
+        finally:
+            # Closed early (client disconnect): cancel so the batcher
+            # frees the slot instead of decoding for nobody.
+            req.cancelled.set()
+        if req.error is not None:
+            raise req.error
+        if not req.done.is_set():
+            raise TimeoutError("generation timed out")
+
+    def fill_slots(self, context: int, headroom: int = 0) -> None:
+        """Occupy every slot with ``context`` cached tokens, whatever the
+        cache holds (no prefill runs), with room for ``headroom`` more:
+        blocks come from the allocator admission uses, and the table row
+        and cache index are set as an install sets them.  For timing
+        decode steps at a fixed context; call it before start()."""
+        if self._thread is not None:
+            raise RuntimeError("fill_slots: the scheduler loop is running")
+        with torch.inference_mode():
+            for i in range(self.max_slots):
+                if self.page_size > 0:
+                    if not self._alloc_blocks(i, context + headroom):
+                        raise ValueError(
+                            f"the pool cannot hold {self.max_slots} slots "
+                            f"of {context + headroom} tokens")
+                    self._table[i] = self._table_row(self._slot_blocks[i])
+                self._set_slot_index(i, context)
+
+    def _shutdown_error(self) -> RuntimeError:
+        if self.fatal_error is not None:
+            return RuntimeError(
+                f"batcher failed fatally during "
+                f"{self._fatal_phase or 'admission'}: "
+                f"{self.fatal_error!r}")
+        return RuntimeError("batcher stopped")
+
+    def start(self) -> "ContinuousBatcher":
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="continuous-batcher")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+
+    # -- scheduler loop ----------------------------------------------------
+    def _tick_fatal(self, exc: BaseException, phase: str) -> None:
+        """The scheduler cannot continue (a device error mid-launch or
+        mid-fetch, a failed in-place prefill, a streaming callback
+        blowing up): fail the whole batcher loudly."""
+        self.fatal_error = exc
+        self._fatal_phase = phase
+        self._stop.set()
+        log.error("batcher failed fatally during %s (dispatched %d, "
+                  "fetched %d ticks)", phase, self.ticks_dispatched,
+                  self.ticks_fetched, exc_info=exc)
+
+    def _loop(self) -> None:
+        with torch.inference_mode():
+            self._run()
+
+    def _run(self) -> None:
+        tm = self.telemetry
+        on_card = self.device.type == "cuda"
+        slots: List[Optional[_Request]] = [None] * self.max_slots
+        # Per-slot sampling state: host mirrors, uploaded once per
+        # admission wave; one generator per sampling slot (None greedy).
+        h_temps = np.zeros((self.max_slots,), np.float32)
+        h_top_ps = np.ones((self.max_slots,), np.float32)
+        h_top_ks = np.zeros((self.max_slots,), np.int32)
+        gens: List[Optional[torch.Generator]] = [None] * self.max_slots
+        temps = self._tensor(h_temps, torch.float32)
+        top_ps = self._tensor(h_top_ps, torch.float32)
+        top_ks = self._tensor(h_top_ks, torch.int32)
+        # Tokens feeding the NEXT launched step (on the device: the
+        # previous step's output with admission firsts scattered in).
+        next_tokens = torch.zeros((self.max_slots,), dtype=torch.int32,
+                                  device=self.device)
+        # The in-flight step: (token tensor, slots snapshot, done event).
+        pending: Optional[tuple] = None
+        # A request that could not get cache blocks waits here (FIFO
+        # order preserved) until retirements free enough of the pool.
+        deferred: Optional[_Request] = None
+        deferred_mark = -1
+
+        def dispatch_step():
+            """Launch one decode step across every slot (returns once
+            the work is queued on the card).  Inactive slots decode
+            garbage into their own rows; admission resets them."""
+            nonlocal next_tokens
+            with self._device_lock:
+                out = self.decode_step(next_tokens, temps, top_ps,
+                                       list(gens), top_ks)
+                done = None
+                if on_card:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+            next_tokens = out
+            self.ticks_dispatched += 1
+            tm["dispatches_total"].inc()
+            tm["pipeline_depth"].set(
+                self.ticks_dispatched - self.ticks_fetched)
+            return out, list(slots), done
+
+        def process_step(step) -> None:
+            """Fetch the step's tokens in ONE device->host transfer, then
+            emit / stop-check / retire.  Lanes whose request retired or
+            was replaced after the launch hold overrun tokens, dropped
+            here."""
+            out, snap, done = step
+            live = [i for i, req in enumerate(snap)
+                    if req is not None and req is slots[i]]
+            self.ticks_fetched += 1
+            tm["pipeline_depth"].set(
+                self.ticks_dispatched - self.ticks_fetched)
+            if not live:
+                return  # pure-overrun step: dropped without a transfer
+            out_np = self._fetch(out, done)
+            tm["transfers_total"].inc()
+            tm["ticks_total"].inc()
+            for i in live:
+                req = snap[i]
+                if req.cancelled.is_set():
+                    req.done.set()
+                    slots[i] = None
+                    self._retire_slot(i)
+                    continue
+                req.emit(int(out_np[i]))
+                if req.finished:
+                    req.done.set()
+                    slots[i] = None
+                    self._retire_slot(i)
+
+        while not self._stop.is_set():
+            # Pipelined launch-ahead: queue step k+1 from step k's
+            # on-device tokens BEFORE reading step k.
+            try:
+                ahead = None
+                if (pending is not None and self.pipelined
+                        and any(s is not None for s in slots)):
+                    ahead = dispatch_step()
+            except Exception as exc:
+                self._tick_fatal(exc, "dispatch")
+                break
+            try:
+                if pending is not None:
+                    process_step(pending)
+                pending = ahead
+            except Exception as exc:
+                self._tick_fatal(exc, "fetch")
+                break
+
+            # Admit new requests into free slots; per-slot state is
+            # staged host-side and uploaded once after the wave.
+            admitted = False
+            wave_idx: List[int] = []
+            wave_first: list = []
+            for i in range(self.max_slots):
+                if slots[i] is not None:
+                    continue
+                if deferred is not None:
+                    if deferred.cancelled.is_set():
+                        deferred.done.set()
+                        deferred = None
+                        continue
+                    if (self.page_size > 0
+                            and deferred_mark == self._retire_count):
+                        # Nothing retired since the failed allocation.
+                        break
+                    req, deferred = deferred, None
+                else:
+                    try:
+                        req = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                if req.cancelled.is_set():
+                    req.done.set()
+                    continue
+                if self.page_size > 0 and not self._alloc_blocks(
+                        i, len(req.tokens) + req.max_new_tokens,
+                        tokens=req.tokens):
+                    deferred = req  # pool exhausted; retry after retires
+                    deferred_mark = self._retire_count
+                    req.was_deferred = True
+                    break
+                tm["queue_wait_seconds"].labels(
+                    "deferred" if req.was_deferred else "direct").observe(
+                        time.perf_counter() - req.submitted_at)
+                try:
+                    gen = None
+                    if req.temperature > 0.0:
+                        gen = torch.Generator(device=self.device)
+                        gen.manual_seed(_slot_seed(req.seed,
+                                                   len(req.tokens)))
+                    sample_args = (
+                        self._tensor([req.temperature], torch.float32),
+                        self._tensor([req.top_p], torch.float32), gen,
+                        self._tensor([req.top_k], torch.int32))
+                    shared = (self._slot_shared.get(i, 0)
+                              if self.page_size > 0 else 0)
+                    with self._device_lock:
+                        if shared > 0:
+                            first = self._prefill_suffix(i, req.tokens,
+                                                         sample_args)
+                        else:
+                            row_cache, first = self._prefill(req.tokens,
+                                                             sample_args)
+                            self._install(i, row_cache, len(req.tokens))
+                    if self.page_size > 0:
+                        self._register_blocks(i, req.tokens)
+                    first_i = int(first[0])
+                    req.emit(first_i)
+                    if req.finished:
+                        req.done.set()
+                        self._retire_slot(i)
+                        continue
+                    slots[i] = req
+                    gens[i] = gen
+                    h_temps[i] = req.temperature
+                    h_top_ps[i] = req.top_p
+                    h_top_ks[i] = req.top_k
+                    wave_idx.append(i)
+                    wave_first.append(first_i)
+                    admitted = True
+                except Exception as exc:
+                    # Slot-local: prefill and install write only this
+                    # slot's dense row or private blocks (nothing is
+                    # donated, unlike the JAX batcher), and a sticky
+                    # device error resurfaces at the next launch, which
+                    # is fatal there.
+                    req.error = exc
+                    req.done.set()
+                    self._retire_slot(i)
+
+            if self._stop.is_set():
+                break  # external stop: drain
+
+            if wave_idx:
+                # One scatter for the wave's first tokens (landing on the
+                # in-flight step's outputs, the next step's inputs) and
+                # one upload per sampling-parameter array.
+                try:
+                    next_tokens = next_tokens.index_copy(
+                        0, self._tensor(wave_idx, torch.long),
+                        self._tensor(wave_first, torch.int32))
+                    temps = self._tensor(h_temps, torch.float32)
+                    top_ps = self._tensor(h_top_ps, torch.float32)
+                    top_ks = self._tensor(h_top_ks, torch.int32)
+                except Exception as exc:
+                    self._tick_fatal(exc, "admission-scatter")
+                    break
+
+            active_count = sum(1 for s in slots if s is not None)
+            tm["queue_depth"].set(self._queue.qsize())
+            tm["active_slots"].set(active_count)
+            if active_count:
+                tm["batch_size"].observe(active_count)
+
+            if not active_count:
+                if not admitted and pending is None:
+                    # Idle: wait for work without dequeuing.
+                    self._queue.wait_nonempty(0.05)
+                continue
+
+            # Plain tick: launch (pipeline bootstrap, or every tick in
+            # serialized mode); read at the next loop top.
+            if pending is None:
+                try:
+                    pending = dispatch_step()
+                except Exception as exc:
+                    self._tick_fatal(exc, "dispatch")
+                    break
+
+        # Drain on shutdown: submit() rejects once _stop is set, so this
+        # converges; pending and in-flight requests fail loudly.
+        if deferred is not None:
+            deferred.error = self._shutdown_error()
+            deferred.done.set()
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            req.error = self._shutdown_error()
+            req.done.set()
+        for req in slots:
+            if req is not None:
+                req.error = self._shutdown_error()
+                req.done.set()

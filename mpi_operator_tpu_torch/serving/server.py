@@ -1,0 +1,359 @@
+"""Minimal inference HTTP server, with the JAX package's wire format.
+
+Counterpart of ``mpi_operator_tpu/serving/server.py``:
+
+    POST /generate {"tokens": [[...]], "max_new_tokens": 8,
+                    "temperature": 0.0, "top_p": 1.0, "top_k": 0,
+                    "seed": null, "stop": [...], "eos_token_id": null}
+      -> {"tokens": [[...]]}
+    POST /generate {..., "stream": true}   -> text/event-stream (SSE),
+      one data event per token, then {"done": true, "tokens": [...]}
+    GET /healthz
+    GET /metrics      -> Prometheus text (serving registry + process
+      default registry)
+    GET /fleet-state  -> queue depth, slots and the prefix-cache digest
+      index
+
+With ``max_batch_slots > 0`` single-sequence requests share decode ticks
+through the continuous batcher (paged with ``kv_page_size > 0``);
+multi-row requests, and every request when batching is off, go through
+``generate()`` on the dense cache.  The card is a serial resource behind
+one device lock shared with the batcher.
+
+Not in this slice: ``/prefill``, ``/kv/pages`` and ``/debug-bundle``
+(501), draft models, ``mesh=``, ``weight_dtype="int8"``,
+``role != "unified"``, chunked prefill and causal-trace contexts — each
+raises, or answers 501, where it is asked for.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import torch
+
+from ..device import resolve_device
+from ..telemetry.metrics import (Registry, expose_with_defaults,
+                                 new_serving_metrics, record_build_info)
+
+_LEFT_OUT = ("is not ported yet (ROADMAP.md, queue 1, modules left out "
+             "of the serving slice)")
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *args):
+        pass
+
+    def _respond(self, code: int, payload: dict) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        server: "InferenceServer" = self.server.inference  # type: ignore
+        if self.path == "/healthz":
+            fatal = getattr(server._batcher, "fatal_error", None)
+            if fatal is not None:
+                self._respond(503, {"status": "failed",
+                                    "error": str(fatal)})
+            else:
+                self._respond(200, {"status": "ok"})
+        elif self.path == "/metrics":
+            body = expose_with_defaults(server.telemetry_registry).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif self.path == "/fleet-state":
+            self._respond(200, server.fleet_state())
+        elif self.path == "/debug-bundle":
+            self._respond(501, {"error": f"/debug-bundle {_LEFT_OUT}"})
+        else:
+            self._respond(404, {"error": "not found"})
+
+    def do_POST(self):
+        if self.path in ("/prefill", "/kv/pages"):
+            return self._respond(501, {"error": f"{self.path} {_LEFT_OUT}"})
+        if self.path != "/generate":
+            return self._respond(404, {"error": "not found"})
+        server: "InferenceServer" = self.server.inference  # type: ignore
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            req = json.loads(self.rfile.read(length))
+            if req.get("trace_context") is not None:
+                return self._respond(
+                    501, {"error": f"causal-trace contexts {_LEFT_OUT}"})
+            tokens = req["tokens"]
+            stop = req.get("stop") or []  # null = unset
+            if req.get("eos_token_id") is not None:
+                stop = list(stop) + [req["eos_token_id"]]
+            kwargs = dict(
+                max_new_tokens=int(req.get("max_new_tokens", 16)),
+                temperature=float(req.get("temperature", 0.0)),
+                top_p=float(req.get("top_p", 1.0)),
+                top_k=int(req.get("top_k") or 0),
+                seed=req.get("seed"),
+                stop_tokens=tuple(map(int, stop)))
+            if req.get("stream"):
+                return self._stream(server, tokens, kwargs)
+            out = server.generate(tokens, **kwargs)
+            self._respond(200, {"tokens": out})
+        except Exception as exc:
+            self._respond(400, {"error": str(exc)})
+
+    def _stream(self, server: "InferenceServer", tokens, kwargs) -> None:
+        """SSE: one `data: {"token": t}` event per generated token, then
+        `data: {"done": true, "tokens": [...]}`."""
+        it = server.stream(tokens, **kwargs)
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def emit(payload: dict) -> None:
+            chunk = f"data: {json.dumps(payload)}\n\n".encode()
+            self.wfile.write(f"{len(chunk):x}\r\n".encode() + chunk
+                             + b"\r\n")
+            self.wfile.flush()
+
+        produced = []
+        try:
+            try:
+                for tok in it:
+                    produced.append(tok)
+                    emit({"token": tok})
+                emit({"done": True, "tokens": produced})
+            except (BrokenPipeError, ConnectionResetError):
+                # Client went away mid-stream: closing the iterator
+                # cancels the batcher slot.
+                raise
+            except Exception as exc:
+                emit({"error": str(exc)})
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            self.close_connection = True
+        finally:
+            it.close()
+
+
+def _rows(tokens):
+    """One sequence or a batch of variable-length sequences -> rows."""
+    if hasattr(tokens, "tolist"):
+        tokens = tokens.tolist()
+    tokens = list(tokens)
+    if tokens and isinstance(tokens[0], (list, tuple)):
+        rows = [list(map(int, r)) for r in tokens]
+    else:
+        rows = [list(map(int, tokens))]
+    if any(not r for r in rows):
+        raise ValueError("empty prompt")
+    return rows
+
+
+class InferenceServer:
+    """HTTP front end over a port LlamaModel.  Loopback by default:
+    /generate is unauthenticated and compute-expensive."""
+
+    def __init__(self, model, host: str = "127.0.0.1", port: int = 0,
+                 max_batch_slots: int = 0, mesh=None,
+                 kv_page_size: int = 0, kv_cache_blocks: int = 0,
+                 kv_prefix_cache: bool = True, kv_cache_dtype: str = "auto",
+                 draft_model=None, draft_strategy: Optional[str] = None,
+                 kv_prefill_chunk: int = 0, weight_dtype: str = "auto",
+                 pipelined: bool = True,
+                 telemetry_registry: Optional[Registry] = None,
+                 role: str = "unified", model_name: str = "",
+                 device=None):
+        if role != "unified":
+            raise NotImplementedError(f"role={role!r} (disaggregated "
+                                      f"serving) {_LEFT_OUT}")
+        if mesh is not None:
+            raise NotImplementedError(f"tensor-parallel serving (mesh=) "
+                                      f"{_LEFT_OUT}")
+        if weight_dtype != "auto":
+            raise NotImplementedError(f"weight_dtype={weight_dtype!r} "
+                                      f"{_LEFT_OUT}")
+        if draft_model is not None or draft_strategy is not None:
+            raise NotImplementedError(f"speculative decoding {_LEFT_OUT}")
+        if kv_prefill_chunk:
+            raise NotImplementedError(f"chunked prefill {_LEFT_OUT}")
+        if kv_page_size > 0 and max_batch_slots <= 0:
+            raise ValueError(
+                "kv_page_size requires continuous batching "
+                "(max_batch_slots > 0); the non-batched path uses the "
+                "dense cache")
+        if kv_cache_dtype != "auto" and kv_page_size <= 0:
+            raise ValueError(
+                f"kv_cache_dtype={kv_cache_dtype!r} requires "
+                f"kv_page_size > 0 (only the paged pool is quantized)")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, server on "
+                             f"{self.device}")
+        self.model = model
+        self.role = role
+        self.model_name = model_name
+        self._lock = threading.Lock()   # the card is single-flight
+        self.telemetry_registry = telemetry_registry or Registry()
+        self.telemetry = new_serving_metrics(self.telemetry_registry)
+        record_build_info()
+        self._batcher = None
+        if max_batch_slots > 0:
+            from .batcher import ContinuousBatcher
+            self._batcher = ContinuousBatcher(
+                model, max_slots=max_batch_slots, device_lock=self._lock,
+                page_size=kv_page_size, cache_blocks=kv_cache_blocks,
+                prefix_cache=kv_prefix_cache, kv_cache_dtype=kv_cache_dtype,
+                pipelined=pipelined,
+                telemetry_registry=self.telemetry_registry,
+                device=self.device)
+        self._http = ThreadingHTTPServer((host, port), _Handler)
+        self._http.inference = self  # type: ignore[attr-defined]
+        self.port = self._http.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    # -- inference ---------------------------------------------------------
+    def generate(self, tokens, max_new_tokens: int = 16,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed=None, stop_tokens=(), top_k: int = 0) -> list:
+        try:
+            with self.telemetry["request_seconds"].time():
+                return self._generate(tokens, max_new_tokens, temperature,
+                                      top_p, seed, stop_tokens, top_k)
+        finally:
+            self.telemetry["requests_total"].inc()
+
+    def _generator(self, seed, temperature):
+        if temperature <= 0.0 or seed is None:
+            return None
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _generate(self, tokens, max_new_tokens, temperature, top_p, seed,
+                  stop_tokens, top_k) -> list:
+        from ..models.llama import generate
+
+        rows = _rows(tokens)
+        if self._batcher is not None and len(rows) == 1:
+            return [self._batcher.submit(
+                rows[0], max_new_tokens, temperature=temperature,
+                top_p=top_p, seed=seed, stop_tokens=stop_tokens,
+                top_k=top_k)]
+        # Right-pad to a rectangle; each row decodes from its own end.
+        lengths = [len(r) for r in rows]
+        width = max(lengths)
+        prompt = [r + [0] * (width - len(r)) for r in rows]
+        with self._lock:
+            out = generate(self.model, prompt, max_new_tokens,
+                           temperature=temperature, top_p=top_p,
+                           generator=self._generator(seed, temperature),
+                           prompt_lengths=(lengths if len(set(lengths)) > 1
+                                           else None),
+                           stop_tokens=stop_tokens, top_k=top_k)
+        return out.cpu().tolist()
+
+    def stream(self, tokens, max_new_tokens: int = 16,
+               temperature: float = 0.0, top_p: float = 1.0, seed=None,
+               stop_tokens=(), top_k: int = 0):
+        """Yield generated ids one at a time for ONE sequence (the SSE
+        source): through the batcher when enabled, else per decode step
+        under the device lock so a slow consumer never holds the card."""
+        start = time.perf_counter()
+        try:
+            yield from self._stream(tokens, max_new_tokens, temperature,
+                                    top_p, seed, stop_tokens, top_k)
+        finally:
+            self.telemetry["request_seconds"].observe(
+                time.perf_counter() - start)
+            self.telemetry["requests_total"].inc()
+
+    def _stream(self, tokens, max_new_tokens, temperature, top_p, seed,
+                stop_tokens, top_k):
+        from ..models.llama import stream_generate
+
+        rows = _rows(tokens)
+        if len(rows) != 1:
+            raise ValueError("streaming supports one sequence")
+        if self._batcher is not None:
+            yield from self._batcher.submit_iter(
+                rows[0], max_new_tokens, temperature=temperature,
+                top_p=top_p, seed=seed, stop_tokens=stop_tokens,
+                top_k=top_k)
+            return
+        gen = stream_generate(
+            self.model, rows[0], max_new_tokens, temperature=temperature,
+            top_p=top_p, generator=self._generator(seed, temperature),
+            stop_tokens=stop_tokens, top_k=top_k)
+        start = time.perf_counter()
+        last = None
+        try:
+            while True:
+                with self._lock:
+                    try:
+                        tok = next(gen)
+                    except StopIteration:
+                        return
+                now = time.perf_counter()
+                if last is None:
+                    self.telemetry["ttft_seconds"].observe(now - start)
+                else:
+                    self.telemetry["token_latency_seconds"].observe(
+                        now - last)
+                last = now
+                yield tok
+        finally:
+            gen.close()
+
+    def fleet_state(self) -> dict:
+        """The GET /fleet-state payload: queue depth and slot occupancy,
+        the prefix-cache digest index, identity and free pool blocks."""
+        b = self._batcher
+        if b is None:
+            return {"healthy": True, "queue_depth": 0, "active_slots": 0,
+                    "slots": 0, "page_size": 0, "prefix_digests": [],
+                    "role": self.role, "model": self.model_name,
+                    "free_blocks": 0}
+        return {
+            "healthy": b.fatal_error is None,
+            "queue_depth": b._queue.qsize(),
+            "active_slots": int(b.telemetry["active_slots"].value),
+            "slots": b.max_slots,
+            "page_size": b.page_size,
+            "prefix_digests": b.prefix_digest(),
+            "role": self.role,
+            "model": self.model_name,
+            "free_blocks": b.free_blocks(),
+        }
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> "InferenceServer":
+        if self._batcher is not None:
+            self._batcher.start()
+        self._thread = threading.Thread(target=self._http.serve_forever,
+                                        daemon=True, name="inference")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._batcher is not None:
+            self._batcher.stop()
+        if self._thread is not None:
+            self._http.shutdown()
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._http.server_close()
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
