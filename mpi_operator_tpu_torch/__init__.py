@@ -2,8 +2,9 @@
 
 A package of its own beside ``mpi_operator_tpu`` (the JAX reference,
 which it never imports).  Module names mirror the JAX package so each
-counterpart is easy to find: ``models/llama.py``, ``ops/paged_attention.py``,
-``serving/batcher.py``, ``serving/server.py``, ``telemetry/metrics.py``.
+counterpart is easy to find: ``models/llama.py``, ``ops/attention.py``,
+``ops/paged_attention.py``, ``parallel/train.py``, ``serving/batcher.py``,
+``serving/server.py``, ``telemetry/metrics.py``, ``utils/checkpoint.py``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`device.resolve_device`); the hot-path

@@ -1,10 +1,13 @@
-"""Llama-2 model family in PyTorch: the decode path.
+"""Llama-2 model family in PyTorch: the training forward and the decode
+path.
 
 Counterpart of ``mpi_operator_tpu/models/llama.py`` (RMSNorm, RoPE with
-llama3 scaling, SwiGLU, optional GQA) for serving: the dense per-row KV
-cache, the paged block-pool cache with optional int8 K/V, paged decode
-attention through the hand-written kernel (``ops/paged_attention.py``),
-row-wise sampling and the generate loops.
+llama3 scaling, SwiGLU, optional GQA).  The training forward
+(``decode=False``) runs causal flash attention through the hand-written
+kernels of ``ops/attention.py`` on the card; serving uses the dense
+per-row KV cache or the paged block-pool cache with optional int8 K/V,
+paged decode attention through ``ops/paged_attention.py``, row-wise
+sampling and the generate loops.
 
 The KV cache is an explicit state object, not a flax ``cache``
 collection: a nested dict ``{"layers_<i>": {"attention": {...}}}`` whose
@@ -15,12 +18,14 @@ per-layer leaves carry the JAX leaf names (``cache_index`` [B],
 into the existing buffers (JAX returned a new, donated tree) and each
 layer's ``cache_index`` entry is rebound to the advanced index.
 
-Matmul weights and the embedding are stored in ``config.dtype``: flax
-casts its f32 params to ``dtype`` at every use, so this is the same
-arithmetic at half the memory.  Norm scales stay f32.
+Matmul weights and the embedding are stored in ``store_dtype``
+(default ``config.dtype``) and cast to ``config.dtype`` at every use, as
+flax casts its f32 params: serving stores them in ``dtype`` (the same
+arithmetic at half the memory), training stores them in
+``config.param_dtype`` (f32) so the optimizer updates f32 weights, as
+the JAX ``TrainState`` does.  Norm scales stay in ``param_dtype``.
 
-Not in this slice: the training forward (``decode=False``, flash
-attention), MoE (``n_experts > 1``) and weight-only int8 — each raises
+Not ported: MoE (``n_experts > 1``) and weight-only int8 — each raises
 NotImplementedError naming the roadmap item that ports it.
 """
 
@@ -34,8 +39,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.attention import attention
 from ..ops.paged_attention import paged_decode_attention
 
 
@@ -209,9 +216,26 @@ class RMSNorm(nn.Module):
         return (norm * self.scale).to(x.dtype)
 
 
-def _linear(cfg: LlamaConfig, n_in: int, n_out: int, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, device=device,
-                     dtype=cfg.dtype)
+class Linear(nn.Linear):
+    """Bias-free ``nn.Linear`` whose weight is stored in ``store_dtype``
+    and cast to ``compute_dtype`` at use, with its input (flax
+    ``DenseGeneral(dtype=..., param_dtype=...)``).  The casts are no-ops
+    when the two types agree."""
+
+    def __init__(self, n_in: int, n_out: int, compute_dtype, store_dtype,
+                 device=None):
+        super().__init__(n_in, n_out, bias=False, device=device,
+                         dtype=store_dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))
+
+
+def _linear(cfg: LlamaConfig, n_in: int, n_out: int, store_dtype,
+            device=None) -> Linear:
+    return Linear(n_in, n_out, cfg.dtype, store_dtype, device=device)
 
 
 def _decode_attention(q, k_cache, v_cache, positions, gqa_repeat: int,
@@ -236,18 +260,21 @@ def _decode_attention(q, k_cache, v_cache, positions, gqa_repeat: int,
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, store_dtype):
         super().__init__()
         self.config = cfg
         hd = cfg.head_dim
-        self.wq = _linear(cfg, cfg.dim, cfg.n_heads * hd, device)
-        self.wk = _linear(cfg, cfg.dim, cfg.kv_heads * hd, device)
-        self.wv = _linear(cfg, cfg.dim, cfg.kv_heads * hd, device)
-        self.wo = _linear(cfg, cfg.n_heads * hd, cfg.dim, device)
+        self.wq = _linear(cfg, cfg.dim, cfg.n_heads * hd, store_dtype)
+        self.wk = _linear(cfg, cfg.dim, cfg.kv_heads * hd, store_dtype)
+        self.wv = _linear(cfg, cfg.dim, cfg.kv_heads * hd, store_dtype)
+        self.wo = _linear(cfg, cfg.n_heads * hd, cfg.dim, store_dtype)
 
-    def forward(self, x, cache: dict):
-        """x [B, S, dim]; ``cache`` is this layer's cache dict, updated
-        in place.  The layout (dense or paged) is the cache's."""
+    def forward(self, x, cache: Optional[dict], positions=None):
+        """x [B, S, dim].  With ``cache`` (this layer's cache dict,
+        updated in place; dense or paged by its layout): the decode
+        path.  Without: the training forward at ``positions`` [S]."""
+        if cache is None:
+            return self._train(x, positions)
         cfg = self.config
         b, s, _ = x.shape
         hd, kvh = cfg.head_dim, cfg.kv_heads
@@ -277,6 +304,22 @@ class LlamaAttention(nn.Module):
             out = _decode_attention(q, ck, cv, positions,
                                     cfg.n_heads // kvh,
                                     window=cfg.sliding_window)
+        return self.wo(out.reshape(b, s, cfg.n_heads * hd))
+
+    def _train(self, x, positions):
+        cfg = self.config
+        b, s, _ = x.shape
+        hd, kvh = cfg.head_dim, cfg.kv_heads
+        q = _rope(self.wq(x).view(b, s, cfg.n_heads, hd), positions,
+                  cfg.rope_theta, cfg.rope_scaling)
+        k = _rope(self.wk(x).view(b, s, kvh, hd), positions, cfg.rope_theta,
+                  cfg.rope_scaling)
+        v = self.wv(x).view(b, s, kvh, hd)
+        if kvh != cfg.n_heads:               # GQA: repeat KV groups
+            k = k.repeat_interleave(cfg.n_heads // kvh, dim=2)
+            v = v.repeat_interleave(cfg.n_heads // kvh, dim=2)
+        out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                        window=cfg.sliding_window)
         return self.wo(out.reshape(b, s, cfg.n_heads * hd))
 
     def _paged(self, cache, q, k, v, positions):
@@ -335,40 +378,42 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, store_dtype):
         super().__init__()
-        self.w1 = _linear(cfg, cfg.dim, cfg.ffn_dim, device)
-        self.w3 = _linear(cfg, cfg.dim, cfg.ffn_dim, device)
-        self.w2 = _linear(cfg, cfg.ffn_dim, cfg.dim, device)
+        self.w1 = _linear(cfg, cfg.dim, cfg.ffn_dim, store_dtype)
+        self.w3 = _linear(cfg, cfg.dim, cfg.ffn_dim, store_dtype)
+        self.w2 = _linear(cfg, cfg.ffn_dim, cfg.dim, store_dtype)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, store_dtype):
         super().__init__()
-        self.attention = LlamaAttention(cfg, device)
+        self.attention = LlamaAttention(cfg, store_dtype)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps,
-                                      cfg.param_dtype, device)
-        self.feed_forward = LlamaMLP(cfg, device)
-        self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype,
-                                device)
+                                      cfg.param_dtype, None)
+        self.feed_forward = LlamaMLP(cfg, store_dtype)
+        self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, None)
 
-    def forward(self, x, cache: dict):
-        h = x + self.attention(self.attention_norm(x), cache)
+    def forward(self, x, cache: Optional[dict], positions=None):
+        h = x + self.attention(self.attention_norm(x), cache, positions)
         return h + self.feed_forward(self.ffn_norm(h))
 
 
 class LlamaModel(nn.Module):
-    """Causal LM decode path: tokens [B, S] + cache -> logits [B, S, V].
+    """Causal LM: tokens [B, S] -> logits [B, S, V]; the training forward
+    without a cache, the decode path with one.
 
     Parameters are allocated on ``device`` (default: the CUDA card)
     without initialisation; fill them with ``load_state_dict`` or build
     the model through ``models.params`` (``init_params``,
-    ``load_flax_params``)."""
+    ``load_flax_params``).  ``store_dtype`` is the storage type of the
+    matmul weights and the embedding (default ``config.dtype``; training
+    passes ``config.param_dtype``)."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, store_dtype=None):
         super().__init__()
         if config.n_experts > 1:
             raise NotImplementedError(
@@ -380,16 +425,17 @@ class LlamaModel(nn.Module):
                 "ROADMAP.md, queue 1, 'Modules left out of the serving "
                 "slice' (models/quant.py)")
         dev = resolve_device(device)
+        store = store_dtype or config.dtype
         self.config = config
         with torch.device("meta"):
             self.tok_embeddings = nn.Embedding(config.vocab_size, config.dim,
-                                               dtype=config.dtype)
+                                               dtype=store)
             self.layers = nn.ModuleList(
-                LlamaBlock(config, None) for _ in range(config.n_layers))
+                LlamaBlock(config, store) for _ in range(config.n_layers))
             self.norm = RMSNorm(config.dim, config.norm_eps,
                                 config.param_dtype, None)
             self.output = _linear(config, config.dim, config.vocab_size,
-                                  None)
+                                  store)
         self.to_empty(device=dev)
         with torch.no_grad():
             for module in self.modules():
@@ -401,18 +447,45 @@ class LlamaModel(nn.Module):
         return self.output.weight.device
 
     def forward(self, tokens, cache: Optional[dict] = None,
-                decode: bool = False):
-        if not decode:
-            raise NotImplementedError(
-                "the training forward (decode=False: flash attention, "
-                "kernels K1-K3) is not ported yet: ROADMAP.md queue 1, "
-                "training slice")
-        if cache is None:
-            raise ValueError("decode=True needs a KV cache (init_cache)")
-        x = self.tok_embeddings(tokens)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, cache[f"layers_{i}"]["attention"])
-        return self.output(self.norm(x))
+                decode: bool = False, return_hidden: bool = False):
+        """``return_hidden`` returns the normed pre-head hidden states
+        [B, S, dim] (the fused-xent loss applies the head itself).  With
+        ``config.remat`` each block of the training forward runs under
+        activation checkpointing (flax ``nn.remat``)."""
+        cfg = self.config
+        # The table is cast to dtype before the lookup, as flax's
+        # promote_dtype does.
+        x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
+        if decode:
+            if cache is None:
+                raise ValueError("decode=True needs a KV cache (init_cache)")
+            for i, layer in enumerate(self.layers):
+                x = layer(x, cache[f"layers_{i}"]["attention"])
+        else:
+            if cache is not None:
+                raise ValueError("the training forward (decode=False) takes "
+                                 "no KV cache")
+            positions = torch.arange(tokens.shape[1], device=x.device)
+            for layer in self.layers:
+                if cfg.remat:
+                    x = checkpoint(layer, x, None, positions,
+                                   use_reentrant=False)
+                else:
+                    x = layer(x, None, positions)
+        x = self.norm(x)
+        if return_hidden:
+            return x
+        return self.output(x)
+
+
+def next_token_loss(logits, tokens):
+    """Shifted cross-entropy: predict tokens[:, 1:] from logits[:, :-1]
+    (logits come in ``dtype`` and are cast to f32 here, as in JAX)."""
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 # -- cache helpers ---------------------------------------------------------
@@ -481,9 +554,10 @@ def _set_block_tables(cache, table):
     return replace_cache_leaf(cache, "block_table", table)
 
 
-def canonical_block_table(batch: int, config: LlamaConfig, device="cpu"):
+def canonical_block_table(batch: int, config: LlamaConfig, device=None):
     """Contiguous allocation: row r owns pool blocks
-    [1 + r*blocks_per_row, ...) — block 0 stays reserved scratch."""
+    [1 + r*blocks_per_row, ...) — block 0 stays reserved scratch.  On
+    ``device`` (default: the card)."""
     bpr = config.blocks_per_row
     need = 1 + batch * bpr
     if config.pool_blocks(batch) < need:
@@ -492,7 +566,7 @@ def canonical_block_table(batch: int, config: LlamaConfig, device="cpu"):
             f"batch {batch} at max_seq_len {config.max_seq_len} "
             f"(page_size {config.page_size})")
     return 1 + torch.arange(batch * bpr, dtype=torch.int32,
-                            device=device).reshape(batch, bpr)
+                            device=resolve_device(device)).reshape(batch, bpr)
 
 
 # -- sampling --------------------------------------------------------------

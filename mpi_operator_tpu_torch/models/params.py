@@ -5,8 +5,9 @@ Flax ``DenseGeneral`` kernels are laid out [in, ...out] (``wq``/``wk``/
 ``wv`` [dim, H, D], ``wo`` [H, D, dim], ``w1``/``w3`` [dim, F], ``w2``
 [F, dim], ``output`` [dim, V]); a torch ``nn.Linear`` weight is
 [out, in].  Matmul weights and the embedding are stored in
-``config.dtype`` (flax casts its f32 params to it at every use); norm
-scales stay f32.
+``config.dtype`` for serving (flax casts its f32 params to it at every
+use) or, given ``dtype=torch.float32``, in f32 for training; norm scales
+stay f32.
 """
 
 from __future__ import annotations
@@ -64,24 +65,29 @@ def from_flax_params(tree, cfg: LlamaConfig,
     return sd
 
 
-def load_flax_params(tree, cfg: LlamaConfig, device=None) -> LlamaModel:
-    """A LlamaModel on ``device`` holding the JAX model's weights."""
-    model = LlamaModel(cfg, device=device)
-    model.load_state_dict(from_flax_params(tree, cfg))
+def load_flax_params(tree, cfg: LlamaConfig, device=None,
+                     dtype: Optional[torch.dtype] = None) -> LlamaModel:
+    """A LlamaModel on ``device`` holding the JAX model's weights, its
+    matmul weights and embedding stored in ``dtype`` (default
+    ``cfg.dtype``; ``cfg.param_dtype`` for training)."""
+    model = LlamaModel(cfg, device=device, store_dtype=dtype)
+    model.load_state_dict(from_flax_params(tree, cfg, dtype))
     return model.eval()
 
 
 @torch.no_grad()
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> LlamaModel:
+                device=None, dtype: Optional[torch.dtype] = None
+                ) -> LlamaModel:
     """A seeded random LlamaModel built on ``device``: normal weights
-    with std 1/sqrt(fan_in) (the embedding std 1), norm scales 1.  The
-    values are drawn on the generator's device, which must be
+    with std 1/sqrt(fan_in) (the embedding std 1), norm scales 1, matmul
+    weights and embedding stored in ``dtype`` (default ``cfg.dtype``).
+    The values are drawn in f32 on the generator's device, which must be
     ``device``."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
-    model = LlamaModel(cfg, device=dev)
+    model = LlamaModel(cfg, device=dev, store_dtype=dtype)
     for name, p in model.named_parameters():
         if name.endswith(".scale"):
             p.fill_(1.0)

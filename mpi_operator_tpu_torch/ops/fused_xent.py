@@ -1,0 +1,94 @@
+"""Fused next-token cross-entropy: the [N, V] logits never materialize.
+Counterpart of ``mpi_operator_tpu/ops/fused_xent.py``.
+
+The loss streams vocab chunks: the forward folds an online (max, sumexp)
+pair in f32 and picks the gold logit chunk by chunk; the backward
+recomputes each chunk's logits and forms dlogits = (softmax - onehot) *
+g / N.  Memory on the activation side drops from [N, V] to [N, chunk].
+This is not a kernel (the JAX package wrote none either): the chunk
+products are plain matrix products.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _num_chunks(vocab: int, chunk: int) -> int:
+    if vocab % chunk != 0:
+        raise ValueError(f"vocab_size {vocab} not divisible by "
+                         f"chunk {chunk}")
+    return vocab // chunk
+
+
+def _chunk_logits(x, w, c: int, chunk: int):
+    """f32 logits of vocab chunk c: (x @ w[:, chunk c]) in x's dtype,
+    then cast, as ``jnp.dot(x, wc).astype(f32)``."""
+    return (x @ w[:, c * chunk:(c + 1) * chunk]).float()
+
+
+class _FusedSoftmaxXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, targets, chunk):
+        n = x.shape[0]
+        m = torch.full((n,), NEG_INF, dtype=torch.float32, device=x.device)
+        s = torch.zeros((n,), dtype=torch.float32, device=x.device)
+        gold = torch.zeros((n,), dtype=torch.float32, device=x.device)
+        tgt = targets.long()
+        for c in range(_num_chunks(w.shape[1], chunk)):
+            logits = _chunk_logits(x, w, c, chunk)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            # Rescale the running sum onto the new max (online logsumexp).
+            s = s * torch.exp(m - m_new) + torch.exp(
+                logits - m_new[:, None]).sum(-1)
+            m = m_new
+            local = tgt - c * chunk
+            inside = (local >= 0) & (local < chunk)
+            picked = logits.gather(-1, local.clamp(0, chunk - 1)[:, None])
+            gold = torch.where(inside, picked[:, 0], gold)
+        logz = m + torch.log(s)
+        ctx.save_for_backward(x, w, tgt, logz)
+        ctx.chunk = chunk
+        return (logz - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, tgt, logz = ctx.saved_tensors
+        chunk = ctx.chunk
+        n = x.shape[0]
+        scale = (g / n).float()
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dw = []
+        for c in range(_num_chunks(w.shape[1], chunk)):
+            p = torch.exp(_chunk_logits(x, w, c, chunk) - logz[:, None])
+            local = tgt - c * chunk
+            inside = (local >= 0) & (local < chunk)
+            onehot = torch.zeros_like(p)
+            onehot.scatter_(-1, local.clamp(0, chunk - 1)[:, None],
+                            inside[:, None].float())
+            dl = ((p - onehot) * scale).to(x.dtype)
+            dx += (dl @ w[:, c * chunk:(c + 1) * chunk].t()).float()
+            dw.append(x.t() @ dl)                     # [D, chunk]
+        return dx.to(x.dtype), torch.cat(dw, dim=1).to(w.dtype), None, None
+
+
+def fused_softmax_xent(x, w, targets, chunk: int = 4096):
+    """Mean cross-entropy of rows ``x`` [N, D] against ``targets`` [N]
+    under the classifier ``w`` [D, V] — numerically
+    ``mean(logsumexp((x @ w).float()) - take(logits, targets))`` with the
+    logits materialized ``chunk`` columns at a time.  The products run
+    in x's dtype; returns a scalar f32."""
+    return _FusedSoftmaxXent.apply(x, w, targets, chunk)
+
+
+def fused_next_token_loss(hidden, out_kernel, tokens, chunk: int = 4096):
+    """Shifted next-token mean cross-entropy from the PRE-head hidden
+    states [B, S, D] (the model called with ``return_hidden=True``) and
+    the output projection [D, V] (``model.output.weight`` transposed,
+    cast to ``dtype``), with no [B, S, V] tensor."""
+    b, s, d = hidden.shape
+    x = hidden[:, :-1].reshape(b * (s - 1), d)
+    targets = tokens[:, 1:].reshape(b * (s - 1))
+    return fused_softmax_xent(x, out_kernel, targets, chunk)

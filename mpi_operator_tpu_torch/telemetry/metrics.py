@@ -322,6 +322,11 @@ class Registry:
 
 _DEFAULT_REGISTRY = Registry()
 
+
+def default_registry() -> Registry:
+    """The process-wide registry (training counters, build info)."""
+    return _DEFAULT_REGISTRY
+
 # Prometheus-convention process start (epoch seconds at import).
 _PROCESS_START_TIME = time.time()
 

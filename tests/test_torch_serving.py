@@ -341,28 +341,39 @@ def test_out_of_slice_options_raise(weights):
 _PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                      (REPO / "mpi_operator_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "examples/llama_serve_torch.py",
-    "tools/torch_decode_profile.py"]
+    "examples/llama_train_torch.py", "tools/torch_decode_profile.py"]
 
 
 def test_port_imports_no_jax_and_serves_the_example_demo():
-    """The port, its smoke script and its example import torch, never
-    jax/flax or mpi_operator_tpu: in a subprocess where those cannot be
-    imported, chip_smoke imports and the example serves a demo request
-    on the CPU; and no source names the JAX package's modules."""
+    """The port, its smoke script and its examples import torch, never
+    jax/flax/optax/orbax or mpi_operator_tpu: in a subprocess where those
+    cannot be imported, chip_smoke imports, the serving example serves a
+    demo request and the training example takes 2 tiny steps on the
+    CPU; and no source names the JAX package's modules."""
     code = ("import runpy, sys\n"
-            "for name in ('jax', 'flax', 'mpi_operator_tpu'):\n"
+            "for name in ('jax', 'flax', 'optax', 'orbax',\n"
+            "             'mpi_operator_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import chip_smoke\n"
-            "sys.argv = ['llama_serve_torch.py', '--config', 'tiny',\n"
-            "            '--device', 'cpu', '--port', '0', '--demo']\n"
-            "runpy.run_path('examples/llama_serve_torch.py',\n"
-            "               run_name='__main__')\n")
+            "def run(path, *argv):\n"
+            "    sys.argv = [path, *argv]\n"
+            "    try:\n"
+            "        runpy.run_path(path, run_name='__main__')\n"
+            "    except SystemExit as exc:\n"
+            "        assert exc.code in (0, None), exc.code\n"
+            "run('examples/llama_serve_torch.py', '--config', 'tiny',\n"
+            "    '--device', 'cpu', '--port', '0', '--demo')\n"
+            "run('examples/llama_train_torch.py', '--config', 'tiny',\n"
+            "    '--device', 'cpu', '--steps', '2', '--seq-len', '32')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
     demo = [ln for ln in proc.stdout.splitlines() if ln.startswith("demo:")]
     assert len(json.loads(demo[0][len("demo:"):])["tokens"][0]) == 8
-    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|mpi_operator_tpu)"
+    assert any(ln.startswith("tokens/sec: ") for ln in
+               proc.stdout.splitlines()), proc.stdout
+    banned = re.compile(r"^\s*(import|from)\s+"
+                        r"(jax|flax|optax|orbax|mpi_operator_tpu)"
                         r"\b(?!_)|mpi_operator_tpu\.", re.M)
     for rel in _PORT_FILES:
         hit = banned.search((REPO / rel).read_text())
