@@ -8,9 +8,9 @@ continued:
 
 1. card      the card's name and power limit (nvidia-smi), the torch and
              CUDA versions and `nvcc --version`.
-2. build     both kernel sources under mpi_operator_tpu_torch/ops/csrc/
-             (paged_attention.cu, flash_attention.cu), each by its own
-             nvcc, started together; each -Xptxas -v register /
+2. build     the three kernel sources under mpi_operator_tpu_torch/ops/csrc/
+             (paged_attention.cu, flash_attention.cu, rmsnorm.cu), each by
+             its own nvcc, started together; each -Xptxas -v register /
              shared-memory / spill report is printed.
 3. kernels   each kernel against its plain PyTorch version on the card.
              K4' (paged decode attention) at the serving path's shapes:
@@ -25,12 +25,21 @@ continued:
              value| is at most 2e-2 forward and 5e-2 for gradients in
              bf16, 2e-5 and 5e-4 in f32; a planted fault (key block 0 of
              one head replaced by block 10, given to the kernels only)
-             must exceed each limit.  Kernels are timed by CUDA-graph
-             replay between CUDA events (device time; the wrapper's host
-             time is printed apart), beside their bound (bytes over 3.35
-             TB/s or operations over the type's peak rate, whichever is
-             larger), the plain version's time and, for K1'-K3',
-             scaled_dot_product_attention's forward and backward.
+             must exceed each limit.  K5' (fused RMSNorm) at the training
+             shape (8192 x 4096, bf16 and f32), the decode shape (8 x
+             4096) and ragged rows (d 4100 and 4099): per row, the
+             largest error over the largest |plain output| is at most
+             2e-2 in bf16 and 2e-5 in f32, rstd within 2e-5; a planted
+             fault (one row normalised with a scale 5% too large) must
+             exceed it; then K5''s own path, rmsnorm(impl="auto") and
+             fused_rmsnorm forward and backward, with its launches
+             counted.  Kernels are timed by CUDA-graph replay between
+             CUDA events (device time; the wrapper's host time is printed
+             apart), beside their bound (bytes over 3.35 TB/s or
+             operations over the type's peak rate, whichever is larger),
+             the plain version's time and the library call's:
+             scaled_dot_product_attention's forward and backward for
+             K1'-K3', torch.nn.functional.rms_norm for K5'.
 4. parity    tiny f32 models on the card equal the plain path on the CPU:
              paged greedy generate, and two AdamW train steps through the
              flash kernels (loss and grad_norm at 1e-4).
@@ -43,7 +52,36 @@ continued:
              plus one SSE stream, then a prefix-sharing pair.  Checked:
              every response's token count, concurrent == alone, the SSE
              stream == alone, transfers == ticks, and the paged attention
-             kernel's launches == decode steps x n_layers.
+             kernel's launches == decode steps x n_layers.  Then, on the
+             same model, each server freed before the next:
+             speculation   4 slots, draft_len 4: the model as its own
+                           draft (4 greedy prompts of 64-1000 tokens),
+                           and prompt lookup (4 prompts that quote a
+                           200-token span twice, beside one sampling
+                           request); acceptance printed; every token of
+                           every stream, speculative and plain, replayed
+                           on its own context through width-1 steps: it
+                           must be the replay's argmax or short of it
+                           by less than the measured step-vs-wide logit
+                           error (a bf16 near-tie); K4' launches ==
+                           plain ticks x n_layers.  Two planted faults
+                           in the verify (emission shifted by one
+                           position, verify index one past the stream)
+                           must each fail that check.
+             chunked       prefill_chunk 512 on the serving prompts:
+                           last-position logits against the unchunked
+                           prefill within 5e-2 of the largest logit, and
+                           a planted fault (a last chunk that ignores
+                           the earlier chunks) beyond it; first tokens
+                           against the streams alone; K4' launches ==
+                           decode steps x n_layers.
+             int8          the weights quantized (weight-only int8) and
+                           the bf16 copy freed; 8 slots through K4'.
+                           Printed: peak memory beside the bf16 serving
+                           phase's in the same run, mean inter-token
+                           latency, the logits' error
+                           against the bf16 weights on one prompt
+                           (checked below 0.2).
 6. training  llama2_7b at full width, 8 of 32 layers, batch 2 x 4096
              tokens, f32 parameters and AdamW state, bf16 compute: one
              warm step and 5 more through run_train_loop(build_train_step)
@@ -340,12 +378,11 @@ def run_concurrently(fns):
     return results
 
 
-def serving_phase(card: str):
+def serving_model():
+    """llama2_7b at full width and depth, random bf16 weights from SEED,
+    on the card."""
     from mpi_operator_tpu_torch.models.llama import llama2_7b
     from mpi_operator_tpu_torch.models.params import init_params
-    from mpi_operator_tpu_torch.ops import paged_attention as pa
-    from mpi_operator_tpu_torch.serving import InferenceServer
-    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
 
     cfg = llama2_7b()
     t0 = time.perf_counter()
@@ -355,6 +392,17 @@ def serving_phase(card: str):
     print(f"serving: llama2_7b random init ({cfg.n_layers} layers, dim "
           f"{cfg.dim}, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return model
+
+
+def serving_phase(card: str, model):
+    """Returns the K4' launches of the run, the prompts, each prompt's
+    stream alone, the inter-token latency and the peak memory."""
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
+
+    cfg = model.config
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in SERVE_PROMPT_LENS]
@@ -375,12 +423,13 @@ def serving_phase(card: str):
     finally:
         ref_server.stop()
     del ref_server
+    gc.collect()
     torch.cuda.empty_cache()
 
     server = InferenceServer(model, max_batch_slots=8, kv_page_size=16,
                              device="cuda").start()
     try:
-        tm = server._batcher.telemetry
+        tm = server.telemetry
         torch.cuda.reset_peak_memory_stats()
         pa.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -401,6 +450,7 @@ def serving_phase(card: str):
         ticks = tm["ticks_total"].value
         transfers = tm["transfers_total"].value
         peak = torch.cuda.max_memory_allocated()
+        prefix = server.batcher_stats()["prefix"]
         fleet = json.loads(get(server.url + "/fleet-state"))
         metrics = get(server.url + "/metrics")
         ttft = tm["ttft_seconds"]
@@ -430,7 +480,7 @@ def serving_phase(card: str):
     if launches != dispatches * cfg.n_layers or launches == 0:
         raise SystemExit(f"paged attention launches {launches} != decode "
                          f"steps {dispatches} x {cfg.n_layers}")
-    hit = server._batcher.prefix_stats["hit_blocks"]
+    hit = prefix["hit_blocks"]
     if hit < 3:
         raise SystemExit(f"prefix-sharing pair hit {hit} cached blocks, "
                          f"expected >= 3")
@@ -455,7 +505,452 @@ def serving_phase(card: str):
         "max_memory_allocated_bytes": peak,
     }
     print("serving: " + json.dumps(stats), flush=True)
-    return launches
+    return {"launches": launches, "prompts": prompts, "alone": alone,
+            "itl_mean_s": stats["inter_token_latency_mean_s"],
+            "peak_bytes": peak}
+
+
+# -- phase 5b: speculative decoding -------------------------------------------
+
+SPEC_SLOTS = 4
+SPEC_DRAFT_LEN = 4
+SPEC_PROMPT_LENS = (64, 250, 600, 1000)
+
+
+def generate_all(url, prompts, n_new, extra=None):
+    """Every prompt as its own concurrent /generate request; with
+    ``extra`` (prompt, request options), one more request beside them.
+    Returns the token lists in order, ``extra``'s last."""
+    fns = [lambda p=p: post(url + "/generate",
+                            {"tokens": [p], "max_new_tokens": n_new})[
+                                "tokens"][0] for p in prompts]
+    if extra is not None:
+        prompt, options = extra
+        fns.append(lambda: post(url + "/generate", {
+            "tokens": [prompt], "max_new_tokens": n_new, **options})[
+                "tokens"][0])
+    return run_concurrently(fns)
+
+
+def step_and_wide_logits(model, prompt, stream):
+    """f32 logits [len(stream), V] of the positions that chose
+    ``stream``'s tokens, computed two ways: width-1 paged decode steps
+    through K4' (the program of a plain tick) and one forward over the
+    whole sequence (the kind of program a verify is)."""
+    from mpi_operator_tpu_torch.models.llama import _prefill, init_cache
+    from mpi_operator_tpu_torch.models.params import share_weights
+
+    dev = model.device
+
+    def ids(tokens):
+        return torch.tensor([tokens], dtype=torch.int32, device=dev)
+
+    paged = share_weights(model, page_size=16)
+    with torch.inference_mode():
+        logits, cache = _prefill(paged, ids(prompt), len(stream))
+        narrow = [logits[0, -1].float()]
+        for tok in stream[:-1]:
+            narrow.append(paged(ids([tok]), cache=cache,
+                                decode=True)[0, -1].float())
+        seq = prompt + stream[:-1]
+        wide = model(ids(seq), cache=init_cache(model.config, 1, dev,
+                                                max_len=len(seq)),
+                     decode=True)[0, len(prompt) - 1:].float()
+    return torch.stack(narrow), wide
+
+
+def stream_gaps(model, prompt, stream):
+    """On the stream's own context: per position, the step logits' top
+    value minus the logit of the token the stream chose there (0 where
+    it chose the argmax), and the largest |step - wide| logit
+    difference."""
+    step, wide = step_and_wide_logits(model, prompt, stream)
+    if not (torch.isfinite(step).all() and torch.isfinite(wide).all()):
+        raise SystemExit("speculative: non-finite logits")
+    chosen = torch.tensor(stream, device=step.device)[:, None]
+    gaps = step.max(dim=-1).values - step.gather(1, chosen)[:, 0]
+    return gaps.tolist(), (step - wide).abs().max().item()
+
+
+def tie_failures(prompts, streams, gaps, logit_err):
+    """Every token the streams chose where the step argmax is ahead of
+    it by at least the logit error: a choice no rounding explains."""
+    return [{"prompt_len": len(p), "position": j, "token": s[j], "gap": g}
+            for p, s, gs in zip(prompts, streams, gaps)
+            for j, g in enumerate(gs) if not g < logit_err]
+
+
+def speculation_check(model, prompts, refs, outs, ref_gaps):
+    """Speculative streams against the plain batcher's, every token of
+    both.  Each stream is replayed on its own context through width-1
+    paged steps (the program of a plain tick); each token it chose must
+    be the replay's argmax, or short of it by less than the logit error:
+    the largest |step - wide| difference of the two kinds of program
+    (a width-1 step, a full forward like a verify) over every stream.
+    In bf16 a near-tie can flip either way, and the plain batcher's
+    batch of 4 sums the products in another order than the replay's
+    batch of 1, so the rule holds for the reference streams too.
+    Returns the statistics and the failures."""
+    for ref, got in zip(refs, outs):
+        if len(got) != len(ref):
+            raise SystemExit(f"speculative: {len(got)} tokens, reference "
+                             f"{len(ref)}")
+    out_gaps = [stream_gaps(model, p, s) for p, s in zip(prompts, outs)]
+    logit_err = max(e for _, e in ref_gaps + out_gaps)
+    fails = (tie_failures(prompts, refs, [g for g, _ in ref_gaps], logit_err)
+             + tie_failures(prompts, outs, [g for g, _ in out_gaps],
+                            logit_err))
+    first_diff = [next((j for j, (a, b) in enumerate(zip(got, ref))
+                        if a != b), None) for ref, got in zip(refs, outs)]
+    return {"logit_err": logit_err,
+            "flips": sum(j is not None for j in first_diff),
+            "first_differing_position": first_diff,
+            "tokens_checked": 2 * sum(len(s) for s in outs),
+            "largest_gap": max(max(g) for g, _ in ref_gaps + out_gaps),
+            "near_ties": sum(0 < x for g, _ in ref_gaps + out_gaps
+                             for x in g)}, fails
+
+
+# Planted speculation faults, each a ContinuousBatcher that must fail
+# the speculation check.
+SPEC_FAULTS = ("emit_next_position", "verify_index_off_by_one")
+
+
+def faulty_batcher(kind, model, **kwargs):
+    """A speculative batcher with one planted fault in its verify.
+    emit_next_position: the argmax of position j+1 stands for position
+    j's, so acceptance and emission are shifted by one.
+    verify_index_off_by_one: the verify reads and writes from one past
+    the committed stream, a hole in every row's context."""
+    from mpi_operator_tpu_torch.models.llama import _set_cache_index
+    from mpi_operator_tpu_torch.serving import ContinuousBatcher
+
+    class Faulty(ContinuousBatcher):
+        def _verify_and_accept(self, *args):
+            target = self.model
+
+            def planted(tokens, cache, **kw):
+                if kind == "verify_index_off_by_one":
+                    idx = cache["layers_0"]["attention"]["cache_index"]
+                    cache = _set_cache_index(cache, idx + 1)
+                logits = target(tokens, cache=cache, **kw)
+                if kind == "emit_next_position":
+                    logits = torch.cat([logits[:, 1:], logits[:, -1:]], 1)
+                return logits
+
+            self.model = planted
+            try:
+                return super()._verify_and_accept(*args)
+            finally:
+                self.model = target
+
+    return Faulty(model, **kwargs)
+
+
+def speculative_phase(card: str, model):
+    """Self-draft (the target is its own draft: no second copy of the
+    weights, a dense draft cache of its own) and prompt-lookup
+    speculation, 4 slots, draft_len 4, through InferenceServer over
+    HTTP; every token of every stream held to the tie rule of
+    ``speculation_check``.  The prompt-lookup run has one sampling
+    request beside the greedy ones, which forces plain ticks: K4'
+    launches == plain ticks x n_layers in both runs (the verify and the
+    draft never reach K4').  Then each planted fault of SPEC_FAULTS, on
+    the self-draft prompts, must fail the same check."""
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import InferenceServer
+
+    cfg = model.config
+    n_new = SERVE_NEW_TOKENS
+    rng = np.random.default_rng(SEED + 4)
+    self_prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                    for n in SPEC_PROMPT_LENS]
+    # Prompts that repeat: a 200-token span quoted, then quoted again up
+    # to its middle, so the n-gram lookup finds the continuation.
+    lookup_prompts = []
+    for n in (20, 60, 100, 150):
+        span = rng.integers(1, cfg.vocab_size, 200).tolist()
+        lookup_prompts.append(rng.integers(1, cfg.vocab_size, n).tolist()
+                              + span
+                              + rng.integers(1, cfg.vocab_size, 10).tolist()
+                              + span[:100])
+    sampled = (rng.integers(1, cfg.vocab_size, 48).tolist(),
+               {"temperature": 0.8, "seed": 7})
+    common = dict(max_batch_slots=SPEC_SLOTS, kv_page_size=16,
+                  device=model.device)
+
+    ref_server = InferenceServer(model, **common).start()
+    try:
+        refs = generate_all(ref_server.url, self_prompts + lookup_prompts,
+                            n_new)
+    finally:
+        ref_server.stop()
+    del ref_server
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_gaps = [stream_gaps(model, p, r)
+                for p, r in zip(self_prompts + lookup_prompts, refs)]
+
+    results = {}
+    for name, kwargs, prompts, extra in (
+            ("self_draft", dict(draft_model=model), self_prompts, None),
+            ("prompt_lookup", dict(draft_strategy="prompt_lookup"),
+             lookup_prompts, sampled)):
+        server = InferenceServer(model, draft_len=SPEC_DRAFT_LEN, **common,
+                                 **kwargs).start()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            pa.LAUNCHES = 0
+            t0 = time.perf_counter()
+            outs = generate_all(server.url, prompts, n_new, extra)
+            wall = time.perf_counter() - t0
+            launches = pa.LAUNCHES
+            st = server.batcher_stats()["spec"]
+            itl = server.telemetry["token_latency_seconds"]
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            server.stop()
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+        if extra is not None:
+            if len(outs[-1]) != n_new:
+                raise SystemExit(f"{name}: the sampling request gave "
+                                 f"{len(outs[-1])} tokens")
+            outs = outs[:-1]
+            if not st["plain_ticks"] > 0:
+                raise SystemExit(f"{name}: a sampling request forced no "
+                                 f"plain tick: {st}")
+        if not st["spec_ticks"] > 0:
+            raise SystemExit(f"{name}: no speculation round ran: {st}")
+        if launches != st["plain_ticks"] * cfg.n_layers:
+            raise SystemExit(f"{name}: K4' launches {launches} != plain "
+                             f"ticks {st['plain_ticks']} x {cfg.n_layers}")
+        lo = 0 if name == "self_draft" else len(self_prompts)
+        check, fails = speculation_check(
+            model, prompts, refs[lo:lo + len(prompts)], outs,
+            ref_gaps[lo:lo + len(prompts)])
+        if fails:
+            raise SystemExit(f"{name}: tokens chosen beyond a near-tie "
+                             f"(logit error {check['logit_err']}): {fails}")
+        results[name] = {
+            "card": card, "model": "llama2_7b", "slots": SPEC_SLOTS,
+            "draft_len": SPEC_DRAFT_LEN,
+            "prompt_lens": [len(p) for p in prompts],
+            "sampling_requests": int(extra is not None),
+            "new_tokens_each": n_new, "spec_stats": st,
+            "acceptance": st["accepted_drafts"] / max(1, st["drafted"]),
+            "paged_attention_launches": launches, "wall_s": wall,
+            "inter_token_latency_mean_s": itl.sum / max(1, itl.count),
+            "max_memory_allocated_bytes": peak, **check}
+        print(f"speculative[{name}]: " + json.dumps(results[name]),
+              flush=True)
+
+    planted = {}
+    for kind in SPEC_FAULTS:
+        b = faulty_batcher(kind, model, max_slots=SPEC_SLOTS, page_size=16,
+                           draft_model=model, draft_len=SPEC_DRAFT_LEN,
+                           device=model.device).start()
+        try:
+            outs = run_concurrently([lambda p=p: b.submit(p, n_new)
+                                     for p in self_prompts])
+        finally:
+            b.stop()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        check, fails = speculation_check(model, self_prompts,
+                                         refs[:len(self_prompts)], outs,
+                                         ref_gaps[:len(self_prompts)])
+        planted[kind] = {"failing_tokens": len(fails),
+                         "largest_gap": check["largest_gap"],
+                         "logit_err": check["logit_err"],
+                         "flips": check["flips"]}
+        if not fails:
+            raise SystemExit(f"speculative: the planted fault {kind} "
+                             f"passed the check: {planted[kind]}")
+    print("speculative[planted_faults]: " + json.dumps(planted), flush=True)
+    results["planted_faults"] = planted
+    return results
+
+
+# -- phase 5c: chunked prefill ------------------------------------------------
+
+PREFILL_CHUNK = 512
+# Last-position logits of the chunked prefill against the unchunked one,
+# largest difference over the largest |logit|: bf16 storage of K/V and
+# activations, summed in another order across 32 layers.
+CHUNK_LOGIT_LIMIT = 5e-2
+
+
+def last_logit_errs(model, prompts, chunked_logits):
+    """Per prompt length, the largest |chunked - dense| last-position
+    logit difference over the dense prefill's largest |logit|."""
+    from mpi_operator_tpu_torch.models.llama import init_cache
+
+    dev = model.device
+    errs = {}
+    with torch.inference_mode():
+        for prompt, chunked in zip(prompts, chunked_logits):
+            ids = torch.tensor([prompt], dtype=torch.int32, device=dev)
+            dense = model(ids, cache=init_cache(model.config, 1, dev,
+                                                max_len=len(prompt)),
+                          decode=True)[0, -1].float()
+            errs[len(prompt)] = ((chunked.float() - dense).abs().max()
+                                 / dense.abs().max()).item()
+    return errs
+
+
+def chunked_phase(card: str, model, serve):
+    """The serving phase's prompts (5-2000 tokens) through chunked
+    prefill (512-token batch-1 paged forwards, the batcher's
+    ``prefill_logits``): last-position logits against the unchunked
+    dense prefill within CHUNK_LOGIT_LIMIT.  A planted fault, a last
+    chunk that ignores the earlier chunks (the last chunk prefilled
+    alone: RoPE scores depend only on relative positions), must exceed
+    the limit.  Then the same prompts as concurrent requests to
+    InferenceServer(kv_prefill_chunk=512): first tokens and streams
+    against the serving phase's streams alone, K4' launches == decode
+    steps x n_layers."""
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import (ContinuousBatcher,
+                                                InferenceServer)
+
+    cfg = model.config
+    prompts, alone = serve["prompts"], serve["alone"]
+    dev = model.device
+    b = ContinuousBatcher(model, max_slots=1, page_size=16,
+                          prefill_chunk=PREFILL_CHUNK, device=dev)
+    errs = last_logit_errs(model, prompts,
+                           [b.prefill_logits(p) for p in prompts])
+    long = [p for p in prompts if len(p) > PREFILL_CHUNK]
+    fault = last_logit_errs(model, long, [
+        b.prefill_logits(p[(len(p) - 1) // PREFILL_CHUNK * PREFILL_CHUNK:])
+        for p in long])
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(e <= CHUNK_LOGIT_LIMIT for e in errs.values()):
+        raise SystemExit(f"chunked: last-position logits {errs} exceed "
+                         f"{CHUNK_LOGIT_LIMIT} of the largest logit")
+    if not max(fault.values()) > CHUNK_LOGIT_LIMIT:
+        raise SystemExit(f"chunked: the planted fault (a last chunk that "
+                         f"ignores the earlier ones) gave {fault}, within "
+                         f"{CHUNK_LOGIT_LIMIT}")
+
+    server = InferenceServer(model, max_batch_slots=8, kv_page_size=16,
+                             kv_prefill_chunk=PREFILL_CHUNK,
+                             device=dev).start()
+    try:
+        tm = server.telemetry
+        torch.cuda.reset_peak_memory_stats()
+        pa.LAUNCHES = 0
+        outs = generate_all(server.url, prompts, SERVE_NEW_TOKENS)
+        launches = pa.LAUNCHES
+        dispatches = tm["dispatches_total"].value
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(len(o) != SERVE_NEW_TOKENS for o in outs):
+        raise SystemExit(f"chunked: token counts {[len(o) for o in outs]}")
+    # A last chunk of one token is a width-1 forward: it runs on K4' too.
+    single = sum(1 for p in prompts
+                 if len(p) > PREFILL_CHUNK and len(p) % PREFILL_CHUNK == 1)
+    if launches != (dispatches + single) * cfg.n_layers or launches == 0:
+        raise SystemExit(f"chunked: K4' launches {launches} != (decode "
+                         f"steps {dispatches} + one-token chunks {single})"
+                         f" x {cfg.n_layers}")
+    stats = {
+        "card": card, "model": "llama2_7b", "prefill_chunk": PREFILL_CHUNK,
+        "prompt_lens": [len(p) for p in prompts],
+        "last_logit_rel_err": errs, "limit": CHUNK_LOGIT_LIMIT,
+        "planted_fault_rel_err": fault,
+        "first_tokens_agree": sum(o[0] == a[0] for o, a in zip(outs, alone)),
+        "streams_agree": sum(o == a for o, a in zip(outs, alone)),
+        "requests": len(prompts), "decode_steps": dispatches,
+        "paged_attention_launches": launches,
+        "max_memory_allocated_bytes": peak}
+    print("chunked: " + json.dumps(stats), flush=True)
+    return stats
+
+
+# -- phase 5d: weight-only int8 -------------------------------------------------
+
+INT8_LOGIT_LIMIT = 0.2
+
+
+def int8_logits(model, prompt):
+    """f32 logits [len(prompt), V] of one dense forward, on the CPU."""
+    from mpi_operator_tpu_torch.models.llama import init_cache
+
+    dev = model.device
+    ids = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        return model(ids, cache=init_cache(model.config, 1, dev,
+                                           max_len=len(prompt)),
+                     decode=True)[0].float().cpu()
+
+
+def int8_phase(card: str, qmodel, ref_logits, prompt, serve):
+    """The quantized 7B (the bf16 copy already freed) serves the serving
+    phase's prompts, 8 slots, through K4'.  Checked: the logits of one
+    prompt against the bf16 weights' (largest difference over the
+    largest |logit| below INT8_LOGIT_LIMIT, a guard against a wrong
+    scale layout, which gives errors near 1), token counts, K4' launches
+    == decode steps x n_layers.  Printed: peak memory beside the bf16
+    phase's, mean inter-token latency."""
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import InferenceServer
+
+    cfg = qmodel.config
+    q_logits = int8_logits(qmodel, prompt)
+    rel = ((q_logits - ref_logits).abs().max()
+           / ref_logits.abs().max()).item()
+    top1 = (q_logits.argmax(-1) == ref_logits.argmax(-1)).float().mean()
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       list(qmodel.parameters()) + list(qmodel.buffers()))
+    torch.cuda.reset_peak_memory_stats()
+    server = InferenceServer(qmodel, max_batch_slots=8, kv_page_size=16,
+                             device=qmodel.device).start()
+    try:
+        tm = server.telemetry
+        pa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        outs = generate_all(server.url, serve["prompts"], SERVE_NEW_TOKENS)
+        wall = time.perf_counter() - t0
+        launches = pa.LAUNCHES
+        dispatches = tm["dispatches_total"].value
+        itl = tm["token_latency_seconds"]
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+    del server
+    if any(len(o) != SERVE_NEW_TOKENS for o in outs):
+        raise SystemExit(f"int8: token counts {[len(o) for o in outs]}")
+    if launches != dispatches * cfg.n_layers or launches == 0:
+        raise SystemExit(f"int8: K4' launches {launches} != decode steps "
+                         f"{dispatches} x {cfg.n_layers}")
+    if not (torch.isfinite(q_logits).all() and rel < INT8_LOGIT_LIMIT):
+        raise SystemExit(f"int8: logits error {rel} against bf16 weights "
+                         f"(limit {INT8_LOGIT_LIMIT})")
+    stats = {
+        "card": card, "model": "llama2_7b", "weight_dtype": "int8",
+        "slots": 8, "weight_bytes": weight_bytes,
+        "logit_rel_err_vs_bf16": rel, "top1_agree_vs_bf16": top1.item(),
+        "logit_prompt_len": len(prompt),
+        "max_memory_allocated_bytes": peak,
+        "bf16_serving_peak_bytes_this_run": serve["peak_bytes"],
+        "inter_token_latency_mean_s": itl.sum / itl.count,
+        "bf16_inter_token_latency_mean_s": serve["itl_mean_s"],
+        "concurrent_wall_s": wall, "decode_steps": dispatches,
+        "paged_attention_launches": launches,
+        "first_tokens_agree_vs_bf16": sum(
+            o[0] == a[0] for o, a in zip(outs, serve["alone"]))}
+    print("int8: " + json.dumps(stats), flush=True)
+    return stats
 
 
 # -- phase 3b: flash attention kernels ---------------------------------------
@@ -639,6 +1134,171 @@ def flash_phase():
     results = {c[0]: flash_case(fa, gen, *c) for c in cases}
     results["with_lse_dlse"] = flash_lse_case(fa, gen)
     return results
+
+
+# -- phase 3c: fused RMSNorm ---------------------------------------------------
+
+RMSNORM_EPS = 1e-5
+RMSNORM_LIMITS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+RSTD_LIMIT = 2e-5
+
+
+def rmsnorm_bound(rows, d, dtype, scale_dtype):
+    """x read once, y written once, scale read once, rstd written once
+    over 3.35 TB/s; about 4 f32 operations per element over the f32
+    peak; the larger of the two."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * rows * d * size
+              + d * torch.tensor([], dtype=scale_dtype).element_size()
+              + rows * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * rows * d / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def rmsnorm_case(rn, gen, name, shape, dtype, scale_dtype, timed):
+    """K5' against its plain version at one shape: per row, the largest
+    error over the largest |plain output|, and rstd's relative error.
+    With ``timed``: a planted fault (row 0 normalised with a scale 5% too
+    large) must exceed the limit; kernel, plain and library times."""
+    dev = torch.device("cuda")
+    d = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    # Rows of different magnitudes, so a per-row fault cannot hide.
+    x = (torch.randn(shape, generator=gen, device=dev)
+         * torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+         .mul(8).add(0.1)).to(dtype)
+    scale = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0
+             ).to(scale_dtype)
+    tol = RMSNORM_LIMITS[dtype]
+    out, rstd = rn._cuda_forward(x, scale, RMSNORM_EPS)
+    torch.cuda.synchronize()
+    ref, ref_rstd = rn._plain_forward(x, scale, RMSNORM_EPS)
+    if not torch.isfinite(out.float()).all():
+        raise SystemExit(f"rmsnorm case {name}: non-finite output")
+    rel = head_rel_err(out.view(rows, d), ref.view(rows, d))
+    rstd_rel = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
+    if not (rel <= tol and rstd_rel <= RSTD_LIMIT):
+        raise SystemExit(f"rmsnorm case {name}: row error {rel} (limit "
+                         f"{tol}), rstd error {rstd_rel} (limit "
+                         f"{RSTD_LIMIT})")
+    result = {"shape": list(shape), "dtype": str(dtype),
+              "scale_dtype": str(scale_dtype), "max_rel_err": rel,
+              "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+              "rstd_rel_err": rstd_rel, "tol": tol}
+    bound_ms, bound_by = rmsnorm_bound(rows, d, dtype, scale_dtype)
+    result.update(bound_ms=bound_ms, bound_by=bound_by)
+    if timed:
+        x2 = x.view(rows, d)
+        bad = out.view(rows, d).clone()
+        bad[0] = rn._cuda_forward(x2[:1], scale * 1.05, RMSNORM_EPS)[0][0]
+        fault = head_rel_err(bad, ref.view(rows, d))
+        if not fault > tol:
+            raise SystemExit(f"rmsnorm case {name}: a planted fault "
+                             f"({fault}) passes the limit {tol}")
+        result["planted_fault_rel_err"] = fault
+        lib_scale = scale.to(dtype)
+        result["ms"] = time_ms(
+            lambda: rn._cuda_forward(x, scale, RMSNORM_EPS), iters=50)
+        result["plain_ms"] = event_ms(
+            lambda: rn._plain_forward(x, scale, RMSNORM_EPS), iters=10)
+        # The library yardstick takes its weight in x's type.
+        result["library_ms"] = time_ms(
+            lambda: torch.nn.functional.rms_norm(x, (d,), lib_scale,
+                                                 RMSNORM_EPS), iters=50)
+        result["host_us"] = host_us(
+            lambda: rn._cuda_forward(x, scale, RMSNORM_EPS))
+    print(f"kernel rmsnorm[{name}]: " + json.dumps(result), flush=True)
+    del x, out, ref
+    torch.cuda.empty_cache()
+    return result
+
+
+def rmsnorm_path(rn):
+    """K5's main path, its public entry points, at the training shape:
+    ``rmsnorm(impl="auto")`` forward, and ``fused_rmsnorm`` forward and
+    backward (the custom VJP).  Checked against autograd through the
+    plain version in f32.  Returns the launches counted in this run."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    shape, d = (2, 4096, 4096), 4096
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.randn(d, generator=gen, device="cuda") * 0.1 + 1.0
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    leaf_x = x.clone().requires_grad_()
+    leaf_s = scale.clone().requires_grad_()
+    rn.LAUNCHES["rmsnorm"] = 0
+    y_auto = rn.rmsnorm(x, scale, RMSNORM_EPS)
+    y = rn.fused_rmsnorm(leaf_x, leaf_s, RMSNORM_EPS)
+    y.backward(g)
+    torch.cuda.synchronize()
+    launches = rn.LAUNCHES["rmsnorm"]
+    px = x.float().requires_grad_()
+    ps = scale.clone().requires_grad_()
+    ref = rn._plain_rmsnorm(px, ps, RMSNORM_EPS)
+    ref.backward(g.float())
+    errs = {"y_auto": head_rel_err(y_auto.view(-1, d), ref.view(-1, d)),
+            "y": head_rel_err(y.view(-1, d), ref.view(-1, d)),
+            "dx": head_rel_err(leaf_x.grad.view(-1, d),
+                               px.grad.view(-1, d)),
+            "dscale": ((leaf_s.grad - ps.grad).abs().max()
+                       / ps.grad.abs().max()).item()}
+    limits = {"y_auto": 2e-2, "y": 2e-2, "dx": 5e-2, "dscale": 5e-2}
+    print(f"rmsnorm path: launches {launches}, errors {errs} (limits "
+          f"{limits})", flush=True)
+    if launches != 2:
+        raise SystemExit(f"rmsnorm path: {launches} K5' launches, want 2 "
+                         f"(rmsnorm auto + fused_rmsnorm forward)")
+    if not all(errs[k] <= limits[k] for k in errs):
+        raise SystemExit(f"rmsnorm path: errors {errs} exceed {limits}")
+    return launches
+
+
+def rmsnorm_phase():
+    import importlib
+
+    # The package re-exports the function ``rmsnorm`` under the module's
+    # name, so the module is fetched by its full name.
+    rn = importlib.import_module("mpi_operator_tpu_torch.ops.rmsnorm")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, shape, dtype, scale dtype, timed
+        ("train_bf16", (2, 4096, 4096), bf16, f32, True),
+        ("train_f32", (2, 4096, 4096), f32, f32, True),
+        ("decode_bf16", (8, 1, 4096), bf16, f32, True),
+        ("ragged_bf16", (1003, 4100), bf16, bf16, False),
+        ("ragged_f32", (37, 4099), f32, f32, False),
+    ]
+    results = {c[0]: rmsnorm_case(rn, gen, *c) for c in cases}
+    results["launches"] = rmsnorm_path(rn)
+    return results
+
+
+def rmsnorm_entry(results):
+    main_case = results["train_bf16"]
+    cases = {n: r for n, r in results.items() if isinstance(r, dict)}
+    return {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "mpi_operator_tpu_torch/ops/csrc/rmsnorm.cu",
+        "replaces": "mpi_operator_tpu/ops/rmsnorm.py:20",
+        "launches": results["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+        "max_rel_err": {n: r["max_rel_err"] for n, r in cases.items()},
+        "planted_fault_rel_err": main_case["planted_fault_rel_err"],
+        "ms": main_case["ms"],
+        "host_us": main_case["host_us"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "f32": {k: results["train_f32"][k] for k in
+                ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "decode": {k: results["decode_bf16"][k] for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms")},
+    }
 
 
 # -- phase 4b: training parity -------------------------------------------------
@@ -832,7 +1492,7 @@ def flash_entry(name, flash, launches):
     }
 
 
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "rmsnorm")
 FLASH_REPLACES = {
     "flash_fwd": "mpi_operator_tpu/ops/attention.py:53",
     "flash_bwd_dq": "mpi_operator_tpu/ops/attention.py:179",
@@ -859,9 +1519,24 @@ def main() -> int:
     build_phase()
     kernels = kernel_phase()
     flash = flash_phase()
+    rms = rmsnorm_phase()
     parity_phase()
     train_parity_phase()
-    launches = serving_phase(card)
+
+    from mpi_operator_tpu_torch.models.quant import quantize_model
+
+    model = serving_model()
+    serve = serving_phase(card, model)
+    spec = speculative_phase(card, model)
+    chunked = chunked_phase(card, model, serve)
+    logit_prompt = serve["prompts"][3]
+    bf16_logits = int8_logits(model, logit_prompt)
+    qmodel = quantize_model(model)
+    del model                       # the bf16 weights are freed here
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = int8_phase(card, qmodel, bf16_logits, logit_prompt, serve)
+    del qmodel
     gc.collect()
     torch.cuda.empty_cache()
     flash_launches = training_phase(card)
@@ -872,7 +1547,16 @@ def main() -> int:
         "route": "cuda",
         "source": "mpi_operator_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "mpi_operator_tpu/ops/paged_attention.py:75",
-        "launches": launches,
+        "launches": serve["launches"],
+        # K4' launches of the other serving paths, each counted from 0
+        # over its own run.
+        "launches_other_paths": {
+            "speculative_self_draft":
+                spec["self_draft"]["paged_attention_launches"],
+            "speculative_prompt_lookup":
+                spec["prompt_lookup"]["paged_attention_launches"],
+            "chunked_prefill": chunked["paged_attention_launches"],
+            "int8_weights": int8["paged_attention_launches"]},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],
@@ -884,7 +1568,7 @@ def main() -> int:
         "library_ms": None,
     }
     entries = [entry] + [flash_entry(name, flash, flash_launches)
-                         for name in FLASH_REPLACES]
+                         for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

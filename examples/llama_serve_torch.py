@@ -2,12 +2,17 @@
 """Serve a Llama-family model over HTTP with the PyTorch/CUDA port.
 
 Continuous batching over a paged KV cache with prefix caching, optional
-int8 KV, stop tokens and SSE streaming; decode attention runs through
-the port's hand-written CUDA kernel.  Weights are random, made on the
-device from ``--seed``.
+int8 KV, weight-only int8, chunked prefill, speculative decoding (the
+model as its own draft, or prompt lookup), stop tokens and SSE
+streaming; decode attention runs through the port's hand-written CUDA
+kernel.  Weights are random, made on the device from ``--seed``.
 
     # llama2_7b on the card, 8 slots, one demo request:
     python examples/llama_serve_torch.py --config 7b --slots 8 --demo
+
+    # int8 weights, 512-token prefill chunks, prompt-lookup drafts:
+    python examples/llama_serve_torch.py --config 7b --weight-dtype int8 \
+        --prefill-chunk 512 --draft-strategy prompt_lookup --demo
 
     # tiny model on the CPU (the plain PyTorch path):
     python examples/llama_serve_torch.py --config tiny --device cpu --demo
@@ -60,6 +65,18 @@ def main() -> int:
                     help="paged KV block size (with --slots > 0)")
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=["auto", "int8"])
+    ap.add_argument("--weight-dtype", default="auto",
+                    choices=["auto", "int8"],
+                    help="int8: weight-only int8 matmul weights")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill width (with --slots > 0)")
+    ap.add_argument("--draft-strategy", default="",
+                    choices=["", "self", "prompt_lookup"],
+                    help="speculative decoding: 'self' (the model is its "
+                         "own draft, no second copy of the weights) or "
+                         "'prompt_lookup' (training-free, --slots > 0)")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="draft tokens per speculation round")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
@@ -75,14 +92,26 @@ def main() -> int:
             "--kv-cache-dtype needs continuous batching (--slots > 0); "
             "the single-flight path uses the dense cache")
     model = build_model(args.config, args.device, args.seed)
+    if args.weight_dtype == "int8":
+        # Quantize here and drop the full-precision model, so only the
+        # int8 weights stay resident.
+        from mpi_operator_tpu_torch.models.quant import quantize_model
+        model = quantize_model(model)
     page = args.page_size if args.slots > 0 else 0
+    draft = model if args.draft_strategy == "self" else None
+    strategy = ("prompt_lookup" if args.draft_strategy == "prompt_lookup"
+                else None)
     server = InferenceServer(
         model, host=args.host, port=args.port, max_batch_slots=args.slots,
         kv_page_size=page, kv_cache_dtype=args.kv_cache_dtype,
+        draft_model=draft, draft_strategy=strategy,
+        draft_len=args.draft_len, kv_prefill_chunk=args.prefill_chunk,
         device=model.device).start()
     print(f"serving on {server.url}  (config={args.config}, "
           f"device={model.device}, slots={args.slots}, page={page}, "
-          f"kv={args.kv_cache_dtype})", flush=True)
+          f"kv={args.kv_cache_dtype}, weights={args.weight_dtype}, "
+          f"prefill_chunk={args.prefill_chunk}, "
+          f"draft={args.draft_strategy or 'off'})", flush=True)
     try:
         if args.demo:
             req = urllib.request.Request(

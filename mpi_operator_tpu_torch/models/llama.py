@@ -24,9 +24,12 @@ flax casts its f32 params: serving stores them in ``dtype`` (the same
 arithmetic at half the memory), training stores them in
 ``config.param_dtype`` (f32) so the optimizer updates f32 weights, as
 the JAX ``TrainState`` does.  Norm scales stay in ``param_dtype``.
+With ``weight_dtype="int8"`` the matmul layers are ``QuantLinear``s
+(int8 weight, f32 scale per output row; ``models/quant.py``), as the
+JAX model builds ``QuantDenseGeneral``.
 
-Not ported: MoE (``n_experts > 1``) and weight-only int8 — each raises
-NotImplementedError naming the roadmap item that ports it.
+Not ported: MoE (``n_experts > 1``) raises NotImplementedError naming
+the roadmap item that ports it.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ class LlamaConfig:
     n_experts: int = 0                        # >1 -> MoE (not ported)
     top_k: int = 2
     ring_impl: str = "dense"
-    weight_dtype: str = "auto"                # 'int8' not ported
+    weight_dtype: str = "auto"                # 'int8': weight-only
     sliding_window: Optional[int] = None      # Mistral SWA
     rope_scaling: Optional[dict] = None       # llama3-style scaling
     page_size: int = 0                        # >0 -> paged KV cache
@@ -234,7 +237,13 @@ class Linear(nn.Linear):
 
 
 def _linear(cfg: LlamaConfig, n_in: int, n_out: int, store_dtype,
-            device=None) -> Linear:
+            device=None) -> nn.Module:
+    """Matmul layer factory (the JAX ``_dense_layer``): ``Linear``, or
+    the weight-only-int8 ``QuantLinear`` when cfg.weight_dtype is
+    'int8'."""
+    if cfg.weight_dtype == "int8":
+        from .quant import QuantLinear
+        return QuantLinear(n_in, n_out, cfg.dtype, device=device)
     return Linear(n_in, n_out, cfg.dtype, store_dtype, device=device)
 
 
@@ -419,11 +428,6 @@ class LlamaModel(nn.Module):
             raise NotImplementedError(
                 "MoE (n_experts > 1) is not ported yet: ROADMAP.md, queue "
                 "1, 'Modules left out of the serving slice' (ops/moe.py)")
-        if config.weight_dtype != "auto":
-            raise NotImplementedError(
-                "weight-only int8 (weight_dtype='int8') is not ported yet: "
-                "ROADMAP.md, queue 1, 'Modules left out of the serving "
-                "slice' (models/quant.py)")
         dev = resolve_device(device)
         store = store_dtype or config.dtype
         self.config = config

@@ -7,11 +7,21 @@ Flax ``DenseGeneral`` kernels are laid out [in, ...out] (``wq``/``wk``/
 [out, in].  Matmul weights and the embedding are stored in
 ``config.dtype`` for serving (flax casts its f32 params to it at every
 use) or, given ``dtype=torch.float32``, in f32 for training; norm scales
-stay f32.
+stay f32.  A quantized tree (``quantize_params`` of the JAX package:
+``{kernel: int8, scale: f32}`` per matmul) keeps its int8 weights and
+f32 scales, for a ``weight_dtype="int8"`` config.
+
+``share_weights`` gives a model with another runtime configuration (a
+paged layout, another ``max_seq_len``) over the same tensors, without a
+copy; a self-draft for speculative decoding needs not even that: the
+batcher takes the target itself as ``draft_model``.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import itertools
 import math
 from typing import Dict, Optional
 
@@ -38,7 +48,10 @@ def from_flax_params(tree, cfg: LlamaConfig,
     """The JAX LlamaModel's ``params`` (nested dicts of numpy arrays; a
     ``{"params": ...}`` wrapper is accepted) -> the port's state dict on
     the CPU.  ``dtype`` (default ``cfg.dtype``) is the storage type of
-    the matmul weights and the embedding."""
+    the matmul weights and the embedding.  A quantized matmul
+    (``{kernel: int8, scale: f32}``) gives ``<layer>.weight`` int8
+    [out, in] and ``<layer>.scale`` f32 [out]: the JAX scale covers the
+    kernel's output dims, flattened in the weight's row order."""
     if "params" in tree:
         tree = tree["params"]
     dtype = dtype or cfg.dtype
@@ -47,18 +60,26 @@ def from_flax_params(tree, cfg: LlamaConfig,
         return torch.from_numpy(np.array(arr, dtype=np.float32,
                                          order="C")).to(dt)
 
+    def linear(sd, key, node, name):
+        kernel = np.asarray(node["kernel"])
+        if "scale" not in node:
+            sd[key + ".weight"] = t(_linear_weight(kernel, name), dtype)
+            return
+        sd[key + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+            _linear_weight(kernel, name)).astype(np.int8))
+        sd[key + ".scale"] = t(np.asarray(node["scale"]).reshape(-1),
+                               torch.float32)
+
     sd = {"tok_embeddings.weight": t(tree["tok_embeddings"]["embedding"],
                                      dtype),
-          "norm.scale": t(tree["norm"]["scale"], cfg.param_dtype),
-          "output.weight": t(_linear_weight(
-              np.asarray(tree["output"]["kernel"]), "output"), dtype)}
+          "norm.scale": t(tree["norm"]["scale"], cfg.param_dtype)}
+    linear(sd, "output", tree["output"], "output")
     for i in range(cfg.n_layers):
         layer = tree[f"layers_{i}"]
         for group, names in _LINEARS.items():
             for name in names:
-                kernel = np.asarray(layer[group][name]["kernel"])
-                sd[f"layers.{i}.{group}.{name}.weight"] = t(
-                    _linear_weight(kernel, name), dtype)
+                linear(sd, f"layers.{i}.{group}.{name}", layer[group][name],
+                       name)
         for norm in ("attention_norm", "ffn_norm"):
             sd[f"layers.{i}.{norm}.scale"] = t(layer[norm]["scale"],
                                                cfg.param_dtype)
@@ -87,6 +108,12 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
+    if cfg.weight_dtype == "int8":
+        # Drawn at full precision, then quantized (models/quant.py).
+        from .quant import quantize_model
+        return quantize_model(init_params(
+            dataclasses.replace(cfg, weight_dtype="auto"), generator,
+            device=dev, dtype=dtype))
     model = LlamaModel(cfg, device=dev, store_dtype=dtype)
     for name, p in model.named_parameters():
         if name.endswith(".scale"):
@@ -97,3 +124,30 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         p.copy_(torch.randn(p.shape, generator=generator, device=dev,
                             dtype=torch.float32).mul_(std))
     return model.eval()
+
+
+# Configuration fields that shape no tensor: a model that differs from
+# another only in these can hold the other's tensors.
+_RUNTIME_FIELDS = frozenset({"page_size", "cache_blocks", "kv_cache_dtype",
+                             "max_seq_len", "attention_impl", "remat",
+                             "sliding_window"})
+
+
+def share_weights(model: LlamaModel, **overrides) -> LlamaModel:
+    """A LlamaModel with ``model.config`` changed by ``overrides`` (only
+    fields that shape no tensor: page_size, cache_blocks, kv_cache_dtype,
+    max_seq_len, attention_impl, remat, sliding_window) whose parameters
+    and buffers ARE
+    ``model``'s: no copy, no new device memory."""
+    bad = set(overrides) - _RUNTIME_FIELDS
+    if bad:
+        raise ValueError(f"share_weights cannot change {sorted(bad)}: they "
+                         f"shape the tensors")
+    cfg = dataclasses.replace(model.config, **overrides)
+    memo = {id(t): t for t in itertools.chain(model.parameters(),
+                                              model.buffers())}
+    twin = copy.deepcopy(model, memo)
+    for module in twin.modules():
+        if hasattr(module, "config"):
+            module.config = cfg
+    return twin

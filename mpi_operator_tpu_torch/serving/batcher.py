@@ -34,8 +34,24 @@ overrun token discarded, so emitted streams equal the serialized loop's.
 Ticks, dispatches and transfers are counted in the ``serving_*``
 metrics, and ``transfers_total == ticks_total`` holds.
 
-Not in this slice (each raises NotImplementedError when asked for):
-speculative decoding, KV-page export/import and chunked prefill.
+Speculative decoding (``draft_model`` or ``draft_strategy=
+"prompt_lookup"``): when every active slot is greedy, a tick is a
+speculation round: ``draft_len`` proposals per slot (from the draft
+model's own per-slot dense cache, or by n-gram lookup over the slot's
+own stream), ONE width-(draft_len+1) target verify across all slots,
+longest-prefix acceptance plus the bonus token, and a per-row
+``cache_index`` rollback over rejected positions.  A sampling slot
+forces plain ticks (acceptance is argmax-only).  A speculative batcher
+keeps the serialized loop: acceptance needs every committed token on
+the host before the next round.  The verify and the draft both run the
+dense or multi-token paths, never the paged decode kernel.
+
+Chunked prefill (``prefill_chunk > 0``, paged only): a prompt (or its
+uncached suffix) runs through batch-1 paged forwards of at most
+``prefill_chunk`` tokens that write the slot's blocks in place, so the
+peak activation memory of an admission is that of one chunk.
+
+Not in this slice: KV-page export/import (disaggregated serving).
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ from ..device import resolve_device
 from ..models.llama import (_set_block_tables, _set_cache_index, init_cache,
                             quantize_kv, select_rows)
 from ..telemetry.metrics import Registry, new_serving_metrics
+from .drafts import DRAFT_STRATEGIES, propose_prompt_lookup
 
 log = logging.getLogger(__name__)
 
@@ -183,17 +200,10 @@ class ContinuousBatcher:
                  page_size: int = 0, cache_blocks: int = 0,
                  prefix_cache: bool = True, kv_cache_dtype: str = "auto",
                  draft_model=None, draft_strategy: Optional[str] = None,
+                 draft_len: int = 4, prompt_lookup_ngram: int = 3,
                  prefill_chunk: int = 0, pipelined: bool = True,
                  telemetry_registry: Optional[Registry] = None,
                  device=None):
-        if draft_model is not None or draft_strategy is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md, "
-                "queue 1, modules left out of the serving slice)")
-        if prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill is not ported yet (ROADMAP.md, queue 1, "
-                "modules left out of the serving slice)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, batcher on "
@@ -206,6 +216,11 @@ class ContinuousBatcher:
                 "ContinuousBatcher requires a dense-layout model "
                 "(config.page_size == 0); use the page_size argument "
                 "to enable the paged cache")
+        self._prefill_chunk = int(prefill_chunk)
+        if self._prefill_chunk > 0 and page_size <= 0:
+            raise ValueError(
+                "prefill_chunk requires the paged cache (page_size > 0); "
+                "the dense layout prefills whole prompts")
         if kv_cache_dtype != "auto" and page_size <= 0:
             raise ValueError(
                 f"kv_cache_dtype={kv_cache_dtype!r} requires the paged "
@@ -266,6 +281,54 @@ class ContinuousBatcher:
                     device=self.device)
                 cache = _set_block_tables(cache, self._table)
         self._cache = cache
+
+        # Speculative decoding (greedy slots only), from a draft model or
+        # a training-free strategy; the same verify and acceptance serve
+        # both.
+        self.draft_len = int(draft_len)
+        self._draft_model = draft_model
+        self._draft_strategy = draft_strategy
+        self._pl_ngram = int(prompt_lookup_ngram)
+        if draft_strategy is not None:
+            if draft_strategy not in DRAFT_STRATEGIES:
+                raise ValueError(f"unknown draft_strategy "
+                                 f"{draft_strategy!r}; one of "
+                                 f"{DRAFT_STRATEGIES}")
+            if draft_model is not None:
+                raise ValueError(
+                    "draft_strategy and draft_model are exclusive")
+        if draft_model is not None:
+            dcfg = draft_model.config
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft/target vocab_size mismatch")
+            if dcfg.page_size > 0:
+                raise ValueError("draft model must be dense-layout")
+            if dcfg.max_seq_len < cfg.max_seq_len:
+                raise ValueError(
+                    f"draft max_seq_len {dcfg.max_seq_len} < target "
+                    f"{cfg.max_seq_len}: verify rounds write past it")
+            if draft_model.device != self.device:
+                raise ValueError(f"draft model is on {draft_model.device}, "
+                                 f"batcher on {self.device}")
+            # The draft's own per-slot dense cache (the target itself may
+            # be the draft: same tensors, this second cache).
+            with torch.inference_mode():
+                self._draft_cache = init_cache(dcfg, max_slots, self.device)
+            # slot -> highest committed position whose K/V the draft cache
+            # holds; a slot that advanced through plain ticks past it is
+            # re-prefilled when speculation resumes.
+            self._draft_pos: dict = {}
+        self._speculative = draft_model is not None or \
+            draft_strategy is not None
+        if self._speculative and self.draft_len < 1:
+            raise ValueError("draft_len must be >= 1")
+        self.spec_stats = {"spec_ticks": 0, "plain_ticks": 0,
+                           "accepted_drafts": 0, "drafted": 0}
+        if self._speculative:
+            # Acceptance needs every committed token on the host before
+            # the next round, so a speculative batcher never launches
+            # ahead (plain-tick interludes stay serialized too).
+            self.pipelined = False
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
             self._host_tokens = torch.empty((max_slots,), dtype=torch.int32,
@@ -318,17 +381,23 @@ class ContinuousBatcher:
         return row_cache, select_rows(logits[:, -1], temp, top_p, [gen],
                                       top_k)
 
+    @staticmethod
+    def _copy_dense_row(cache, slot: int, row_cache) -> None:
+        """Copy a batch-1 dense prefill cache into row ``slot`` of a dense
+        per-slot cache (the target's dense layout and the draft's)."""
+        for name, node in cache.items():
+            dst = node["attention"]
+            src = row_cache[name]["attention"]
+            n = src["cached_key"].shape[1]
+            dst["cached_key"][slot, :n] = src["cached_key"][0]
+            dst["cached_value"][slot, :n] = src["cached_value"][0]
+
     def _install(self, slot: int, row_cache, length: int) -> None:
         """Copy a batch-1 prefill cache into persistent slot ``slot``."""
         if self.page_size > 0:
             self._install_paged(slot, row_cache)
         else:
-            for name, node in self._cache.items():
-                dst = node["attention"]
-                src = row_cache[name]["attention"]
-                n = src["cached_key"].shape[1]
-                dst["cached_key"][slot, :n] = src["cached_key"][0]
-                dst["cached_value"][slot, :n] = src["cached_value"][0]
+            self._copy_dense_row(self._cache, slot, row_cache)
         self._set_slot_index(slot, length)
 
     # -- paged-pool plumbing -----------------------------------------------
@@ -533,41 +602,208 @@ class ContinuousBatcher:
                         *seq.shape[1:]).to(dst[pool].dtype)
         self._table[slot] = self._table_row(blocks)
 
-    def _prefill_suffix(self, slot: int, tokens: List[int], sample_args):
-        """Prefill only the uncached prompt suffix into ``slot``: a
-        batch-1 view of the cache maps the slot's table (shared prefix +
-        private blocks) at cache_index = shared_len, so the paged
-        multi-token branch attends across the cached prefix and writes
-        suffix K/V only into the private blocks.  The view shares the
-        pools, so those writes land in place (the JAX batcher donated
-        the whole cache to this apply and rebuilt it from the output).
-        Returns the first token [1]."""
-        shared_len = self._slot_shared[slot] * self.page_size
-        suffix = tokens[shared_len:]
+    def _prefill_paged(self, slot: int, tokens: List[int], start_len: int,
+                       chunk: int):
+        """Prefill ``tokens[start_len:]`` into ``slot``'s blocks through
+        batch-1 views of the cache, ``chunk`` tokens per forward: each
+        view maps the slot's table (shared prefix + private blocks) at
+        cache_index = the chunk's start, so the paged multi-token branch
+        attends across everything before it and writes the chunk's K/V
+        into the private blocks.  The views share the pools, so the
+        writes land in place (the JAX batcher donated the whole cache to
+        each apply and rebuilt it from the output).  The JAX batcher pads
+        each chunk to a fixed width (one compiled program); eager PyTorch
+        runs the last chunk at its own width.  Publishes the slot's table
+        row and cache index; returns the last position's logits [1, V]
+        (the callers sample once from them, so the first token equals
+        the unchunked paths')."""
         table_row = self._table_row(self._slot_blocks[slot])
-        start = self._tensor([shared_len], torch.int32)
-        view = {name: {"attention": {**node["attention"],
-                                     "block_table": table_row[None],
-                                     "cache_index": start}}
-                for name, node in self._cache.items()}
-        logits = self.model(self._tensor([suffix], torch.int32),
-                            cache=view, decode=True)
-        temp, top_p, gen, top_k = sample_args
-        first = select_rows(logits[:, -1], temp, top_p, [gen], top_k)
+        logits = None
+        for pos in range(start_len, len(tokens), chunk):
+            piece = tokens[pos:pos + chunk]
+            start = self._tensor([pos], torch.int32)
+            view = {name: {"attention": {**node["attention"],
+                                         "block_table": table_row[None],
+                                         "cache_index": start}}
+                    for name, node in self._cache.items()}
+            logits = self.model(self._tensor([piece], torch.int32),
+                                cache=view, decode=True)
         self._table[slot] = table_row
         self._set_slot_index(slot, len(tokens))
-        return first
+        return logits[:, -1]
+
+    def _prefill_pool_logits(self, slot: int, tokens: List[int]):
+        """Prefill the prompt past its cached prefix (if any) straight
+        into ``slot``'s blocks: in one forward, or in chunks when that
+        part is longer than ``prefill_chunk``.  Returns the last
+        position's logits [1, V]."""
+        start = self._slot_shared[slot] * self.page_size
+        chunk = self._prefill_chunk
+        if not 0 < chunk < len(tokens) - start:
+            chunk = len(tokens)
+        return self._prefill_paged(slot, tokens, start, chunk)
+
+    def _prefill_in_pool(self, slot: int, tokens: List[int], sample_args):
+        """``_prefill_pool_logits``, then the first token [1]."""
+        temp, top_p, gen, top_k = sample_args
+        return select_rows(self._prefill_pool_logits(slot, tokens),
+                           temp, top_p, [gen], top_k)
+
+    # -- speculative decoding ----------------------------------------------
+    def _draft_prefill_install(self, slot: int, tokens: List[int]) -> None:
+        """Prefill the committed stream through the draft model (batch-1
+        dense) into the draft's slot row."""
+        row_cache = init_cache(self._draft_model.config, 1, self.device,
+                               max_len=len(tokens))
+        self._draft_model(self._tensor([tokens], torch.int32),
+                          cache=row_cache, decode=True)
+        self._copy_dense_row(self._draft_cache, slot, row_cache)
+        self._draft_pos[slot] = len(tokens) - 1
+
+    def _speculative_tick(self, slots, next_tokens):
+        """One speculation round across every active (all-greedy) slot:
+        k proposals per slot, then ``_verify_and_accept``.  Inactive
+        slots ride along: their dense rows are garbage that admission
+        resets, and their paged table rows point at scratch block 0."""
+        k = self.draft_len
+        active = [i for i, r in enumerate(slots) if r is not None]
+        hists = {i: slots[i].tokens + slots[i].output for i in active}
+        # Committed-and-cached length: everything but the newest emitted
+        # token is in the caches (the plain-tick invariant).
+        m = np.zeros((self.max_slots,), np.int64)
+        t_last = np.zeros((self.max_slots,), np.int32)
+        for i in active:
+            m[i] = len(hists[i]) - 1
+            t_last[i] = hists[i][m[i]]
+
+        if self._draft_strategy is not None:
+            # Training-free: n-gram lookup over each slot's committed
+            # stream; host work only.
+            drafted = np.zeros((self.max_slots, k), np.int32)
+            for i in active:
+                drafted[i] = propose_prompt_lookup(
+                    hists[i][:m[i] + 1], k, self._pl_ngram)
+        else:
+            # Model draft: re-feed the last two committed tokens at index
+            # m-1 so the draft cache is current through m, then extend
+            # one token at a time.
+            feed = np.zeros((self.max_slots, 2), np.int32)
+            for i in active:
+                feed[i] = (hists[i][m[i] - 1], hists[i][m[i]])
+            with self._device_lock:
+                # A plain-tick interlude advanced the stream without the
+                # draft: a slot whose coverage lags past what the 2-token
+                # re-feed covers is re-prefilled.
+                for i in active:
+                    if self._draft_pos.get(i, -1) < m[i] - 2:
+                        self._draft_prefill_install(i, hists[i][:m[i] + 1])
+                d_cache = _set_cache_index(
+                    self._draft_cache,
+                    self._tensor(np.maximum(m - 1, 0), torch.int32))
+                tokens = self._tensor(feed, torch.int32)
+                drafts = []
+                for _ in range(k):
+                    logits = self._draft_model(tokens, cache=d_cache,
+                                               decode=True)
+                    tokens = logits[:, -1].argmax(dim=-1).to(
+                        torch.int32)[:, None]
+                    drafts.append(tokens)
+                self.telemetry["dispatches_total"].inc(k)
+                # ONE [B, k] transfer for the whole proposal matrix.
+                drafted = torch.cat(drafts, dim=1).cpu().numpy()
+                self.telemetry["transfers_total"].inc()
+        return self._verify_and_accept(slots, next_tokens, m, t_last,
+                                       drafted)
+
+    def _verify_and_accept(self, slots, next_tokens, m, t_last, drafted):
+        """ONE width-(k+1) target verify of ``drafted`` across all slots,
+        then longest-prefix acceptance + bonus, emission, and per-row
+        cache_index rollback over rejected positions."""
+        k = self.draft_len
+        active = [i for i, r in enumerate(slots) if r is not None]
+        with self._device_lock:
+            verify_tokens = np.concatenate([t_last[:, None], drafted],
+                                           axis=1)
+            self._cache = _set_cache_index(
+                self._cache, self._tensor(np.maximum(m, 0), torch.int32))
+            logits = self.model(self._tensor(verify_tokens, torch.int32),
+                                cache=self._cache, decode=True)
+            self.telemetry["dispatches_total"].inc()
+            g_np = logits.argmax(dim=-1).cpu().numpy()     # [B, k+1]
+            self.telemetry["transfers_total"].inc()
+            self.telemetry["ticks_total"].inc()
+
+        # Acceptance and emission per slot (lock released: emit() runs
+        # streaming callbacks).
+        accepted = np.cumprod(drafted == g_np[:, :-1], axis=1).sum(axis=1)
+        self.spec_stats["spec_ticks"] += 1
+        carry_idx: List[int] = []
+        carry_tok: List[int] = []
+        for i in active:
+            req = slots[i]
+            if req.cancelled.is_set():
+                req.done.set()
+                slots[i] = None
+                self._retire_slot(i)
+                continue
+            remaining = req.max_new_tokens - len(req.output)
+            self.spec_stats["drafted"] += min(k, remaining)
+            j = int(accepted[i])
+            emit = g_np[i, :j + 1]
+            take = int(min(len(emit), remaining))
+            if req.stop_tokens:
+                # Truncate at the first stop token (emitted inclusive).
+                for pos in range(take):
+                    if int(emit[pos]) in req.stop_tokens:
+                        take = pos + 1
+                        break
+            self.spec_stats["accepted_drafts"] += min(j, take)
+            for tok in emit[:take]:
+                req.emit(int(tok))
+            if self._draft_model is not None:
+                # Draft coverage: positions m+1..m+min(j, take) hold
+                # committed drafts; on a full-acceptance round the last
+                # proposal was never fed back, so at most m+k-1.
+                self._draft_pos[i] = int(m[i] + min(j, take, k - 1))
+            m[i] += take
+            if req.finished:
+                req.done.set()
+                slots[i] = None
+                self._retire_slot(i)
+            else:
+                # Plain-tick invariant for a possible fallback tick:
+                # next_tokens carries the newest emitted token.
+                carry_idx.append(i)
+                carry_tok.append(int(req.output[-1]))
+        if carry_idx:
+            next_tokens = next_tokens.index_copy(
+                0, self._tensor(carry_idx, torch.long),
+                self._tensor(carry_tok, torch.int32))
+        # Roll every row's write position back over rejected slots.
+        self._cache = _set_cache_index(
+            self._cache, self._tensor(np.maximum(m, 0), torch.int32))
+        return next_tokens
 
     # -- public API --------------------------------------------------------
+    def _headroom(self, temperature: float) -> int:
+        """Cache positions past prompt + max_new a verify round may touch
+        (the last round can draft past the needed tokens).  Only greedy
+        requests speculate, so sampling requests are not charged."""
+        if not self._speculative or temperature > 0.0:
+            return 0
+        return self.draft_len + 1
+
     def _enqueue(self, tokens, max_new_tokens, temperature, top_p, seed,
                  on_token=None, stop_tokens=(), top_k=0) -> _Request:
-        if len(tokens) + max_new_tokens > self._max_seq_len:
+        headroom = self._headroom(float(temperature))
+        if len(tokens) + max_new_tokens + headroom > self._max_seq_len:
             raise ValueError(
                 f"prompt ({len(tokens)}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds max_seq_len "
-                f"{self._max_seq_len}")
+                f"({max_new_tokens}) + speculation headroom "
+                f"({headroom}) exceeds max_seq_len {self._max_seq_len}")
         if self.page_size > 0:
-            need = self._blocks_needed(len(tokens) + max_new_tokens)
+            need = self._blocks_needed(len(tokens) + max_new_tokens
+                                       + headroom)
             if need > self._total_blocks:
                 raise ValueError(
                     f"request needs {need} cache blocks but the pool "
@@ -657,6 +893,26 @@ class ContinuousBatcher:
                             f"of {context + headroom} tokens")
                     self._table[i] = self._table_row(self._slot_blocks[i])
                 self._set_slot_index(i, context)
+
+    def prefill_logits(self, tokens: List[int]):
+        """Last-position logits [V] of ``tokens`` prefilled into slot 0's
+        blocks as admission prefills a prompt (past any cached prefix,
+        in ``prefill_chunk``-token forwards when that is set); the
+        blocks are returned afterwards.  Call it before start()."""
+        if self.page_size <= 0:
+            raise ValueError("prefill_logits needs the paged cache "
+                             "(page_size > 0)")
+        if self._thread is not None or 0 in self._slot_blocks:
+            raise RuntimeError("prefill_logits: slot 0 is in use")
+        tokens = [int(t) for t in tokens]
+        with torch.inference_mode():
+            if not self._alloc_blocks(0, len(tokens) + 1, tokens):
+                raise ValueError(f"the pool cannot hold {len(tokens)} "
+                                 f"tokens")
+            try:
+                return self._prefill_pool_logits(0, tokens)[0]
+            finally:
+                self._retire_slot(0)
 
     def _shutdown_error(self) -> RuntimeError:
         if self.fatal_error is not None:
@@ -752,6 +1008,9 @@ class ContinuousBatcher:
             out_np = self._fetch(out, done)
             tm["transfers_total"].inc()
             tm["ticks_total"].inc()
+            # Counted here, not at launch: a dropped overrun step emits
+            # nothing.
+            self.spec_stats["plain_ticks"] += 1
             for i in live:
                 req = snap[i]
                 if req.cancelled.is_set():
@@ -811,7 +1070,8 @@ class ContinuousBatcher:
                     req.done.set()
                     continue
                 if self.page_size > 0 and not self._alloc_blocks(
-                        i, len(req.tokens) + req.max_new_tokens,
+                        i, len(req.tokens) + req.max_new_tokens
+                        + self._headroom(req.temperature),
                         tokens=req.tokens):
                     deferred = req  # pool exhausted; retry after retires
                     deferred_mark = self._retire_count
@@ -833,13 +1093,19 @@ class ContinuousBatcher:
                     shared = (self._slot_shared.get(i, 0)
                               if self.page_size > 0 else 0)
                     with self._device_lock:
-                        if shared > 0:
-                            first = self._prefill_suffix(i, req.tokens,
-                                                         sample_args)
+                        if (shared > 0 or
+                                0 < self._prefill_chunk < len(req.tokens)):
+                            first = self._prefill_in_pool(i, req.tokens,
+                                                          sample_args)
                         else:
                             row_cache, first = self._prefill(req.tokens,
                                                              sample_args)
                             self._install(i, row_cache, len(req.tokens))
+                        if (self._draft_model is not None
+                                and req.temperature <= 0.0):
+                            # Sampling slots never speculate, so their
+                            # draft rows can stay garbage.
+                            self._draft_prefill_install(i, req.tokens)
                     if self.page_size > 0:
                         self._register_blocks(i, req.tokens)
                     first_i = int(first[0])
@@ -894,6 +1160,19 @@ class ContinuousBatcher:
                 if not admitted and pending is None:
                     # Idle: wait for work without dequeuing.
                     self._queue.wait_nonempty(0.05)
+                continue
+
+            # Speculation: every active slot greedy -> one round commits
+            # 1..k+1 tokens per slot.  ``pending`` is None here: a
+            # speculative batcher never launches ahead.
+            if self._speculative and all(
+                    r.temperature <= 0.0 for r in slots if r is not None):
+                try:
+                    next_tokens = self._speculative_tick(slots,
+                                                         next_tokens)
+                except Exception as exc:
+                    self._tick_fatal(exc, "speculative-tick")
+                    break
                 continue
 
             # Plain tick: launch (pipeline bootstrap, or every tick in

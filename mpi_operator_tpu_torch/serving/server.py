@@ -15,14 +15,17 @@ Counterpart of ``mpi_operator_tpu/serving/server.py``:
       index
 
 With ``max_batch_slots > 0`` single-sequence requests share decode ticks
-through the continuous batcher (paged with ``kv_page_size > 0``);
-multi-row requests, and every request when batching is off, go through
-``generate()`` on the dense cache.  The card is a serial resource behind
-one device lock shared with the batcher.
+through the continuous batcher (paged with ``kv_page_size > 0``, chunked
+prefill with ``kv_prefill_chunk``, speculative with ``draft_model`` or
+``draft_strategy``); multi-row requests, and every request when batching
+is off, go through ``generate()`` on the dense cache, or through
+``speculative_generate`` for greedy requests when a draft model is set.
+``weight_dtype="int8"`` quantizes the model's matmul weights up front.
+The card is a serial resource behind one device lock shared with the
+batcher.
 
 Not in this slice: ``/prefill``, ``/kv/pages`` and ``/debug-bundle``
-(501), draft models, ``mesh=``, ``weight_dtype="int8"``,
-``role != "unified"``, chunked prefill and causal-trace contexts — each
+(501), ``mesh=``, ``role != "unified"`` and causal-trace contexts — each
 raises, or answers 501, where it is asked for.
 """
 
@@ -31,9 +34,11 @@ from __future__ import annotations
 import json
 import threading
 import time
+import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -42,6 +47,26 @@ from ..telemetry.metrics import (Registry, expose_with_defaults,
 
 _LEFT_OUT = ("is not ported yet (ROADMAP.md, queue 1, modules left out "
              "of the serving slice)")
+
+# Sliding-window attention takes the materialized-score path, so an
+# S-token prefill allocates an O(S^2) f32 score matrix; past this prompt
+# length that dominates unless chunked prefill bounds it.
+_SWA_PROMPT_THRESHOLD = 2048
+_swa_chunk_warned = False
+
+
+def _warn_swa_unchunked(cfg) -> None:
+    global _swa_chunk_warned
+    if _swa_chunk_warned:
+        return
+    _swa_chunk_warned = True
+    warnings.warn(
+        f"sliding_window={cfg.sliding_window} with "
+        f"max_seq_len={cfg.max_seq_len} and kv_prefill_chunk=0: SWA "
+        f"uses the materialized-score attention path, so a long-prompt "
+        f"prefill allocates O(S^2) activation memory. Set "
+        f"kv_prefill_chunk (e.g. 512) to bound it.",
+        RuntimeWarning, stacklevel=3)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -171,6 +196,7 @@ class InferenceServer:
                  kv_page_size: int = 0, kv_cache_blocks: int = 0,
                  kv_prefix_cache: bool = True, kv_cache_dtype: str = "auto",
                  draft_model=None, draft_strategy: Optional[str] = None,
+                 draft_len: int = 4, prompt_lookup_ngram: int = 3,
                  kv_prefill_chunk: int = 0, weight_dtype: str = "auto",
                  pipelined: bool = True,
                  telemetry_registry: Optional[Registry] = None,
@@ -182,13 +208,9 @@ class InferenceServer:
         if mesh is not None:
             raise NotImplementedError(f"tensor-parallel serving (mesh=) "
                                       f"{_LEFT_OUT}")
-        if weight_dtype != "auto":
-            raise NotImplementedError(f"weight_dtype={weight_dtype!r} "
-                                      f"{_LEFT_OUT}")
-        if draft_model is not None or draft_strategy is not None:
-            raise NotImplementedError(f"speculative decoding {_LEFT_OUT}")
-        if kv_prefill_chunk:
-            raise NotImplementedError(f"chunked prefill {_LEFT_OUT}")
+        if weight_dtype not in ("auto", "int8"):
+            raise ValueError(f"weight_dtype must be 'auto' or 'int8', "
+                             f"got {weight_dtype!r}")
         if kv_page_size > 0 and max_batch_slots <= 0:
             raise ValueError(
                 "kv_page_size requires continuous batching "
@@ -198,11 +220,35 @@ class InferenceServer:
             raise ValueError(
                 f"kv_cache_dtype={kv_cache_dtype!r} requires "
                 f"kv_page_size > 0 (only the paged pool is quantized)")
+        if draft_strategy is not None and max_batch_slots <= 0:
+            raise ValueError(
+                "draft_strategy requires continuous batching "
+                "(max_batch_slots > 0); the non-batched path speculates "
+                "via draft_model only")
+        if kv_prefill_chunk > 0 and max_batch_slots <= 0:
+            raise ValueError(
+                "kv_prefill_chunk requires continuous batching "
+                "(max_batch_slots > 0); the non-batched path prefills "
+                "whole prompts through the dense cache")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, server on "
                              f"{self.device}")
+        if weight_dtype == "int8" and model.config.weight_dtype != "int8":
+            # Weight-only int8: quantize the matmul weights up front
+            # (models/quant.py).  The caller must drop its own reference
+            # to the full-precision model, or both copies stay resident.
+            from ..models.quant import quantize_model
+            model = quantize_model(model)
+        cfg = model.config
+        if (cfg.sliding_window is not None
+                and cfg.max_seq_len > _SWA_PROMPT_THRESHOLD
+                and kv_prefill_chunk <= 0):
+            _warn_swa_unchunked(cfg)
         self.model = model
+        # Speculative decoding of greedy requests on the non-batched
+        # path; the batcher gets the draft too.
+        self.draft_model = draft_model
         self.role = role
         self.model_name = model_name
         self._lock = threading.Lock()   # the card is single-flight
@@ -216,7 +262,9 @@ class InferenceServer:
                 model, max_slots=max_batch_slots, device_lock=self._lock,
                 page_size=kv_page_size, cache_blocks=kv_cache_blocks,
                 prefix_cache=kv_prefix_cache, kv_cache_dtype=kv_cache_dtype,
-                pipelined=pipelined,
+                draft_model=draft_model, draft_strategy=draft_strategy,
+                draft_len=draft_len, prompt_lookup_ngram=prompt_lookup_ngram,
+                prefill_chunk=kv_prefill_chunk, pipelined=pipelined,
                 telemetry_registry=self.telemetry_registry,
                 device=self.device)
         self._http = ThreadingHTTPServer((host, port), _Handler)
@@ -254,13 +302,35 @@ class InferenceServer:
         lengths = [len(r) for r in rows]
         width = max(lengths)
         prompt = [r + [0] * (width - len(r)) for r in rows]
+        ragged = len(set(lengths)) > 1
+        # The non-batched path speculates with a fixed draft_len of 4, as
+        # the JAX server does; both models bound the window, and a
+        # request that only fits the target decodes plainly.
+        draft_len = 4
+        spec_fits = all(width + max_new_tokens + draft_len + 1
+                        <= m.config.max_seq_len
+                        for m in (self.model, self.draft_model)
+                        if m is not None)
+        speculate = (self.draft_model is not None and temperature <= 0.0
+                     and not ragged and spec_fits)
         with self._lock:
-            out = generate(self.model, prompt, max_new_tokens,
-                           temperature=temperature, top_p=top_p,
-                           generator=self._generator(seed, temperature),
-                           prompt_lengths=(lengths if len(set(lengths)) > 1
-                                           else None),
-                           stop_tokens=stop_tokens, top_k=top_k)
+            if speculate:
+                from ..models.speculative import speculative_generate
+                out = speculative_generate(self.model, self.draft_model,
+                                           prompt, max_new_tokens,
+                                           draft_len=draft_len)
+            else:
+                out = generate(self.model, prompt, max_new_tokens,
+                               temperature=temperature, top_p=top_p,
+                               generator=self._generator(seed, temperature),
+                               prompt_lengths=lengths if ragged else None,
+                               stop_tokens=stop_tokens, top_k=top_k)
+        if stop_tokens and speculate:
+            # The speculative path decodes the full budget; cutting at the
+            # first stop token is the same as stopping there.
+            from ..models.llama import fill_after_stop
+            return fill_after_stop(out.cpu().numpy().astype(np.int64),
+                                   stop_tokens).tolist()
         return out.cpu().tolist()
 
     def stream(self, tokens, max_new_tokens: int = 16,
@@ -336,6 +406,17 @@ class InferenceServer:
             "free_blocks": b.free_blocks(),
         }
 
+    def batcher_stats(self) -> dict:
+        """Copies of the batcher's counters: ``spec`` (speculation
+        rounds, plain ticks, drafted and accepted tokens) and ``prefix``
+        (prefix-cache lookups and hits; empty without the paged cache).
+        Empty without a batcher."""
+        b = self._batcher
+        if b is None:
+            return {}
+        return {"spec": dict(b.spec_stats),
+                "prefix": dict(getattr(b, "prefix_stats", {}))}
+
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "InferenceServer":
         if self._batcher is not None:
@@ -353,6 +434,10 @@ class InferenceServer:
             self._thread.join(timeout=5)
             self._thread = None
         self._http.server_close()
+        # Break the server <-> handler-server cycle, so a stopped server's
+        # model and KV cache are freed with its last reference, not at a
+        # later garbage collection.
+        self._http.inference = None
 
     @property
     def url(self) -> str:

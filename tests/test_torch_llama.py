@@ -265,7 +265,9 @@ def test_out_of_slice_paths_raise():
     assert tm(torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tl.LlamaModel(tl.llama2_tiny(weight_dtype="int8"), device="cpu")
+    # Weight-only int8 is ported (tests/test_torch_quant.py): the matmul
+    # layers hold int8 weights.
+    q = tl.LlamaModel(tl.llama2_tiny(weight_dtype="int8"), device="cpu")
+    assert q.layers[0].attention.wq.weight.dtype == torch.int8
     with pytest.raises(ValueError, match="max_seq_len"):
         tl.generate(tm, [[1, 2, 3]], 1000)

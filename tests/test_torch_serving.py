@@ -325,11 +325,18 @@ def test_entry_points_default_to_the_card(weights):
 def test_out_of_slice_options_raise(weights):
     _, _, tm = weights
     for kw in (dict(role="prefill", kv_page_size=16, max_batch_slots=1),
-               dict(mesh=object()), dict(weight_dtype="int8"),
-               dict(draft_strategy="prompt_lookup", max_batch_slots=1),
-               dict(kv_prefill_chunk=64, max_batch_slots=1)):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             InferenceServer(tm, device="cpu", **kw)
+    server = InferenceServer(tm, max_batch_slots=1, kv_page_size=16,
+                             device="cpu").start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(server.url + "/kv/pages", {"pages": []})
+        assert err.value.code == 501
+        assert "not ported" in json.loads(err.value.read())["error"]
+    finally:
+        server.stop()
     with pytest.raises(ValueError, match="dense-layout"):
         ContinuousBatcher(load_flax_params(
             jax.tree_util.tree_map(np.asarray, weights[1]["params"]),
@@ -363,13 +370,19 @@ def test_port_imports_no_jax_and_serves_the_example_demo():
             "        assert exc.code in (0, None), exc.code\n"
             "run('examples/llama_serve_torch.py', '--config', 'tiny',\n"
             "    '--device', 'cpu', '--port', '0', '--demo')\n"
+            "run('examples/llama_serve_torch.py', '--config', 'tiny',\n"
+            "    '--device', 'cpu', '--port', '0', '--demo',\n"
+            "    '--weight-dtype', 'int8', '--prefill-chunk', '2',\n"
+            "    '--draft-strategy', 'self', '--draft-len', '3')\n"
             "run('examples/llama_train_torch.py', '--config', 'tiny',\n"
             "    '--device', 'cpu', '--steps', '2', '--seq-len', '32')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
     demo = [ln for ln in proc.stdout.splitlines() if ln.startswith("demo:")]
-    assert len(json.loads(demo[0][len("demo:"):])["tokens"][0]) == 8
+    assert len(demo) == 2
+    for line in demo:
+        assert len(json.loads(line[len("demo:"):])["tokens"][0]) == 8
     assert any(ln.startswith("tokens/sec: ") for ln in
                proc.stdout.splitlines()), proc.stdout
     banned = re.compile(r"^\s*(import|from)\s+"
