@@ -10,8 +10,10 @@ continued:
              CUDA versions and `nvcc --version`.
 2. build     the three kernel sources under mpi_operator_tpu_torch/ops/csrc/
              (paged_attention.cu, flash_attention.cu, rmsnorm.cu), each by
-             its own nvcc, started together; each -Xptxas -v register /
-             shared-memory / spill report is printed.
+             its own nvcc, started together; each kernel's -Xptxas -v
+             register / shared-memory / spill report is printed, and the
+             count of HGMMA (wgmma) instructions that cuobjdump -sass finds
+             in each bf16 backward kernel, which must not be 0.
 3. kernels   each kernel against its plain PyTorch version on the card.
              K4' (paged decode attention) at the serving path's shapes:
              per (row, query head), the largest error over the largest
@@ -25,7 +27,9 @@ continued:
              value| is at most 2e-2 forward and 5e-2 for gradients in
              bf16, 2e-5 and 5e-4 in f32; a planted fault (key block 0 of
              one head replaced by block 10, given to the kernels only)
-             must exceed each limit.  K5' (fused RMSNorm) at the training
+             must exceed each limit, and a second call of K2' and K3' on
+             the training shape's inputs must give bit-identical dq, dk
+             and dv.  K5' (fused RMSNorm) at the training
              shape (8192 x 4096, bf16 and f32), the decode shape (8 x
              4096) and ragged rows (d 4100 and 4099): per row, the
              largest error over the largest |plain output| is at most
@@ -39,7 +43,9 @@ continued:
              operations over the type's peak rate, whichever is larger),
              the plain version's time and the library call's:
              scaled_dot_product_attention's forward and backward for
-             K1'-K3', torch.nn.functional.rms_norm for K5'.
+             K1'-K3', torch.nn.functional.rms_norm for K5'; the flash
+             kernels also print their achieved TFLOP/s and share of
+             their bound.
 4. parity    tiny f32 models on the card equal the plain path on the CPU:
              paged greedy generate, and two AdamW train steps through the
              flash kernels (loss and grad_norm at 1e-4).
@@ -89,6 +95,8 @@ continued:
              tokens/s, train_mfu, losses, peak memory, goodput.  Checked:
              finite losses, the last below the first, K1'/K2'/K3'
              launches == 6 steps x 8 layers each, peak memory < 80 GB.
+             Then the phase runs once more: its six losses must be
+             bit-identical to the first run's.
 
 Before the last line it prints the card line and one
 {"kernels": [...]} JSON line; the last line is
@@ -982,20 +990,31 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+
+def flash_flops(b, h, s, d, causal):
+    """{kernel: flops}: 2 per multiply-add of each product over the
+    unmasked (q, k) pairs (S and P V forward; S, dP, dQ for dq; S, dP,
+    dV, dK for dkv)."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return {name: 2 * products * pairs * d
+            for name, products in FLASH_PRODUCTS.items()}
+
+
 def flash_bounds(b, h, s, d, dtype, causal):
     """{kernel: (bound ms, bound_by)}: each input read once and each
-    output written once over 3.35 TB/s; the products' flops (2 per
-    multiply-add over the unmasked (q, k) pairs) over the type's peak."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    output written once over 3.35 TB/s; the products' flops over the
+    type's peak."""
     tile = b * h * s * d * torch.tensor([], dtype=dtype).element_size()
     rows = b * h * s * 4
-    work = {"flash_fwd": (2, 3 * tile + tile + rows),
-            "flash_bwd_dq": (3, 4 * tile + 2 * rows + tile),
-            "flash_bwd_dkv": (4, 4 * tile + 2 * rows + 2 * tile)}
+    nbytes = {"flash_fwd": 3 * tile + tile + rows,
+              "flash_bwd_dq": 4 * tile + 2 * rows + tile,
+              "flash_bwd_dkv": 4 * tile + 2 * rows + 2 * tile}
     out = {}
-    for name, (products, nbytes) in work.items():
-        t_ops = 2 * products * pairs * d / PEAK_OPS[dtype] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    for name, flops in flash_flops(b, h, s, d, causal).items():
+        t_ops = flops / PEAK_OPS[dtype] * 1e3
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
         out[name] = (max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -1040,6 +1059,17 @@ def flash_case(fa, gen, name, b, h, s, d, dtype, causal, timed=False):
     result = {"shape": [b, h, s, d], "dtype": str(dtype), "causal": causal,
               "rel_err": errs, "max_abs_err": abs_errs, "lse_err": lse_err}
     if timed:
+        # K2' and K3' own their output tiles (no atomics): a second call
+        # on the same inputs must give the same bits.
+        again = (fa._cuda_bwd_dq(q, k, v, g, lse, delta, scale, causal),
+                 *fa._cuda_bwd_dkv(q, k, v, g, lse, delta, scale, causal))
+        same = [torch.equal(x, y) for x, y in zip((dq, dk, dv), again)]
+        if not all(same):
+            raise SystemExit(f"flash case {name}: dq/dk/dv differ between "
+                             f"two calls on the same inputs: {same}")
+        result["bitwise_repeat"] = {"dq": same[0], "dk": same[1],
+                                    "dv": same[2]}
+        del again
         # Negative control: key block 0 of head 0 replaced by block 10,
         # given to the kernels only, must fail every limit.
         bad = k.clone()
@@ -1087,6 +1117,11 @@ def flash_case(fa, gen, name, b, h, s, d, dtype, causal, timed=False):
             lambda: torch.autograd.grad(sdpa_out, leaves, g,
                                         retain_graph=True), iters=10)
         result["bounds"] = flash_bounds(b, h, s, d, dtype, causal)
+        flops = flash_flops(b, h, s, d, causal)
+        result["tflops"] = {n: flops[n] / ms / 1e9
+                            for n, ms in result["ms"].items()}
+        result["bound_share"] = {n: result["bounds"][n][0] / ms
+                                 for n, ms in result["ms"].items()}
         del leaves, sdpa_out
     print(f"kernel flash[{name}]: " + json.dumps(result), flush=True)
     torch.cuda.empty_cache()
@@ -1431,7 +1466,20 @@ def training_phase(card: str):
                          f"{want} each (steps x layers)")
     if not peak < 80e9:
         raise SystemExit(f"training: peak memory {peak} bytes")
-    return launches
+    return launches, losses
+
+
+def training_repeat_phase(card: str, losses):
+    """The training phase once more on the same card: the flash kernels
+    use no atomics, so the six losses must be bit-identical."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, again = training_phase(card)
+    print(f"training[repeat]: losses {again}, identical: {again == losses}",
+          flush=True)
+    if again != losses:
+        raise SystemExit(f"training: a second run gave losses {again}, the "
+                         f"first {losses}")
 
 
 def build_phase() -> None:
@@ -1459,8 +1507,40 @@ def build_phase() -> None:
     for name in KERNEL_SOURCES:
         print(f"build: {name}.cu in {times[name]:.1f} s", flush=True)
         for line in _build.build_logs[name].splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("Used", "spill", "entry function",
+                                       "setmaxnreg", "wgmma")):
                 print(f"build[{name}]: {line.strip()}")
+    print("sass[flash_attention]: HGMMA per backward wgmma kernel "
+          + json.dumps(hgmma_counts()), flush=True)
+
+
+def hgmma_counts():
+    """{kernel: HGMMA instructions} for the bf16 backward kernels, from
+    cuobjdump -sass of the built flash attention library; fails when one
+    of them issues none."""
+    from mpi_operator_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = next((f"{k}<{d}>" for k in ("flash_bwd_dq_wgmma_kernel",
+                                               "flash_bwd_dkv_wgmma_kernel")
+                         for d in (64, 128)
+                         if f"{k}ILi{d}E" in line), None)
+            if func:
+                counts[func] = 0
+        elif func and "HGMMA" in line:
+            counts[func] += 1
+    if len(counts) != 4 or not all(counts.values()):
+        raise SystemExit(f"sass: the bf16 backward kernels must issue "
+                         f"wgmma (HGMMA): {counts}")
+    return counts
 
 
 def flash_entry(name, flash, launches):
@@ -1486,6 +1566,10 @@ def flash_entry(name, flash, launches):
         "plain_ms": main_case["plain_ms"][name],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "tflops": main_case["tflops"][name],
+        "bound_share": main_case["bound_share"][name],
+        **({} if name == "flash_fwd" else
+           {"bitwise_repeat": main_case["bitwise_repeat"]}),
         # SDPA's backward computes dq, dk and dv in one call: the
         # yardstick of K2' and K3' together.
         "library_ms": library,
@@ -1539,7 +1623,8 @@ def main() -> int:
     del qmodel
     gc.collect()
     torch.cuda.empty_cache()
-    flash_launches = training_phase(card)
+    flash_launches, losses = training_phase(card)
+    training_repeat_phase(card, losses)
 
     main_case = kernels["llama2_7b"]
     entry = {

@@ -13,35 +13,61 @@
 //   dkv:  dV = sum over q tiles of P^T dO, dK = sum of dS^T Q * scale,
 // where delta = rowsum(dO o O) - dlse is computed by the caller, as the JAX
 // package does.  Masked scores take the finite mask value of the JAX
-// kernel (-0.7 * FLT_MAX), so exp() gives 0 without inf or NaN.
+// kernel (-0.7 * FLT_MAX) in the forward and P = 0 in the backward, so
+// exp() gives 0 without inf or NaN.
 //
 // Bound: operations.  At the training shape (S = 4096, D = 128, bf16) each
 // loaded K/V byte feeds ~2*64 flops per q tile and there are 64 q tiles
 // per kv tile, far above the ~295 flops/byte where the H100's bf16 tensor
-// cores (989 TFLOP/s) become the limit; the least time is the products'
-// flops (2 per multiply-add; causal counts half) over that rate.
+// cores (989 TFLOP/s) become the limit.  The least time is the products'
+// flops over that rate, 2 per multiply-add over the unmasked (q, k)
+// pairs: 2 products in the forward, 3 in dq (S, dP, dQ) and 4 in dkv
+// (S^T, dP^T, dV, dK).  Both backward kernels recompute S and dP (and
+// dkv S^T twice, below), so the pair issues 8 products where a fused
+// backward would issue 5: that keeps each kernel the sole owner of its
+// output tile, with no atomics, so two runs on the same inputs give
+// bit-identical dq, dk and dv.
 //
-// Design.  The Pallas grid walks kv blocks in order and keeps m, l and acc
-// in VMEM scratch between grid steps; blocks on Hopper run in no order, so
-// each CTA owns one output tile and loops over the other axis itself:
-//   * 64-row tiles, 4 warps, each warp owns 16 rows of the output tile;
-//   * fwd and dq: CTA = (b*h, q tile), loop over kv tiles up to the
-//     diagonal; dkv: CTA = (b*h, kv tile), loop over q tiles from the
-//     diagonal on.  The heaviest causal tiles are launched first;
-//   * the streamed tiles (K/V, or Q/dO with their lse/delta rows) go
-//     through a two-stage cp.async ring in dynamic shared memory (one
-//     stage for f32, whose tiles are twice as large), rows padded by 16
-//     bytes against bank conflicts; the ragged last tile is zero-filled
-//     and masked, so S need not be a multiple of 64;
-//   * bf16 products run on the tensor cores with mma.sync m16n8k16 and
-//     f32 accumulation; P and dS are rounded to bf16 for their product.
-//     f32 products run as f32 FMAs in the same fragment layout (no TF32),
-//     so the f32 path holds the plain version to 2e-5;
-//   * the online softmax (running max m, sum l) and every accumulator are
-//     f32 in registers; the dkv kernel computes S^T = K Q^T directly, so
-//     every product reads its A operand row-major from shared memory;
-//   * the GQA repeat of K/V stays in the caller, as in the JAX model.
-// wgmma, TMA, warp specialisation and KV-head indexing are later work.
+// The Pallas grid walks the reduction axis in order and keeps its sums in
+// VMEM scratch between grid steps; blocks on Hopper run in no order, so
+// each CTA owns output tiles and loops over the other axis itself.  The
+// heaviest causal tiles are launched first.  The GQA repeat of K/V stays
+// in the caller, as in the JAX model.
+//
+// bf16 backward (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel):
+//   * three warpgroups: two consumers and one producer; setmaxnreg moves
+//     registers from the producer (56) to the consumers (224).  dq: CTA =
+//     (b*h, 128 q rows), each consumer owns 64 of them.  dkv: CTA = (b*h,
+//     64 keys); consumer 0 accumulates dV, consumer 1 dK, and each
+//     computes S^T itself (5 products instead of 4).  A consumer that
+//     held both dK and dV of 64 keys needed 192 f32 accumulator registers
+//     in contiguous blocks plus the P^T and dS^T fragments, more than the
+//     232 it could be given:
+//     ptxas spilled them around every wgmma and serialised the wgmmas,
+//     which cost more than the recomputed S^T;
+//   * the producer streams 64-row tiles (K and V for dq; Q, dO and their
+//     lse and delta rows for dkv) with 16-byte cp.async into a two-stage
+//     ring guarded by full/empty mbarriers (cp.async.mbarrier.arrive), so
+//     loads run under the consumers' products without __syncthreads;
+//   * every product is a wgmma (m64n64k16 for S and dP, m64n{D}k16 for
+//     dQ, dK, dV) with f32 accumulators in registers.  Tiles sit in shared
+//     memory in the 128-byte swizzle the wgmma descriptors read (no
+//     padding, no bank conflicts); S and dP read both operands K-major,
+//     the third product reads K, dO or Q MN-major through the
+//     descriptor's transpose bit, and takes P or dS as its A operand
+//     from registers: the accumulator fragment rounded to bf16 pairs, so
+//     P and dS never touch shared memory;
+//   * exp2 with the scale and log2(e) folded into one FMA; masks only on
+//     the tiles that cross the diagonal or the end of the sequence;
+//   * the ragged last tile is zero-filled on load and its rows dropped on
+//     store, so S need not be a multiple of 64; the epilogue stages the
+//     scaled output tile in the warpgroup's own (swizzled) input rows and
+//     writes it as 16-byte vectors.
+// f32 backward and the forward: 64-row tiles, 4 warps of 16 rows each, a
+// cp.async ring with padded rows; bf16 forward products on mma.sync
+// m16n8k16, f32 products as f32 FMAs in the same fragment layout (no
+// TF32), so the f32 path holds the plain version to 2e-5.  The forward's
+// wgmma version is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +75,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -281,16 +308,17 @@ constexpr size_t fwd_smem() {
           kTile * ldp) * sizeof(T);
 }
 
-template <typename T, int D>
+// The f32 backward: four one-stage [64 x D] tiles, a [64 x 64] one, and
+// for dkv 64 lse and 64 delta values.
+template <int D>
 constexpr size_t dq_smem() {
-  constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
-  return (static_cast<size_t>(kTile) * ld * (2 + 2 * Traits<T>::kStages) +
-          kTile * ldp) * sizeof(T);
+  constexpr int ld = D + Traits<float>::kPad, ldp = kTile + Traits<float>::kPad;
+  return (static_cast<size_t>(kTile) * ld * 4 + kTile * ldp) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 constexpr size_t dkv_smem() {
-  return dq_smem<T, D>() + 2 * Traits<T>::kStages * kTile * sizeof(float);
+  return dq_smem<D>() + 2 * kTile * sizeof(float);
 }
 
 // ---- K1': forward -------------------------------------------------------
@@ -429,19 +457,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- K2': dQ ------------------------------------------------------------
+// ---- K2' (f32): dQ -------------------------------------------------------
 
-template <typename T, int D>
+// One stage: each f32 tile is reloaded after the last product that reads
+// it (the tiles are twice as large as bf16's).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(Params p) {
-  constexpr int kStages = Traits<T>::kStages;
+  using T = float;
   constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* dOs = Qs + kTile * ld;
-  T* Ks = dOs + kTile * ld;                   // [kStages][kTile][ld]
-  T* Vs = Ks + kStages * kTile * ld;
-  T* Ss = Vs + kStages * kTile * ld;          // dS, [kTile][ldp]
+  T* Ks = dOs + kTile * ld;
+  T* Vs = Ks + kTile * ld;
+  T* Ss = Vs + kTile * ld;                    // dS, [kTile][ldp]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -459,10 +489,6 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, D>(Qs, q, q0, seq, tid);
   load_tile<T, D>(dOs, dout, q0, seq, tid);
-  if (kStages == 2) {
-    load_tile<T, D>(Ks, k, 0, seq, tid);
-    load_tile<T, D>(Vs, v, 0, seq, tid);
-  }
   cp_async_commit();
 
   float lse[2], delta[2];
@@ -478,25 +504,13 @@ __global__ void __launch_bounds__(kThreads)
     dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
   for (int j = 0; j < n_kv; ++j) {
-    const int buf = kStages == 2 ? (j & 1) : 0;
-    if (kStages == 2) {
-      if (j + 1 < n_kv) {
-        load_tile<T, D>(Ks + (buf ^ 1) * kTile * ld, k, (j + 1) * kTile, seq,
-                        tid);
-        load_tile<T, D>(Vs + (buf ^ 1) * kTile * ld, v, (j + 1) * kTile, seq,
-                        tid);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      load_tile<T, D>(Ks, k, j * kTile, seq, tid);
-      load_tile<T, D>(Vs, v, j * kTile, seq, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
+    load_tile<T, D>(Ks, k, j * kTile, seq, tid);
+    load_tile<T, D>(Vs, v, j * kTile, seq, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    const T* Kb = Ks + buf * kTile * ld;
-    const T* Vb = Vs + buf * kTile * ld;
+    const T* Kb = Ks;
+    const T* Vb = Vs;
 
     float s[8][4], dp[8][4];
 #pragma unroll
@@ -529,21 +543,21 @@ __global__ void __launch_bounds__(kThreads)
                        lane);
 }
 
-// ---- K3': dK, dV --------------------------------------------------------
+// ---- K3' (f32): dK, dV ---------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(Params p) {
-  constexpr int kStages = Traits<T>::kStages;
+  using T = float;
   constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + kTile * ld;
-  T* Qs = Vs + kTile * ld;                    // [kStages][kTile][ld]
-  T* dOs = Qs + kStages * kTile * ld;
-  T* Ps = dOs + kStages * kTile * ld;         // P^T, then dS^T: [kTile][ldp]
-  float* lse_s = reinterpret_cast<float*>(Ps + kTile * ldp);  // [kStages][64]
-  float* delta_s = lse_s + kStages * kTile;
+  T* Qs = Vs + kTile * ld;
+  T* dOs = Qs + kTile * ld;
+  T* Ps = dOs + kTile * ld;                   // P^T, then dS^T: [kTile][ldp]
+  float* lse_s = reinterpret_cast<float*>(Ps + kTile * ldp);  // [64]
+  float* delta_s = lse_s + kTile;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -562,12 +576,6 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, D>(Ks, k, k0, seq, tid);
   load_tile<T, D>(Vs, v, k0, seq, tid);
-  if (kStages == 2) {
-    load_tile<T, D>(Qs, q, i0 * kTile, seq, tid);
-    load_tile<T, D>(dOs, dout, i0 * kTile, seq, tid);
-    load_rows(lse_s, p.lse + rows, i0 * kTile, seq, tid);
-    load_rows(delta_s, p.delta + rows, i0 * kTile, seq, tid);
-  }
   cp_async_commit();
 
   float dk[D / 8][4], dv[D / 8][4];
@@ -578,31 +586,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int i = i0; i < n_q; ++i) {
-    const int buf = kStages == 2 ? ((i - i0) & 1) : 0;
-    if (kStages == 2) {
-      if (i + 1 < n_q) {
-        const int nb = buf ^ 1;
-        const int r0 = (i + 1) * kTile;
-        load_tile<T, D>(Qs + nb * kTile * ld, q, r0, seq, tid);
-        load_tile<T, D>(dOs + nb * kTile * ld, dout, r0, seq, tid);
-        load_rows(lse_s + nb * kTile, p.lse + rows, r0, seq, tid);
-        load_rows(delta_s + nb * kTile, p.delta + rows, r0, seq, tid);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      load_tile<T, D>(Qs, q, i * kTile, seq, tid);
-      load_tile<T, D>(dOs, dout, i * kTile, seq, tid);
-      load_rows(lse_s, p.lse + rows, i * kTile, seq, tid);
-      load_rows(delta_s, p.delta + rows, i * kTile, seq, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
+    load_tile<T, D>(Qs, q, i * kTile, seq, tid);
+    load_tile<T, D>(dOs, dout, i * kTile, seq, tid);
+    load_rows(lse_s, p.lse + rows, i * kTile, seq, tid);
+    load_rows(delta_s, p.delta + rows, i * kTile, seq, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    const T* Qb = Qs + buf * kTile * ld;
-    const T* dOb = dOs + buf * kTile * ld;
-    const float* lse_b = lse_s + buf * kTile;
-    const float* delta_b = delta_s + buf * kTile;
+    const T* Qb = Qs;
+    const T* dOb = dOs;
+    const float* lse_b = lse_s;
+    const float* delta_b = delta_s;
     const int q0 = i * kTile;
 
     // S^T = K Q^T: rows are this warp's keys, columns the tile's queries.
@@ -652,6 +646,732 @@ __global__ void __launch_bounds__(kThreads)
                        lane);
 }
 
+// ---- K2', K3' in bf16: wgmma, swizzled shared memory, warp specialisation
+
+constexpr int kWgRows = 64;            // rows of one consumer warpgroup
+constexpr int kCtaRows = 128;          // rows of a CTA: two consumers
+constexpr int kWsThreads = 384;        // two consumers + one producer
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerThreads = 128;
+constexpr int kRing = 2;               // stages of the producer's ring
+constexpr int kProducerRegs = 56;      // setmaxnreg: 128*56 + 256*224
+constexpr int kConsumerRegs = 224;     //   = 384*168, the launch's share
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (r, c) of a bf16 tile of R rows, stored as D/64
+// column blocks of R rows x 128 bytes whose 16-byte chunks are swizzled
+// by r % 8: the 128-byte swizzle of wgmma (and TMA).  Tile bases are
+// 1024-byte aligned, so the hardware's swizzle of the address matches.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 6) * (R * 128) + r * 128 +
+         ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// wgmma shared-memory descriptor with the 128-byte swizzle; the leading
+// and stride byte offsets are in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+// K-major operand: rows [r0, r0 + 64) of an R-row tile at k-step kk
+// (columns 16kk .. 16kk + 15).  8-row groups are 1024 bytes apart; a
+// k-step inside a 64-column block moves the start by 32 bytes.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return make_desc(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32,
+                   1, 64);
+}
+
+// MN-major operand B[k][n] = tile[k][n] of an R-row tile at k-step kk
+// (rows 16kk .. 16kk + 15, every column): 8-row groups 1024 bytes apart
+// (stride offset), 64-column blocks R * 128 bytes apart (leading offset).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 2048, R * 8, 64);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching accumulators across an async wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Keeps register A fragments allocated until their wgmma has finished.
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
+  }
+}
+// Generic-proxy writes (cp.async, st.shared) before async-proxy reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+// One arrival on `bar` once every cp.async this thread issued has landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// Barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads').
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+// Barrier of both consumer warpgroups (id 3).
+__device__ __forceinline__ void bar_sync_consumers() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo: low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The wgmma accumulator of m64nN: thread t of the warpgroup holds, for
+// each 8-column block j, d[4j + e] at row 16 * (t / 32) + (t % 32) / 4 +
+// 8 * (e >> 1) and column 8j + 2 * (t % 4) + (e & 1).  Its bf16 pairs are
+// the A fragment of the next product over those 64 columns: k-step kk
+// takes blocks 2kk and 2kk + 1.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
+                                         const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+    }
+  }
+}
+
+// The scale-d predicate comes from a register (setp), as PTX takes no
+// immediate there; the first product of a sum writes its accumulator
+// without reading it, so no stale value is kept live across the loop.
+// d[32] = A[64 x 16] * B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d[32] += A[64 x 16] * B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[32] += A[64 x 16] * B[16 x 64], A in registers (the bf16 pairs of an
+// accumulator fragment), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A[64 x 16] * B[16 x 128], A in registers (the bf16 pairs of an
+// accumulator fragment), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Rows [row0, row0 + R) of a [seq, D] head into a swizzled R-row tile at
+// `tile`, 16 bytes a cp.async, by the producer's 128 threads; rows past
+// seq are zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void load_tile_swz(uint32_t tile, const bf16* src,
+                                              int row0, int seq, int t) {
+  constexpr int kChunks = D / 8;
+#pragma unroll 4
+  for (int c = t; c < R * kChunks; c += kProducerThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int row = row0 + r;
+    const bool valid = row < seq;
+    const bf16* g = src + static_cast<size_t>(valid ? row : 0) * D + col;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     tile + swz<R>(r, col)),
+                 "l"(g), "r"(valid ? 16 : 0)
+                 : "memory");
+  }
+}
+
+// A warpgroup's [64 x D] accumulator times `mul`, as bf16, into rows
+// [r0, r0 + 64) of a swizzled R-row tile.
+template <int R, int D>
+__device__ __forceinline__ void stage_acc(unsigned char* tile, int r0,
+                                          const float (&acc)[D / 2],
+                                          float mul, int t) {
+  const int r = r0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int c = 2 * (t & 3);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<uint32_t*>(tile + swz<R>(r + 8 * h, 8 * j + c)) =
+          pack_bf16(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// Rows [r0, r0 + 64) of a swizzled R-row tile to rows [row0, row0 + 64)
+// of a [seq, D] output, 16 bytes a thread; rows past seq are dropped.
+template <int R, int D>
+__device__ __forceinline__ void store_rows(bf16* out, int row0, int seq,
+                                           const unsigned char* tile, int r0,
+                                           int t) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int c = t; c < kWgRows * kChunks; c += 128) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    if (row0 + r < seq) {
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * D +
+                                col) =
+          *reinterpret_cast<const uint4*>(tile + swz<R>(r0 + r, col));
+    }
+  }
+}
+
+template <int D>
+struct DqLayout {                      // byte offsets from a 1024-aligned base
+  static constexpr int kTile = kWgRows * D * 2;       // one 64-row tile
+  static constexpr int kQ = 0;                        // 128 rows
+  static constexpr int kDO = kQ + 2 * kTile;          // 128 rows
+  static constexpr int kK = kDO + 2 * kTile;          // [kRing] x 64 rows
+  static constexpr int kV = kK + kRing * kTile;       // [kRing] x 64 rows
+  static constexpr int kBar = kV + kRing * kTile;     // full, empty, q
+  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+};
+
+template <int D>
+struct DkvLayout {
+  static constexpr int kTile = kWgRows * D * 2;
+  static constexpr int kK = 0;                        // 64 rows
+  static constexpr int kV = kK + kTile;               // 64 rows
+  static constexpr int kQ = kV + kTile;               // [kRing] x 64 rows
+  static constexpr int kDO = kQ + kRing * kTile;      // [kRing] x 64 rows
+  static constexpr int kLse = kDO + kRing * kTile;    // [kRing][64] f32
+  static constexpr int kDelta = kLse + kRing * kWgRows * 4;
+  static constexpr int kBar = kDelta + kRing * kWgRows * 4;
+  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+};
+
+// P of one (64 q rows, 64 keys) tile from S, in place.  kMask: the tile
+// crosses the diagonal or the end of the sequence.
+template <bool kMask>
+__device__ __forceinline__ void dq_p(float (&s)[32], float sl2,
+                                     const float (&nl2)[2], int row, int col,
+                                     int seq, int causal) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float pr = ex2(fmaf(s[i], sl2, nl2[h]));
+    if (kMask) {
+      const int c = col + 8 * (i >> 2) + (i & 1);
+      if (c >= seq || (causal && c > row + 8 * h)) pr = 0.f;
+    }
+    s[i] = pr;
+  }
+}
+
+// bf16 dS = P o (dP - delta) as the A fragment of dQ += dS K.
+__device__ __forceinline__ void dq_ds(uint32_t (&ds)[4][4], float (&p)[32],
+                                      const float (&dp)[32],
+                                      const float (&dlt)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] *= dp[i] - dlt[(i >> 1) & 1];
+  acc_to_a(ds, p);
+}
+
+// ---- K2' (bf16): dQ -------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_wgmma_kernel(Params p) {
+  using L = DqLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t full = base + L::kBar, empty = full + 8 * kRing;
+  const uint32_t qbar = empty + 8 * kRing;
+
+  const int seq = p.seq;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * kCtaRows;
+  const size_t head = static_cast<size_t>(blockIdx.x) * seq * D;
+  const int n_all = (seq + kWgRows - 1) / kWgRows;
+  const int n_kv = p.causal ? min(n_all, (q0 + kCtaRows) / kWgRows) : n_all;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, kProducerThreads);
+      mbar_init(empty + 8 * s, kConsumerThreads);
+    }
+    mbar_init(qbar, kProducerThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  if (wg == 2) {
+    // Producer: Q and dO once, then K and V tiles through the ring.
+    regs_dec<kProducerRegs>();
+    const bf16* k = static_cast<const bf16*>(p.k) + head;
+    const bf16* v = static_cast<const bf16*>(p.v) + head;
+    load_tile_swz<kCtaRows, D>(base + L::kQ,
+                               static_cast<const bf16*>(p.q) + head, q0, seq,
+                               t);
+    load_tile_swz<kCtaRows, D>(base + L::kDO,
+                               static_cast<const bf16*>(p.dout) + head, q0,
+                               seq, t);
+    mbar_arrive_cp_async(qbar);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kRing;
+      mbar_wait(empty + 8 * s, ((j / kRing) & 1) ^ 1);
+      load_tile_swz<kWgRows, D>(base + L::kK + s * L::kTile, k, j * kWgRows,
+                                seq, t);
+      load_tile_swz<kWgRows, D>(base + L::kV + s * L::kTile, v, j * kWgRows,
+                                seq, t);
+      mbar_arrive_cp_async(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // Consumer: 64 q rows; S = Q K^T and dP = dO V^T, both K-major, then
+    // dQ += dS K with dS from registers and K MN-major.
+    regs_inc<kConsumerRegs>();
+    const int lane = t & 31;
+    const int qw0 = q0 + wg * kWgRows;                 // first row of ours
+    const int row = qw0 + 16 * (t >> 5) + (lane >> 2); // and h = 1: + 8
+    const int col = 2 * (lane & 3);
+    const size_t rows = static_cast<size_t>(blockIdx.x) * seq;
+    const float sl2 = p.scale * kLog2e;
+    float nl2[2], dlt[2];                              // -lse log2(e), delta
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool valid = row + 8 * h < seq;
+      nl2[h] = valid ? -p.lse[rows + row + 8 * h] * kLog2e : 0.f;
+      dlt[h] = valid ? p.delta[rows + row + 8 * h] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    float s[32], dp[32];
+    const uint32_t qa = base + L::kQ, doa = base + L::kDO;
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % kRing;
+      mbar_wait(full + 8 * st, (j / kRing) & 1);
+      const int kv0 = j * kWgRows;
+      if (p.causal && kv0 > qw0 + kWgRows - 1) {     // above our diagonal
+        mbar_arrive(empty + 8 * st);
+        continue;
+      }
+      fence_async_smem();
+      const uint32_t ka = base + L::kK + st * L::kTile;
+      const uint32_t va = base + L::kV + st * L::kTile;
+      wgmma_fence();
+      wgmma_ss_init(s, desc_k<kCtaRows>(qa, wg * kWgRows, 0),
+                    desc_k<kWgRows>(ka, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        wgmma_ss(s, desc_k<kCtaRows>(qa, wg * kWgRows, kk),
+                 desc_k<kWgRows>(ka, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_ss_init(dp, desc_k<kCtaRows>(doa, wg * kWgRows, 0),
+                    desc_k<kWgRows>(va, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        wgmma_ss(dp, desc_k<kCtaRows>(doa, wg * kWgRows, kk),
+                 desc_k<kWgRows>(va, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                               // S has landed
+      fence_regs(s);
+      if (kv0 + kWgRows > seq || (p.causal && kv0 + kWgRows - 1 > qw0)) {
+        dq_p<true>(s, sl2, nl2, row, kv0 + col, seq, p.causal);
+      } else {
+        dq_p<false>(s, sl2, nl2, row, kv0 + col, seq, 0);
+      }
+      wgmma_wait<0>();                               // dP has landed
+      fence_regs(dp);
+      uint32_t ds[4][4];
+      dq_ds(ds, s, dp, dlt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(dq, ds[kk], desc_mn<kWgRows>(ka, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_frag(ds);
+      mbar_arrive(empty + 8 * st);
+    }
+    // Epilogue: dQ * scale through our own Q rows, out as 16-byte rows.
+    wg_sync(1 + wg);
+    stage_acc<kCtaRows, D>(gbase + L::kQ, wg * kWgRows, dq, p.scale, t);
+    wg_sync(1 + wg);
+    store_rows<kCtaRows, D>(static_cast<bf16*>(p.dq) + head, qw0, seq,
+                            gbase + L::kQ, wg * kWgRows, t);
+  }
+}
+
+// bf16 P^T of one (64 keys, 64 q rows) tile from S^T, as the A fragment
+// of dV += P^T dO; the tile's lse rows come from the ring.  kMask: the
+// tile crosses the diagonal or the end of the sequence.
+template <bool kMask>
+__device__ __forceinline__ void dkv_p(uint32_t (&pa)[4][4], float (&s)[32],
+                                      const float* lse, float sl2, int key,
+                                      int q0, int col, int seq, int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float pr = ex2(fmaf(s[i], sl2, -(e & 1 ? l.y : l.x) * kLog2e));
+      if (kMask) {
+        const int qi = q0 + 8 * j + col + (e & 1);
+        if (qi >= seq || (causal && key + 8 * (e >> 1) > qi)) pr = 0.f;
+      }
+      s[i] = pr;
+    }
+  }
+  acc_to_a(pa, s);
+}
+
+// bf16 dS^T = P^T o (dP^T - delta) from the bf16 P^T fragment (masked
+// entries are 0 there), as the A fragment of dK += dS^T Q.  Taking P from
+// its bf16 pairs frees the f32 S^T before dP^T is read.
+__device__ __forceinline__ void dkv_ds(uint32_t (&dsa)[4][4],
+                                       const uint32_t (&pa)[4][4],
+                                       const float (&dp)[32],
+                                       const float* delta, int col) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 d = *reinterpret_cast<const float2*>(delta + 8 * j + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // pa[j / 2][2 * (j % 2) + h] holds accumulator elements 4j + 2h, + 1.
+      const int r = 2 * (j & 1) + h, i = 4 * j + 2 * h;
+      const uint32_t pr = pa[j >> 1][r];
+      const float lo = __uint_as_float(pr << 16);
+      const float hi = __uint_as_float(pr & 0xffff0000u);
+      dsa[j >> 1][r] = pack_bf16(lo * (dp[i] - d.x), hi * (dp[i + 1] - d.y));
+    }
+  }
+}
+
+// One consumer of K3' over the CTA's q tiles.  Each computes S^T = K Q^T
+// (K-major operands) and P^T; kDk: dP^T = V dO^T, dS^T and dK += dS^T Q,
+// else dV += P^T dO.  P^T and dS^T stay in registers as A operands.
+template <int D, bool kDk>
+__device__ __forceinline__ void dkv_consume(
+    float (&acc)[D / 2], const Params& p, uint32_t base,
+    const unsigned char* gbase, uint32_t full, uint32_t empty, int i0,
+    int n_q, int k0, int key, int col, float sl2) {
+  using L = DkvLayout<D>;
+  const int seq = p.seq;
+  const uint32_t ka = base + L::kK, va = base + L::kV;
+  float s[32], dp[32];
+  for (int i = i0; i < n_q; ++i) {
+    const int n = i - i0, st = n % kRing;
+    mbar_wait(full + 8 * st, (n / kRing) & 1);
+    const int qt0 = i * kWgRows;
+    fence_async_smem();
+    const uint32_t qa = base + L::kQ + st * L::kTile;
+    const uint32_t doa = base + L::kDO + st * L::kTile;
+    const float* lse =
+        reinterpret_cast<const float*>(gbase + L::kLse) + st * kWgRows;
+    const float* delta =
+        reinterpret_cast<const float*>(gbase + L::kDelta) + st * kWgRows;
+    wgmma_fence();
+    wgmma_ss_init(s, desc_k<kWgRows>(ka, 0, 0), desc_k<kWgRows>(qa, 0, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) {
+      wgmma_ss(s, desc_k<kWgRows>(ka, 0, kk), desc_k<kWgRows>(qa, 0, kk));
+    }
+    wgmma_commit();
+    if constexpr (kDk) {
+      wgmma_ss_init(dp, desc_k<kWgRows>(va, 0, 0),
+                    desc_k<kWgRows>(doa, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        wgmma_ss(dp, desc_k<kWgRows>(va, 0, kk), desc_k<kWgRows>(doa, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                               // S^T has landed
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(s);
+    uint32_t pa[4][4];
+    if (qt0 + kWgRows > seq || (p.causal && k0 + kWgRows - 1 > qt0)) {
+      dkv_p<true>(pa, s, lse, sl2, key, qt0, col, seq, p.causal);
+    } else {
+      dkv_p<false>(pa, s, lse, sl2, key, qt0, col, seq, 0);
+    }
+    if constexpr (kDk) {
+      wgmma_wait<0>();                               // dP^T has landed
+      fence_regs(dp);
+      uint32_t dsa[4][4];
+      dkv_ds(dsa, pa, dp, delta, col);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(acc, dsa[kk], desc_mn<kWgRows>(qa, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frag(dsa);
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(acc, pa[kk], desc_mn<kWgRows>(doa, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frag(pa);
+    }
+    mbar_arrive(empty + 8 * st);
+  }
+}
+
+// ---- K3' (bf16): dK, dV ---------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(Params p) {
+  using L = DkvLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t full = base + L::kBar, empty = full + 8 * kRing;
+  const uint32_t kvbar = empty + 8 * kRing;
+
+  const int seq = p.seq;
+  const int kt = blockIdx.y;                 // kv tile 0 has the most work
+  const int k0 = kt * kWgRows;
+  const size_t head = static_cast<size_t>(blockIdx.x) * seq * D;
+  const size_t rows = static_cast<size_t>(blockIdx.x) * seq;
+  const int n_q = (seq + kWgRows - 1) / kWgRows;
+  const int i0 = p.causal ? kt : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, kProducerThreads);
+      mbar_init(empty + 8 * s, kConsumerThreads);
+    }
+    mbar_init(kvbar, kProducerThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  if (wg == 2) {
+    // Producer: K and V once, then Q, dO, lse and delta through the ring.
+    regs_dec<kProducerRegs>();
+    const bf16* q = static_cast<const bf16*>(p.q) + head;
+    const bf16* dout = static_cast<const bf16*>(p.dout) + head;
+    // Threads 0-63 copy lse rows, 64-127 delta rows, 4 bytes each.
+    const float* vec = (t < kWgRows ? p.lse : p.delta) + rows;
+    const uint32_t vdst = base + (t < kWgRows ? L::kLse : L::kDelta) +
+                          (t % kWgRows) * 4;
+    load_tile_swz<kWgRows, D>(base + L::kK,
+                              static_cast<const bf16*>(p.k) + head, k0, seq,
+                              t);
+    load_tile_swz<kWgRows, D>(base + L::kV,
+                              static_cast<const bf16*>(p.v) + head, k0, seq,
+                              t);
+    mbar_arrive_cp_async(kvbar);
+    for (int i = i0; i < n_q; ++i) {
+      const int n = i - i0, s = n % kRing;
+      mbar_wait(empty + 8 * s, ((n / kRing) & 1) ^ 1);
+      load_tile_swz<kWgRows, D>(base + L::kQ + s * L::kTile, q, i * kWgRows,
+                                seq, t);
+      load_tile_swz<kWgRows, D>(base + L::kDO + s * L::kTile, dout,
+                                i * kWgRows, seq, t);
+      const int r = i * kWgRows + t % kWgRows;
+      const bool valid = r < seq;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       vdst + s * kWgRows * 4),
+                   "l"(vec + (valid ? r : 0)), "r"(valid ? 4 : 0)
+                   : "memory");
+      mbar_arrive_cp_async(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // Consumers, both over the CTA's 64 keys: warpgroup 0 accumulates dV,
+    // warpgroup 1 dK, so each holds one D-wide accumulator, not two.
+    regs_inc<kConsumerRegs>();
+    const int lane = t & 31;
+    const int key = k0 + 16 * (t >> 5) + (lane >> 2);  // and h = 1: + 8
+    const int col = 2 * (lane & 3);
+    const float sl2 = p.scale * kLog2e;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kvbar, 0);
+    // One loop per role, so no wgmma sits on a path that diverges inside
+    // the loop (ptxas serialises those).
+    if (wg == 0) {
+      dkv_consume<D, false>(acc, p, base, gbase, full, empty, i0, n_q, k0,
+                            key, col, sl2);
+    } else {
+      dkv_consume<D, true>(acc, p, base, gbase, full, empty, i0, n_q, k0,
+                           key, col, sl2);
+    }
+    // Epilogue: once both warpgroups are done with K and V, dV goes out
+    // through V's rows and dK * scale through K's.
+    bar_sync_consumers();
+    unsigned char* tile = gbase + (wg == 0 ? L::kV : L::kK);
+    stage_acc<kWgRows, D>(tile, 0, acc, wg == 0 ? 1.f : p.scale, t);
+    wg_sync(1 + wg);
+    store_rows<kWgRows, D>(static_cast<bf16*>(wg == 0 ? p.dv : p.dk) + head,
+                           k0, seq, tile, 0, t);
+  }
+}
+
 // ---- host side ------------------------------------------------------------
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -676,31 +1396,46 @@ cudaError_t raise_smem(K kern, std::atomic<bool>* raised) {
 
 template <typename T, int D>
 cudaError_t launch(int kind, const Params& p, int bh, cudaStream_t stream) {
-  static_assert(fwd_smem<T, D>() <= kSmemLimit, "fwd shared memory");
-  static_assert(dq_smem<T, D>() <= kSmemLimit, "dq shared memory");
-  static_assert(dkv_smem<T, D>() <= kSmemLimit, "dkv shared memory");
   static std::atomic<bool> raised[3][kMaxDevices];
   const dim3 grid(bh, (p.seq + kTile - 1) / kTile);
   cudaError_t e;
-  switch (kind) {
-    case kFwd:
-      e = raise_smem(flash_fwd_kernel<T, D>, raised[kFwd]);
+  if (kind == kFwd) {
+    static_assert(fwd_smem<T, D>() <= kSmemLimit, "fwd shared memory");
+    e = raise_smem(flash_fwd_kernel<T, D>, raised[kFwd]);
+    if (e != cudaSuccess) return e;
+    flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<T, D>(), stream>>>(p);
+  } else if constexpr (std::is_same<T, float>::value) {
+    static_assert(dq_smem<D>() <= kSmemLimit, "dq shared memory");
+    static_assert(dkv_smem<D>() <= kSmemLimit, "dkv shared memory");
+    if (kind == kDq) {
+      e = raise_smem(flash_bwd_dq_kernel<D>, raised[kDq]);
       if (e != cudaSuccess) return e;
-      flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<T, D>(), stream>>>(p);
-      break;
-    case kDq:
-      e = raise_smem(flash_bwd_dq_kernel<T, D>, raised[kDq]);
+      flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), stream>>>(p);
+    } else if (kind == kDkv) {
+      e = raise_smem(flash_bwd_dkv_kernel<D>, raised[kDkv]);
       if (e != cudaSuccess) return e;
-      flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem<T, D>(), stream>>>(p);
-      break;
-    case kDkv:
-      e = raise_smem(flash_bwd_dkv_kernel<T, D>, raised[kDkv]);
-      if (e != cudaSuccess) return e;
-      flash_bwd_dkv_kernel<T, D>
-          <<<grid, kThreads, dkv_smem<T, D>(), stream>>>(p);
-      break;
-    default:
+      flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), stream>>>(p);
+    } else {
       return cudaErrorInvalidValue;
+    }
+  } else {
+    static_assert(DqLayout<D>::kBytes <= kSmemLimit, "dq shared memory");
+    static_assert(DkvLayout<D>::kBytes <= kSmemLimit, "dkv shared memory");
+    const dim3 ws_grid(bh, (p.seq + kCtaRows - 1) / kCtaRows);
+    if (kind == kDq) {
+      e = raise_smem(flash_bwd_dq_wgmma_kernel<D>, raised[kDq]);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dq_wgmma_kernel<D>
+          <<<ws_grid, kWsThreads, DqLayout<D>::kBytes, stream>>>(p);
+    } else if (kind == kDkv) {
+      e = raise_smem(flash_bwd_dkv_wgmma_kernel<D>, raised[kDkv]);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dkv_wgmma_kernel<D>
+          <<<dim3(bh, (p.seq + kWgRows - 1) / kWgRows), kWsThreads,
+             DkvLayout<D>::kBytes, stream>>>(p);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
   return cudaGetLastError();
 }

@@ -26,7 +26,12 @@ ta = importlib.import_module("mpi_operator_tpu_torch.ops.attention")
 
 F32_TOL = 2e-5
 GRAD_TOL = 5e-4
-CASES = [(128, True), (128, False), (80, True), (80, False)]
+# S = 200 and S = 1 are not multiples of the kernels' 64-row tiles.
+CASES = [(128, True), (128, False), (80, True), (80, False), (200, True),
+         (1, True)]
+# bf16 sequence lengths of the card test: around the 64-row tiles of the
+# backward's ring and the 128-row tiles its CTAs own.
+CUDA_BF16_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 383)
 
 
 def _inputs(s, seed=0, b=1, h=2, d=64, n=4):
@@ -155,25 +160,30 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_kernels_match_plain_version(cuda_device, dtype):
     """K1', K2', K3' against the plain versions on the same card inputs,
-    causal and not, D 64 and 128, S = 127 (a ragged last tile) and 256,
-    plus the dlse path of flash_attention_with_lse."""
+    causal and not, D 64 and 128; bf16 (the wgmma backward) at every S of
+    CUDA_BF16_SEQS, f32 at S = 127 (a ragged last tile) and 256; plus the
+    dlse path of flash_attention_with_lse.  Every case carries an lse
+    cotangent, so dq and dk are not zero at S = 1."""
     fwd_tol, grad_tol = ((F32_TOL, GRAD_TOL) if dtype == torch.float32
                          else (2e-2, 5e-2))
-    for s in (127, 256):
+    seqs = (127, 256) if dtype == torch.float32 else CUDA_BF16_SEQS
+    for s in seqs:
         for d in (64, 128):
             for causal in (True, False):
                 q, k, v, g = (torch.from_numpy(a).to(cuda_device, dtype)
                               for a in _inputs(s, seed=s + d, b=2, h=3, d=d))
+                dlse = torch.from_numpy(np.random.default_rng(s).standard_normal(
+                    (2, 3, s)).astype(np.float32)).to(cuda_device)
                 scale = d ** -0.5
                 before = dict(ta.LAUNCHES)
                 out, lse = ta._flash_forward(q, k, v, scale, causal)
                 dq, dk, dv = ta._flash_backward(q, k, v, out, lse, g, scale,
-                                                causal)
+                                                causal, dlse=dlse)
                 torch.cuda.synchronize(cuda_device)
                 assert all(ta.LAUNCHES[n] == before[n] + 1
                            for n in ta.LAUNCHES)
                 ref_out, ref_lse = ta._plain_forward(q, k, v, scale, causal)
-                delta = (g.float() * out.float()).sum(-1)
+                delta = (g.float() * out.float()).sum(-1) - dlse
                 ref_dq = ta._torch_bwd_dq(q, k, v, g, ref_lse, delta, scale,
                                           causal)
                 ref_dk, ref_dv = ta._torch_bwd_dkv(q, k, v, g, ref_lse,
@@ -196,3 +206,62 @@ def test_cuda_kernels_match_plain_version(cuda_device, dtype):
     ((pout * g.float()).sum() + (plse * gl).sum()).backward()
     for got, want in zip(leaves, plain):
         assert _head_rel_err(got.grad, want.grad) <= grad_tol
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_deterministic(cuda_device):
+    """K2' and K3' own their output tiles and use no atomics: two calls on
+    the same inputs give bit-identical dq, dk and dv, in bf16, causal and
+    not, at a ragged S."""
+    for causal in (True, False):
+        q, k, v, g = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                      for a in _inputs(383, seed=7, b=2, h=3, d=128))
+        scale = 128 ** -0.5
+        out, lse = ta._flash_forward(q, k, v, scale, causal)
+        delta = (g.float() * out.float()).sum(-1)
+        runs = [(ta._cuda_bwd_dq(q, k, v, g, lse, delta, scale, causal),
+                 *ta._cuda_bwd_dkv(q, k, v, g, lse, delta, scale, causal))
+                for _ in range(2)]
+        torch.cuda.synchronize(cuda_device)
+        for first, second in zip(*runs):
+            assert torch.equal(first, second), causal
+
+
+@pytest.mark.cuda
+def test_cuda_register_a_fault_is_caught(cuda_device, tmp_path):
+    """A planted fault in the backward's register A fragments (the bf16
+    pairs of an accumulator packed with their two columns swapped), built
+    from a copy of the source in a temporary directory, must fail the
+    bf16 limit for dq, dk and dv: the card test sees a wrong fragment
+    order."""
+    import ctypes
+    import subprocess
+
+    from mpi_operator_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    good = "a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);"
+    assert good in src
+    bad = "a[kk][r] = pack_bf16(d[8 * kk + 2 * r + 1], d[8 * kk + 2 * r]);"
+    path = tmp_path / "flash_attention.cu"
+    path.write_text(src.replace(good, bad))
+    lib = tmp_path / "libflash_attention_fault.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(path)], check=True, capture_output=True)
+    q, k, v, g = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in _inputs(383, seed=11, b=2, h=3, d=128))
+    scale = 128 ** -0.5
+    out, lse = ta._flash_forward(q, k, v, scale, True)
+    delta = (g.float() * out.float()).sum(-1)
+    real = ta._bind()
+    _build._libs["flash_attention"] = ctypes.CDLL(str(lib))
+    try:
+        dq = ta._cuda_bwd_dq(q, k, v, g, lse, delta, scale, True)
+        dk, dv = ta._cuda_bwd_dkv(q, k, v, g, lse, delta, scale, True)
+        torch.cuda.synchronize(cuda_device)
+    finally:
+        _build._libs["flash_attention"] = real
+    ref_dq = ta._torch_bwd_dq(q, k, v, g, lse, delta, scale, True)
+    ref_dk, ref_dv = ta._torch_bwd_dkv(q, k, v, g, lse, delta, scale, True)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert _head_rel_err(got, want) > 5e-2
