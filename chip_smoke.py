@@ -11,9 +11,10 @@ continued:
 2. build     the three kernel sources under mpi_operator_tpu_torch/ops/csrc/
              (paged_attention.cu, flash_attention.cu, rmsnorm.cu), each by
              its own nvcc, started together; each kernel's -Xptxas -v
-             register / shared-memory / spill report is printed, and the
-             count of HGMMA (wgmma) instructions that cuobjdump -sass finds
-             in each bf16 backward kernel, which must not be 0.
+             register / shared-memory / spill report is printed (a wgmma
+             kernel with spill bytes fails the run), and the count of
+             HGMMA (wgmma) instructions that cuobjdump -sass finds in each
+             bf16 flash kernel (forward, dQ, dK/dV), which must not be 0.
 3. kernels   each kernel against its plain PyTorch version on the card.
              K4' (paged decode attention) at the serving path's shapes:
              per (row, query head), the largest error over the largest
@@ -27,11 +28,13 @@ continued:
              value| is at most 2e-2 forward and 5e-2 for gradients in
              bf16, 2e-5 and 5e-4 in f32; a planted fault (key block 0 of
              one head replaced by block 10, given to the kernels only)
-             must exceed each limit, and a second call of K2' and K3' on
-             the training shape's inputs must give bit-identical dq, dk
-             and dv.  K5' (fused RMSNorm) at the training
-             shape (8192 x 4096, bf16 and f32), the decode shape (8 x
-             4096) and ragged rows (d 4100 and 4099): per row, the
+             must exceed each limit, and a second call of K1', K2' and
+             K3' on the training shape's inputs must give bit-identical
+             out, lse, dq, dk and dv.  K5' (fused RMSNorm) at the
+             training shape (8192 x 4096, bf16 and f32), the decode shape
+             (8 x 4096), widths 5120, 8192 and 32768 and ragged rows (d
+             4100 and 4099), each case naming the K5' kernel its shape
+             takes (rows or two-pass; both must run): per row, the
              largest error over the largest |plain output| is at most
              2e-2 in bf16 and 2e-5 in f32, rstd within 2e-5; a planted
              fault (one row normalised with a scale 5% too large) must
@@ -43,9 +46,10 @@ continued:
              operations over the type's peak rate, whichever is larger),
              the plain version's time and the library call's:
              scaled_dot_product_attention's forward and backward for
-             K1'-K3', torch.nn.functional.rms_norm for K5'; the flash
-             kernels also print their achieved TFLOP/s and share of
-             their bound.
+             K1'-K3', torch.nn.functional.rms_norm for K5'; each kernel
+             also prints its share of its bound, the flash kernels their
+             achieved TFLOP/s, K5' the time of a device copy of the same
+             bytes.
 4. parity    tiny f32 models on the card equal the plain path on the CPU:
              paged greedy generate, and two AdamW train steps through the
              flash kernels (loss and grad_norm at 1e-4).
@@ -108,6 +112,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1059,16 +1064,18 @@ def flash_case(fa, gen, name, b, h, s, d, dtype, causal, timed=False):
     result = {"shape": [b, h, s, d], "dtype": str(dtype), "causal": causal,
               "rel_err": errs, "max_abs_err": abs_errs, "lse_err": lse_err}
     if timed:
-        # K2' and K3' own their output tiles (no atomics): a second call
-        # on the same inputs must give the same bits.
-        again = (fa._cuda_bwd_dq(q, k, v, g, lse, delta, scale, causal),
+        # K1', K2' and K3' own their output tiles (no atomics): a second
+        # call on the same inputs must give the same bits.
+        again = (*fa._flash_forward(q, k, v, scale, causal),
+                 fa._cuda_bwd_dq(q, k, v, g, lse, delta, scale, causal),
                  *fa._cuda_bwd_dkv(q, k, v, g, lse, delta, scale, causal))
-        same = [torch.equal(x, y) for x, y in zip((dq, dk, dv), again)]
-        if not all(same):
-            raise SystemExit(f"flash case {name}: dq/dk/dv differ between "
+        names = ("out", "lse", "dq", "dk", "dv")
+        same = {n: torch.equal(x, y)
+                for n, x, y in zip(names, (out, lse, dq, dk, dv), again)}
+        if not all(same.values()):
+            raise SystemExit(f"flash case {name}: outputs differ between "
                              f"two calls on the same inputs: {same}")
-        result["bitwise_repeat"] = {"dq": same[0], "dk": same[1],
-                                    "dv": same[2]}
+        result["bitwise_repeat"] = same
         del again
         # Negative control: key block 0 of head 0 replaced by block 10,
         # given to the kernels only, must fail every limit.
@@ -1207,8 +1214,16 @@ def rmsnorm_case(rn, gen, name, shape, dtype, scale_dtype, timed):
     scale = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0
              ).to(scale_dtype)
     tol = RMSNORM_LIMITS[dtype]
+    before = dict(rn.VARIANT_LAUNCHES)
     out, rstd = rn._cuda_forward(x, scale, RMSNORM_EPS)
     torch.cuda.synchronize()
+    # The kernel this shape took: one launch, counted under its name.
+    took = [n for n in before if rn.VARIANT_LAUNCHES[n] != before[n]]
+    row_vecs = rn.kernel_variant(d, x.element_size(), x.data_ptr(),
+                                 out.data_ptr())
+    if took != ["rows" if row_vecs else "two_pass"]:
+        raise SystemExit(f"rmsnorm case {name}: launched {took}, "
+                         f"kernel_variant gave {row_vecs}")
     ref, ref_rstd = rn._plain_forward(x, scale, RMSNORM_EPS)
     if not torch.isfinite(out.float()).all():
         raise SystemExit(f"rmsnorm case {name}: non-finite output")
@@ -1221,7 +1236,8 @@ def rmsnorm_case(rn, gen, name, shape, dtype, scale_dtype, timed):
     result = {"shape": list(shape), "dtype": str(dtype),
               "scale_dtype": str(scale_dtype), "max_rel_err": rel,
               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-              "rstd_rel_err": rstd_rel, "tol": tol}
+              "rstd_rel_err": rstd_rel, "tol": tol, "kernel": took[0],
+              "row_vecs": row_vecs}
     bound_ms, bound_by = rmsnorm_bound(rows, d, dtype, scale_dtype)
     result.update(bound_ms=bound_ms, bound_by=bound_by)
     if timed:
@@ -1242,8 +1258,12 @@ def rmsnorm_case(rn, gen, name, shape, dtype, scale_dtype, timed):
         result["library_ms"] = time_ms(
             lambda: torch.nn.functional.rms_norm(x, (d,), lib_scale,
                                                  RMSNORM_EPS), iters=50)
+        # A device copy of the same bytes (x read once, y written once):
+        # what a streaming kernel reaches on this card, beside the bound.
+        result["copy_ms"] = time_ms(lambda: out.copy_(x), iters=50)
         result["host_us"] = host_us(
             lambda: rn._cuda_forward(x, scale, RMSNORM_EPS))
+        result["bound_share"] = bound_ms / result["ms"]
     print(f"kernel rmsnorm[{name}]: " + json.dumps(result), flush=True)
     del x, out, ref
     torch.cuda.empty_cache()
@@ -1303,10 +1323,17 @@ def rmsnorm_phase():
         ("train_bf16", (2, 4096, 4096), bf16, f32, True),
         ("train_f32", (2, 4096, 4096), f32, f32, True),
         ("decode_bf16", (8, 1, 4096), bf16, f32, True),
+        ("wide_5120", (1024, 5120), bf16, f32, False),
+        ("wide_8192", (1024, 8192), bf16, f32, False),
+        ("wide_32768", (64, 32768), bf16, f32, False),
         ("ragged_bf16", (1003, 4100), bf16, bf16, False),
         ("ragged_f32", (37, 4099), f32, f32, False),
     ]
     results = {c[0]: rmsnorm_case(rn, gen, *c) for c in cases}
+    kernels = {r["kernel"] for r in results.values()}
+    if kernels != {"rows", "two_pass"}:
+        raise SystemExit(f"rmsnorm: both K5' kernels must run, ran "
+                         f"{kernels}")
     results["launches"] = rmsnorm_path(rn)
     return results
 
@@ -1329,10 +1356,15 @@ def rmsnorm_entry(results):
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "bound_share": main_case["bound_share"],
+        "copy_ms": main_case["copy_ms"],
+        "kernel_by_case": {n: r["kernel"] for n, r in cases.items()},
         "f32": {k: results["train_f32"][k] for k in
-                ("ms", "plain_ms", "library_ms", "bound_ms")},
+                ("ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
+                 "bound_share")},
         "decode": {k: results["decode_bf16"][k] for k in
-                   ("ms", "plain_ms", "library_ms", "bound_ms")},
+                   ("ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
+                    "bound_share")},
     }
 
 
@@ -1510,14 +1542,43 @@ def build_phase() -> None:
             if any(w in line for w in ("Used", "spill", "entry function",
                                        "setmaxnreg", "wgmma")):
                 print(f"build[{name}]: {line.strip()}")
-    print("sass[flash_attention]: HGMMA per backward wgmma kernel "
+    spills = wgmma_spills(_build.build_logs["flash_attention"])
+    print("ptxas[flash_attention]: spill bytes (stores, loads) per wgmma "
+          "kernel " + json.dumps(spills), flush=True)
+    if len(spills) != len(WGMMA_KERNELS) or any(
+            st or ld for st, ld in spills.values()):
+        raise SystemExit(f"build: every wgmma kernel must report 0 spill "
+                         f"bytes: {spills}")
+    print("sass[flash_attention]: HGMMA per wgmma kernel "
           + json.dumps(hgmma_counts()), flush=True)
 
 
+def wgmma_kernel(symbol: str):
+    """The WGMMA_KERNELS name of a mangled symbol, or None."""
+    return next((name for name, frag in WGMMA_KERNELS.items()
+                 if frag in symbol), None)
+
+
+def wgmma_spills(log: str):
+    """{kernel: (spill store bytes, spill load bytes)} of the wgmma
+    kernels, from nvcc's -Xptxas -v report."""
+    spills, func = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            func = wgmma_kernel(line)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if func and found:
+            spills[func] = (int(found.group(1)), int(found.group(2)))
+            func = None
+    return spills
+
+
 def hgmma_counts():
-    """{kernel: HGMMA instructions} for the bf16 backward kernels, from
-    cuobjdump -sass of the built flash attention library; fails when one
-    of them issues none."""
+    """{kernel: HGMMA instructions} for the bf16 wgmma kernels (forward,
+    dQ, dK/dV), from cuobjdump -sass of the built flash attention
+    library; fails when one of them issues none."""
     from mpi_operator_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
@@ -1529,17 +1590,14 @@ def hgmma_counts():
     counts, func = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            func = next((f"{k}<{d}>" for k in ("flash_bwd_dq_wgmma_kernel",
-                                               "flash_bwd_dkv_wgmma_kernel")
-                         for d in (64, 128)
-                         if f"{k}ILi{d}E" in line), None)
+            func = wgmma_kernel(line)
             if func:
                 counts[func] = 0
         elif func and "HGMMA" in line:
             counts[func] += 1
-    if len(counts) != 4 or not all(counts.values()):
-        raise SystemExit(f"sass: the bf16 backward kernels must issue "
-                         f"wgmma (HGMMA): {counts}")
+    if len(counts) != len(WGMMA_KERNELS) or not all(counts.values()):
+        raise SystemExit(f"sass: the bf16 flash kernels must issue wgmma "
+                         f"(HGMMA): {counts}")
     return counts
 
 
@@ -1568,8 +1626,9 @@ def flash_entry(name, flash, launches):
         "bound_by": bound_by,
         "tflops": main_case["tflops"][name],
         "bound_share": main_case["bound_share"][name],
-        **({} if name == "flash_fwd" else
-           {"bitwise_repeat": main_case["bitwise_repeat"]}),
+        "bitwise_repeat": {k: v for k, v in
+                           main_case["bitwise_repeat"].items()
+                           if (k in ("out", "lse")) == (name == "flash_fwd")},
         # SDPA's backward computes dq, dk and dv in one call: the
         # yardstick of K2' and K3' together.
         "library_ms": library,
@@ -1577,6 +1636,12 @@ def flash_entry(name, flash, launches):
 
 
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "rmsnorm")
+# The bf16 wgmma kernels of flash_attention.cu: {name: mangled fragment}.
+WGMMA_KERNELS = {f"{k}<{d}>": f"{k}ILi{d}E"
+                 for k in ("flash_fwd_wgmma_kernel",
+                           "flash_bwd_dq_wgmma_kernel",
+                           "flash_bwd_dkv_wgmma_kernel")
+                 for d in (64, 128)}
 FLASH_REPLACES = {
     "flash_fwd": "mpi_operator_tpu/ops/attention.py:53",
     "flash_bwd_dq": "mpi_operator_tpu/ops/attention.py:179",

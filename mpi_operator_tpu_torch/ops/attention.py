@@ -14,9 +14,10 @@ fallback from the card to the plain version.  ``flash_attention`` and
 wrappers; ``attention`` is the dispatcher on the model layout
 [B, S, H, D].  The kernels take [B, H, S, D] (contiguous, head_dim 64 or
 128, bf16 or f32) and any S: the ragged last tile is masked, where the
-JAX kernel needs a block size that divides S.  In bf16, K2' and K3' are
-``wgmma`` kernels for ``sm_90a`` (the source's header gives the design);
-they use no atomics, so two calls on the same inputs give the same bits.
+JAX kernel needs a block size that divides S.  In bf16, K1', K2' and K3'
+are ``wgmma`` kernels for ``sm_90a`` (the source's header gives the
+design); they use no atomics, so two calls on the same inputs give the
+same bits.
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@
 // dkv S^T twice, below), so the pair issues 8 products where a fused
 // backward would issue 5: that keeps each kernel the sole owner of its
 // output tile, with no atomics, so two runs on the same inputs give
-// bit-identical dq, dk and dv.
+// bit-identical out, lse, dq, dk and dv.
 //
 // The Pallas grid walks the reduction axis in order and keeps its sums in
 // VMEM scratch between grid steps; blocks on Hopper run in no order, so
@@ -34,40 +34,55 @@
 // heaviest causal tiles are launched first.  The GQA repeat of K/V stays
 // in the caller, as in the JAX model.
 //
-// bf16 backward (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel):
+// bf16 (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel,
+// flash_bwd_dkv_wgmma_kernel):
 //   * three warpgroups: two consumers and one producer; setmaxnreg moves
-//     registers from the producer (56) to the consumers (224).  dq: CTA =
-//     (b*h, 128 q rows), each consumer owns 64 of them.  dkv: CTA = (b*h,
-//     64 keys); consumer 0 accumulates dV, consumer 1 dK, and each
-//     computes S^T itself (5 products instead of 4).  A consumer that
-//     held both dK and dV of 64 keys needed 192 f32 accumulator registers
-//     in contiguous blocks plus the P^T and dS^T fragments, more than the
-//     232 it could be given:
-//     ptxas spilled them around every wgmma and serialised the wgmmas,
-//     which cost more than the recomputed S^T;
-//   * the producer streams 64-row tiles (K and V for dq; Q, dO and their
-//     lse and delta rows for dkv) with 16-byte cp.async into a two-stage
-//     ring guarded by full/empty mbarriers (cp.async.mbarrier.arrive), so
+//     registers from the producer (56) to the consumers (224).  fwd and
+//     dq: CTA = (b*h, 128 q rows), each consumer owns 64 of them.  dkv:
+//     CTA = (b*h, 64 keys); consumer 0 accumulates dV, consumer 1 dK, and
+//     each computes S^T itself (5 products instead of 4).  A consumer
+//     that held both dK and dV of 64 keys needed 192 f32 accumulator
+//     registers in contiguous blocks plus the P^T and dS^T fragments,
+//     more than the 232 it could be given: ptxas spilled them around
+//     every wgmma and serialised the wgmmas, which cost more than the
+//     recomputed S^T;
+//   * the producer streams K and V tiles (128 keys for fwd, 64 for dq;
+//     64 rows of Q, dO and their lse and delta rows for dkv) with 16-byte
+//     cp.async into a ring (three stages for fwd, two for dq and dkv)
+//     guarded by full/empty mbarriers (cp.async.mbarrier.arrive), so
 //     loads run under the consumers' products without __syncthreads;
-//   * every product is a wgmma (m64n64k16 for S and dP, m64n{D}k16 for
-//     dQ, dK, dV) with f32 accumulators in registers.  Tiles sit in shared
+//   * every product is a wgmma (m64n128k16 for the forward's S,
+//     m64n64k16 for the backward's S and dP, m64n{D}k16 for O, dQ, dK,
+//     dV) with f32 accumulators in registers.  Tiles sit in shared
 //     memory in the 128-byte swizzle the wgmma descriptors read (no
 //     padding, no bank conflicts); S and dP read both operands K-major,
-//     the third product reads K, dO or Q MN-major through the
-//     descriptor's transpose bit, and takes P or dS as its A operand
-//     from registers: the accumulator fragment rounded to bf16 pairs, so
-//     P and dS never touch shared memory;
+//     the third product reads V, K, dO or Q MN-major through the
+//     descriptor's transpose bit, and takes P or dS as its A operand from
+//     registers: the accumulator fragment rounded to bf16 pairs, so P and
+//     dS never touch shared memory;
 //   * exp2 with the scale and log2(e) folded into one FMA; masks only on
-//     the tiles that cross the diagonal or the end of the sequence;
+//     the tiles that cross the diagonal or the end of the sequence.  The
+//     forward's online softmax keeps the running max m in raw score
+//     units and each thread's partial row sum l; the max is reduced over
+//     the 4 lanes of a row every tile, the sum once at the end, and O is
+//     rescaled by alpha = exp2((m_old - m_new) * scale * log2(e)) on
+//     every tile (alpha is 1 where the max did not move; skipping the
+//     rescale where no max in the warp moved measured slower);
+//   * the forward overlaps its softmax with wgmma twice: inside a
+//     consumer, S of tile j is issued together with P V of tile j - 1,
+//     whose softmax is done; across the two consumers, named barriers
+//     give them turns to issue their products (ping-pong), so one's
+//     softmax runs under the other's products.  Its 128-key tiles make S
+//     an m64n128k16 product, whose operands take 75% of the SM's
+//     shared-memory bandwidth where m64n64k16 takes all of it;
 //   * the ragged last tile is zero-filled on load and its rows dropped on
-//     store, so S need not be a multiple of 64; the epilogue stages the
-//     scaled output tile in the warpgroup's own (swizzled) input rows and
-//     writes it as 16-byte vectors.
-// f32 backward and the forward: 64-row tiles, 4 warps of 16 rows each, a
-// cp.async ring with padded rows; bf16 forward products on mma.sync
-// m16n8k16, f32 products as f32 FMAs in the same fragment layout (no
-// TF32), so the f32 path holds the plain version to 2e-5.  The forward's
-// wgmma version is later work.
+//     store, so S need not be a multiple of 64; the bf16 epilogue stages
+//     the scaled output tile in the warpgroup's own (swizzled) input rows
+//     and writes it as 16-byte vectors; the forward's f32 output (for
+//     flash_attention_with_lse) goes out from registers as 8-byte pairs.
+// f32: 64-row tiles, 4 warps of 16 rows each, one cp.async stage with
+// padded rows, products as f32 FMAs in the mma.sync m16n8 fragment layout
+// (no TF32), so the f32 path holds the plain version to 2e-5.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,38 +94,15 @@
 
 namespace {
 
-constexpr int kTile = 64;              // rows of a q or kv tile
+constexpr int kTile = 64;              // rows of an f32 q or kv tile
 constexpr int kWarps = 4;              // each owns 16 rows of the tile
 constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 4;                // f32 elements: 16 bytes per row
 constexpr float kMaskValue = -0.7f * FLT_MAX;   // _MASK_VALUE of the JAX kernel
 constexpr int kSmemLimit = 227 * 1024;
 constexpr int kMaxDevices = 64;        // per-device attribute flags
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-template <typename T>
-struct Traits;
-template <>
-struct Traits<float> {
-  static constexpr int kPad = 4;       // elements: 16 bytes per row
-  static constexpr int kStages = 1;    // f32 tiles are twice as large
-};
-template <>
-struct Traits<__nv_bfloat16> {
-  static constexpr int kPad = 8;
-  static constexpr int kStages = 2;
-};
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
@@ -137,17 +129,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [row0, row0 + 64) of a [seq, D] head into a padded tile; rows past
-// seq are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int seq, int tid) {
-  constexpr int kElems = 16 / sizeof(T);
-  constexpr int kChunks = D / kElems;            // 16-byte chunks per row
-  constexpr int ld = D + Traits<T>::kPad;
+// Rows [row0, row0 + 64) of an f32 [seq, D] head into a padded tile; rows
+// past seq are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int seq, int tid) {
+  constexpr int kChunks = D / 4;                 // 16-byte chunks per row
+  constexpr int ld = D + kPad;
   for (int c = tid; c < kTile * kChunks; c += kThreads) {
     const int r = c / kChunks;
-    const int col = (c % kChunks) * kElems;
+    const int col = (c % kChunks) * 4;
     const int row = row0 + r;
     const bool valid = row < seq;
     cp_async16(dst + r * ld + col,
@@ -165,59 +156,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: acc += A[16 x K] * B[K x 8*NT].  A is row-major at As (lda);
-// B(k, n) = Bs[n * ldb + k] when kBT, else Bs[k * ldb + n].  acc holds
-// the m16n8 accumulator fragment: acc[j][e] is row g + 8*(e >> 1),
-// column 8*j + 2*t + (e & 1), with g = lane / 4 and t = lane % 4.
-template <int NT, int K, bool kBT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
-                                          const __nv_bfloat16* As, int lda,
-                                          const __nv_bfloat16* Bs, int ldb,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    a[0] = ld32(As + g * lda + k0 + 2 * t);
-    a[1] = ld32(As + (g + 8) * lda + k0 + 2 * t);
-    a[2] = ld32(As + g * lda + k0 + 2 * t + 8);
-    a[3] = ld32(As + (g + 8) * lda + k0 + 2 * t + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = j * 8 + g;
-      uint32_t b0, b1;
-      if (kBT) {
-        b0 = ld32(Bs + n * ldb + k0 + 2 * t);
-        b1 = ld32(Bs + n * ldb + k0 + 2 * t + 8);
-      } else {
-        b0 = pack(Bs[(k0 + 2 * t) * ldb + n], Bs[(k0 + 2 * t + 1) * ldb + n]);
-        b1 = pack(Bs[(k0 + 2 * t + 8) * ldb + n],
-                  Bs[(k0 + 2 * t + 9) * ldb + n]);
-      }
-      mma_bf16(acc[j], a, b0, b1);
-    }
-  }
-}
-
-// The f32 counterpart: the same fragment layout, f32 FMAs (no TF32).
+// One warp: acc += A[16 x K] * B[K x 8*NT] in f32 FMAs (no TF32).  A is
+// row-major at As (lda); B(k, n) = Bs[n * ldb + k] when kBT, else
+// Bs[k * ldb + n].  acc holds the m16n8 accumulator fragment: acc[j][e]
+// is row g + 8*(e >> 1), column 8*j + 2*t + (e & 1), with g = lane / 4
+// and t = lane % 4.
 template <int NT, int K, bool kBT>
 __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
                                           const float* As, int lda,
@@ -247,25 +190,25 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
   }
 }
 
-// A warp's fragment into its 16 rows of a [64 x 64] tile, in T.
-template <typename T, int NT>
-__device__ __forceinline__ void store_frag(T* dst, int ld,
-                                           const float (&x)[NT][4], int lane) {
+// A warp's fragment into its 16 rows of a [64 x 64] tile.
+template <int NT>
+__device__ __forceinline__ void store_frag(float* dst, int ld,
+                                           const float (&x)[NT][4],
+                                           int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      dst[(g + 8 * (e >> 1)) * ld + j * 8 + 2 * t + (e & 1)] =
-          from_f32<T>(x[j][e]);
+      dst[(g + 8 * (e >> 1)) * ld + j * 8 + 2 * t + (e & 1)] = x[j][e];
     }
   }
 }
 
 // A warp's [16 x D] accumulator times `mul` into rows [row0, row0 + 16) of
-// a [seq, D] output of type O; rows past seq are dropped.
-template <typename O, int NT>
-__device__ __forceinline__ void write_rows(O* out, int row0, int seq,
+// an f32 [seq, D] output; rows past seq are dropped.
+template <int NT>
+__device__ __forceinline__ void write_rows(float* out, int row0, int seq,
                                            const float (&acc)[NT][4],
                                            const float (&mul)[2], int lane) {
   constexpr int D = NT * 8;
@@ -276,9 +219,9 @@ __device__ __forceinline__ void write_rows(O* out, int row0, int seq,
     if (row >= seq) continue;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      O* dst = out + static_cast<size_t>(row) * D + j * 8 + 2 * t;
-      dst[0] = from_f32<O>(acc[j][2 * r] * mul[r]);
-      dst[1] = from_f32<O>(acc[j][2 * r + 1] * mul[r]);
+      float* dst = out + static_cast<size_t>(row) * D + j * 8 + 2 * t;
+      dst[0] = acc[j][2 * r] * mul[r];
+      dst[1] = acc[j][2 * r + 1] * mul[r];
     }
   }
 }
@@ -301,18 +244,18 @@ struct Params {
   int out_f32;
 };
 
-template <typename T, int D>
+// The f32 kernels: one-stage [64 x D] tiles (three for the forward, four
+// for the backward), a [64 x 64] one, and for dkv 64 lse and 64 delta
+// values.
+template <int D>
 constexpr size_t fwd_smem() {
-  constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
-  return (static_cast<size_t>(kTile) * ld * (1 + 2 * Traits<T>::kStages) +
-          kTile * ldp) * sizeof(T);
+  constexpr int ld = D + kPad, ldp = kTile + kPad;
+  return (static_cast<size_t>(kTile) * ld * 3 + kTile * ldp) * sizeof(float);
 }
 
-// The f32 backward: four one-stage [64 x D] tiles, a [64 x 64] one, and
-// for dkv 64 lse and 64 delta values.
 template <int D>
 constexpr size_t dq_smem() {
-  constexpr int ld = D + Traits<float>::kPad, ldp = kTile + Traits<float>::kPad;
+  constexpr int ld = D + kPad, ldp = kTile + kPad;
   return (static_cast<size_t>(kTile) * ld * 4 + kTile * ldp) * sizeof(float);
 }
 
@@ -321,18 +264,20 @@ constexpr size_t dkv_smem() {
   return dq_smem<D>() + 2 * kTile * sizeof(float);
 }
 
-// ---- K1': forward -------------------------------------------------------
+// ---- K1' (f32): forward -----------------------------------------------------
 
-template <typename T, int D>
+// One stage: K and V are reloaded for each kv tile after the last product
+// that reads the previous ones.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(Params p) {
-  constexpr int kStages = Traits<T>::kStages;
-  constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
+  using T = float;
+  constexpr int ld = D + kPad, ldp = kTile + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kTile * ld;                    // [kStages][kTile][ld]
-  T* Vs = Ks + kStages * kTile * ld;
-  T* Ps = Vs + kStages * kTile * ld;          // [kTile][ldp]
+  T* Ks = Qs + kTile * ld;
+  T* Vs = Ks + kTile * ld;
+  T* Ps = Vs + kTile * ld;                    // [kTile][ldp]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -346,11 +291,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* v = static_cast<const T*>(p.v) + head;
   const int n_kv = p.causal ? qt + 1 : (seq + kTile - 1) / kTile;
 
-  load_tile<T, D>(Qs, q, q0, seq, tid);
-  if (kStages == 2) {
-    load_tile<T, D>(Ks, k, 0, seq, tid);
-    load_tile<T, D>(Vs, v, 0, seq, tid);
-  }
+  load_tile<D>(Qs, q, q0, seq, tid);
   cp_async_commit();
 
   float o[D / 8][4];
@@ -360,30 +301,16 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_kv; ++j) {
-    const int buf = kStages == 2 ? (j & 1) : 0;
-    if (kStages == 2) {
-      if (j + 1 < n_kv) {
-        load_tile<T, D>(Ks + (buf ^ 1) * kTile * ld, k, (j + 1) * kTile, seq,
-                        tid);
-        load_tile<T, D>(Vs + (buf ^ 1) * kTile * ld, v, (j + 1) * kTile, seq,
-                        tid);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      load_tile<T, D>(Ks, k, j * kTile, seq, tid);
-      load_tile<T, D>(Vs, v, j * kTile, seq, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
+    load_tile<D>(Ks, k, j * kTile, seq, tid);
+    load_tile<D>(Vs, v, j * kTile, seq, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    const T* Kb = Ks + buf * kTile * ld;
-    const T* Vb = Vs + buf * kTile * ld;
 
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    warp_gemm<8, D, true>(s, Qs + rb * ld, ld, Kb, ld, lane);
+    warp_gemm<8, D, true>(s, Qs + rb * ld, ld, Ks, ld, lane);
 
     const int kv0 = j * kTile;
     float mx[2] = {m[0], m[1]};
@@ -429,22 +356,17 @@ __global__ void __launch_bounds__(kThreads)
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
-    store_frag<T, 8>(Ps + rb * ldp, ldp, s, lane);
+    store_frag<8>(Ps + rb * ldp, ldp, s, lane);
     __syncwarp();
-    warp_gemm<D / 8, kTile, false>(o, Ps + rb * ldp, ldp, Vb, ld, lane);
-    __syncthreads();                        // before this stage is refilled
+    warp_gemm<D / 8, kTile, false>(o, Ps + rb * ldp, ldp, Vs, ld, lane);
+    __syncthreads();                        // before K and V are refilled
   }
 
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) inv[r] = 1.f / (l[r] > 0.f ? l[r] : 1.f);
-  if (p.out_f32) {
-    write_rows<float, D / 8>(static_cast<float*>(p.out) + head, q0 + rb, seq,
-                             o, inv, lane);
-  } else {
-    write_rows<T, D / 8>(static_cast<T*>(p.out) + head, q0 + rb, seq, o, inv,
-                         lane);
-  }
+  write_rows<D / 8>(static_cast<float*>(p.out) + head, q0 + rb, seq, o, inv,
+                    lane);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -465,7 +387,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(Params p) {
   using T = float;
-  constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
+  constexpr int ld = D + kPad, ldp = kTile + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* dOs = Qs + kTile * ld;
@@ -487,8 +409,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* dout = static_cast<const T*>(p.dout) + head;
   const int n_kv = p.causal ? qt + 1 : (seq + kTile - 1) / kTile;
 
-  load_tile<T, D>(Qs, q, q0, seq, tid);
-  load_tile<T, D>(dOs, dout, q0, seq, tid);
+  load_tile<D>(Qs, q, q0, seq, tid);
+  load_tile<D>(dOs, dout, q0, seq, tid);
   cp_async_commit();
 
   float lse[2], delta[2];
@@ -504,8 +426,8 @@ __global__ void __launch_bounds__(kThreads)
     dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
   for (int j = 0; j < n_kv; ++j) {
-    load_tile<T, D>(Ks, k, j * kTile, seq, tid);
-    load_tile<T, D>(Vs, v, j * kTile, seq, tid);
+    load_tile<D>(Ks, k, j * kTile, seq, tid);
+    load_tile<D>(Vs, v, j * kTile, seq, tid);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -533,14 +455,14 @@ __global__ void __launch_bounds__(kThreads)
         s[n][e] = pr * (dp[n][e] - delta[r]);
       }
     }
-    store_frag<T, 8>(Ss + rb * ldp, ldp, s, lane);
+    store_frag<8>(Ss + rb * ldp, ldp, s, lane);
     __syncwarp();
     warp_gemm<D / 8, kTile, false>(dq, Ss + rb * ldp, ldp, Kb, ld, lane);
     __syncthreads();
   }
   const float mul[2] = {p.scale, p.scale};
-  write_rows<T, D / 8>(static_cast<T*>(p.dq) + head, q0 + rb, seq, dq, mul,
-                       lane);
+  write_rows<D / 8>(static_cast<T*>(p.dq) + head, q0 + rb, seq, dq, mul,
+                    lane);
 }
 
 // ---- K3' (f32): dK, dV ---------------------------------------------------
@@ -549,7 +471,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(Params p) {
   using T = float;
-  constexpr int ld = D + Traits<T>::kPad, ldp = kTile + Traits<T>::kPad;
+  constexpr int ld = D + kPad, ldp = kTile + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + kTile * ld;
@@ -574,8 +496,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_q = (seq + kTile - 1) / kTile;
   const int i0 = p.causal ? kt : 0;
 
-  load_tile<T, D>(Ks, k, k0, seq, tid);
-  load_tile<T, D>(Vs, v, k0, seq, tid);
+  load_tile<D>(Ks, k, k0, seq, tid);
+  load_tile<D>(Vs, v, k0, seq, tid);
   cp_async_commit();
 
   float dk[D / 8][4], dv[D / 8][4];
@@ -586,8 +508,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int i = i0; i < n_q; ++i) {
-    load_tile<T, D>(Qs, q, i * kTile, seq, tid);
-    load_tile<T, D>(dOs, dout, i * kTile, seq, tid);
+    load_tile<D>(Qs, q, i * kTile, seq, tid);
+    load_tile<D>(dOs, dout, i * kTile, seq, tid);
     load_rows(lse_s, p.lse + rows, i * kTile, seq, tid);
     load_rows(delta_s, p.delta + rows, i * kTile, seq, tid);
     cp_async_commit();
@@ -615,7 +537,7 @@ __global__ void __launch_bounds__(kThreads)
         s[n][e] = masked ? 0.f : expf(s[n][e] * p.scale - lse_b[c]);
       }
     }
-    store_frag<T, 8>(Ps + rb * ldp, ldp, s, lane);
+    store_frag<8>(Ps + rb * ldp, ldp, s, lane);
     __syncwarp();
     warp_gemm<D / 8, kTile, false>(dv, Ps + rb * ldp, ldp, dOb, ld, lane);
 
@@ -633,20 +555,21 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();                             // every lane is done with P^T
-    store_frag<T, 8>(Ps + rb * ldp, ldp, s, lane);
+    store_frag<8>(Ps + rb * ldp, ldp, s, lane);
     __syncwarp();
     warp_gemm<D / 8, kTile, false>(dk, Ps + rb * ldp, ldp, Qb, ld, lane);
     __syncthreads();
   }
   const float one[2] = {1.f, 1.f};
   const float mul[2] = {p.scale, p.scale};
-  write_rows<T, D / 8>(static_cast<T*>(p.dk) + head, k0 + rb, seq, dk, mul,
-                       lane);
-  write_rows<T, D / 8>(static_cast<T*>(p.dv) + head, k0 + rb, seq, dv, one,
-                       lane);
+  write_rows<D / 8>(static_cast<T*>(p.dk) + head, k0 + rb, seq, dk, mul,
+                    lane);
+  write_rows<D / 8>(static_cast<T*>(p.dv) + head, k0 + rb, seq, dv, one,
+                    lane);
 }
 
-// ---- K2', K3' in bf16: wgmma, swizzled shared memory, warp specialisation
+// ---- K1', K2', K3' in bf16: wgmma, swizzled shared memory, warp
+// specialisation
 
 constexpr int kWgRows = 64;            // rows of one consumer warpgroup
 constexpr int kCtaRows = 128;          // rows of a CTA: two consumers
@@ -718,9 +641,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 // Keeps register A fragments allocated until their wgmma has finished.
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
   }
@@ -776,6 +700,14 @@ __device__ __forceinline__ void wg_sync(int id) {
 __device__ __forceinline__ void bar_sync_consumers() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
+// The forward's turns (ids 4 and 5, one per consumer): a consumer waits
+// on its own id for the other's arrival.
+__device__ __forceinline__ void turn_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -792,10 +724,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 8 * (e >> 1) and column 8j + 2 * (t % 4) + (e & 1).  Its bf16 pairs are
 // the A fragment of the next product over those 64 columns: k-step kk
 // takes blocks 2kk and 2kk + 1.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
-                                         const float (&d)[32]) {
+template <int K>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[K][4],
+                                         const float (&d)[8 * K]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
@@ -847,6 +780,74 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64] = A[64 x 16] * B[16 x 128], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d[64] += A[64 x 16] * B[16 x 128], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -930,12 +931,13 @@ __device__ __forceinline__ void load_tile_swz(uint32_t tile, const bf16* src,
   }
 }
 
-// A warpgroup's [64 x D] accumulator times `mul`, as bf16, into rows
-// [r0, r0 + 64) of a swizzled R-row tile.
+// A warpgroup's [64 x D] accumulator, each of the thread's two rows times
+// its factor mul[h], as bf16, into rows [r0, r0 + 64) of a swizzled R-row
+// tile.
 template <int R, int D>
 __device__ __forceinline__ void stage_acc(unsigned char* tile, int r0,
                                           const float (&acc)[D / 2],
-                                          float mul, int t) {
+                                          const float (&mul)[2], int t) {
   const int r = r0 + 16 * (t >> 5) + ((t & 31) >> 2);
   const int c = 2 * (t & 3);
 #pragma unroll
@@ -943,7 +945,8 @@ __device__ __forceinline__ void stage_acc(unsigned char* tile, int r0,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       *reinterpret_cast<uint32_t*>(tile + swz<R>(r + 8 * h, 8 * j + c)) =
-          pack_bf16(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+          pack_bf16(acc[4 * j + 2 * h] * mul[h],
+                    acc[4 * j + 2 * h + 1] * mul[h]);
     }
   }
 }
@@ -1015,6 +1018,261 @@ __device__ __forceinline__ void dq_ds(uint32_t (&ds)[4][4], float (&p)[32],
 #pragma unroll
   for (int i = 0; i < 32; ++i) p[i] *= dp[i] - dlt[(i >> 1) & 1];
   acc_to_a(ds, p);
+}
+
+// ---- K1' (bf16): forward ----------------------------------------------------
+
+constexpr int kKvRows = 128;           // keys of a forward kv tile
+constexpr int kFwdRing = 3;            // a consumer holds two stages
+
+template <int D>
+struct FwdLayout {                     // byte offsets from a 1024-aligned base
+  static constexpr int kTile = kKvRows * D * 2;       // one 128-row tile
+  static constexpr int kQ = 0;                        // 128 rows
+  static constexpr int kK = kQ + kTile;               // [kFwdRing] x 128 rows
+  static constexpr int kV = kK + kFwdRing * kTile;    // [kFwdRing] x 128 rows
+  static constexpr int kBar = kV + kFwdRing * kTile;  // full, empty, q
+  static constexpr int kBytes = kBar + (2 * kFwdRing + 1) * 8 + 1024;
+};
+
+// One step of the online softmax over a (64 q rows, 128 keys) tile: S
+// (raw scores) becomes P in place; the running max m (raw units) and this
+// thread's partial row sums l are updated, and alpha is the factor O must
+// be scaled by (1 where the max did not move).  kMask: the tile crosses
+// the diagonal or the end of the sequence.
+template <bool kMask>
+__device__ __forceinline__ void fwd_softmax(float (&s)[64],
+                                            float (&alpha)[2],
+                                            float (&m)[2], float (&l)[2],
+                                            float sl2, int row, int col,
+                                            int seq, int causal) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int h = (i >> 1) & 1;
+    if (kMask) {
+      const int c = col + 8 * (i >> 2) + (i & 1);
+      if (c >= seq || (causal && c > row + 8 * h)) s[i] = kMaskValue;
+    }
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+  float nm[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = ex2((m[h] - mx[h]) * sl2);
+    nm[h] = -mx[h] * sl2;
+    m[h] = mx[h];
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int h = (i >> 1) & 1;
+    const float pr = ex2(fmaf(s[i], sl2, nm[h]));
+    s[i] = pr;
+    l[h] += pr;
+  }
+}
+
+// Issues S = Q K^T of consumer wg's 64 rows and a 128-key tile at ka.
+template <int D>
+__device__ __forceinline__ void fwd_s(float (&s)[64], uint32_t qa, int wg,
+                                      uint32_t ka) {
+  wgmma_ss_init(s, desc_k<kCtaRows>(qa, wg * kWgRows, 0),
+                desc_k<kKvRows>(ka, 0, 0));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    wgmma_ss(s, desc_k<kCtaRows>(qa, wg * kWgRows, kk),
+             desc_k<kKvRows>(ka, 0, kk));
+  }
+  wgmma_commit();
+}
+
+// Issues O += P V, P from registers, the V tile at va MN-major.
+template <int N>
+__device__ __forceinline__ void fwd_pv(float (&o)[N],
+                                       const uint32_t (&pa)[8][4],
+                                       uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    wgmma_rs(o, pa[kk], desc_mn<kKvRows>(va, kk));
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_wgmma_kernel(Params p) {
+  using L = FwdLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t full = base + L::kBar, empty = full + 8 * kFwdRing;
+  const uint32_t qbar = empty + 8 * kFwdRing;
+
+  const int seq = p.seq;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * kCtaRows;
+  const size_t head = static_cast<size_t>(blockIdx.x) * seq * D;
+  const int n_kv = p.causal ? qt + 1 : (seq + kKvRows - 1) / kKvRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdRing; ++s) {
+      mbar_init(full + 8 * s, kProducerThreads);
+      mbar_init(empty + 8 * s, kConsumerThreads);
+    }
+    mbar_init(qbar, kProducerThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  if (wg == 2) {
+    // Producer: Q once, then K and V tiles through the ring.
+    regs_dec<kProducerRegs>();
+    const bf16* k = static_cast<const bf16*>(p.k) + head;
+    const bf16* v = static_cast<const bf16*>(p.v) + head;
+    load_tile_swz<kCtaRows, D>(base + L::kQ,
+                               static_cast<const bf16*>(p.q) + head, q0, seq,
+                               t);
+    mbar_arrive_cp_async(qbar);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kFwdRing;
+      mbar_wait(empty + 8 * s, ((j / kFwdRing) & 1) ^ 1);
+      load_tile_swz<kKvRows, D>(base + L::kK + s * L::kTile, k, j * kKvRows,
+                                seq, t);
+      load_tile_swz<kKvRows, D>(base + L::kV + s * L::kTile, v, j * kKvRows,
+                                seq, t);
+      mbar_arrive_cp_async(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // Consumer: 64 q rows.  Per 128-key tile j: S_j = Q K_j^T (both
+    // operands K-major) is issued together with O += P_{j-1} V_{j-1} (P
+    // from registers, V MN-major); the softmax of S_j runs while P V is
+    // still on the tensor cores; then O is rescaled by alpha.  The causal
+    // loop ends at the CTA's diagonal tile, so no tile lies wholly above
+    // consumer 1's rows; consumer 0's half of that tile is masked.
+    regs_inc<kConsumerRegs>();
+    const int lane = t & 31;
+    const int qw0 = q0 + wg * kWgRows;                 // first row of ours
+    const int row = qw0 + 16 * (t >> 5) + (lane >> 2); // and h = 1: + 8
+    const int col = 2 * (lane & 3);
+    const float sl2 = p.scale * kLog2e;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+    float s[64];
+    const uint32_t qa = base + L::kQ;
+    mbar_wait(qbar, 0);
+    // The first tile that crosses the diagonal or the end of S.
+    const int n_all = (seq + kKvRows - 1) / kKvRows;
+    const int ragged = seq % kKvRows ? seq / kKvRows : n_all;
+    const int mask_from = p.causal ? min(qt, ragged) : ragged;
+    uint32_t pa[8][4];
+    float alpha[2];
+    // Ping-pong: the two consumers take turns issuing their products
+    // (turn ids 4 + wg), so one's softmax runs under the other's wgmma.
+    // Consumer 0 goes first; consumer 1 does not hand back its last turn,
+    // so each id sees as many arrivals as waits.
+    if (wg == 1) turn_arrive(4);
+    mbar_wait(full, 0);
+    fence_async_smem();
+    turn_sync(4 + wg);
+    wgmma_fence();
+    fwd_s<D>(s, qa, wg, base + L::kK);
+    turn_arrive(5 - wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (mask_from == 0) {
+      fwd_softmax<true>(s, alpha, m, l, sl2, row, col, seq, p.causal);
+    } else {
+      fwd_softmax<false>(s, alpha, m, l, sl2, row, col, seq, 0);
+    }
+    acc_to_a(pa, s);
+    for (int j = 1; j < n_kv; ++j) {
+      const int st = j % kFwdRing, prev = (j - 1) % kFwdRing;
+      mbar_wait(full + 8 * st, (j / kFwdRing) & 1);
+      fence_async_smem();
+      turn_sync(4 + wg);
+      wgmma_fence();
+      fwd_s<D>(s, qa, wg, base + L::kK + st * L::kTile);
+      fwd_pv(o, pa, base + L::kV + prev * L::kTile);
+      turn_arrive(5 - wg);
+      wgmma_wait<1>();                               // S has landed
+      fence_regs(s);
+      const int kv0 = j * kKvRows;
+      if (j >= mask_from) {
+        fwd_softmax<true>(s, alpha, m, l, sl2, row, kv0 + col, seq,
+                            p.causal);
+      } else {
+        fwd_softmax<false>(s, alpha, m, l, sl2, row, kv0 + col, seq, 0);
+      }
+      wgmma_wait<0>();                               // P V has landed
+      fence_regs(o);
+      fence_frag(pa);
+      mbar_arrive(empty + 8 * prev);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      acc_to_a(pa, s);
+    }
+    {
+      const int last = (n_kv - 1) % kFwdRing;
+      turn_sync(4 + wg);
+      wgmma_fence();
+      fwd_pv(o, pa, base + L::kV + last * L::kTile);
+      if (wg == 0) turn_arrive(5);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_frag(pa);
+      mbar_arrive(empty + 8 * last);
+    }
+    // Epilogue: l summed over the row's 4 lanes; out = O / l, lse in
+    // natural-log units.
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      inv[h] = 1.f / (l[h] > 0.f ? l[h] : 1.f);
+    }
+    if (p.out_f32) {
+      float* out = static_cast<float*>(p.out) + head;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r >= seq) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * D +
+                                     8 * j + col) =
+              make_float2(o[4 * j + 2 * h] * inv[h],
+                          o[4 * j + 2 * h + 1] * inv[h]);
+        }
+      }
+    } else {
+      // Through our own Q rows (no other warpgroup reads them), out as
+      // 16-byte rows.
+      wg_sync(1 + wg);
+      stage_acc<kCtaRows, D>(gbase + L::kQ, wg * kWgRows, o, inv, t);
+      wg_sync(1 + wg);
+      store_rows<kCtaRows, D>(static_cast<bf16*>(p.out) + head, qw0, seq,
+                              gbase + L::kQ, wg * kWgRows, t);
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r < seq) {
+          p.lse_out[static_cast<size_t>(blockIdx.x) * seq + r] =
+              l[h] > 0.f ? m[h] * p.scale + logf(l[h]) : kMaskValue;
+        }
+      }
+    }
+  }
 }
 
 // ---- K2' (bf16): dQ -------------------------------------------------------
@@ -1145,7 +1403,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
     // Epilogue: dQ * scale through our own Q rows, out as 16-byte rows.
     wg_sync(1 + wg);
-    stage_acc<kCtaRows, D>(gbase + L::kQ, wg * kWgRows, dq, p.scale, t);
+    const float mul[2] = {p.scale, p.scale};
+    stage_acc<kCtaRows, D>(gbase + L::kQ, wg * kWgRows, dq, mul, t);
     wg_sync(1 + wg);
     store_rows<kCtaRows, D>(static_cast<bf16*>(p.dq) + head, qw0, seq,
                             gbase + L::kQ, wg * kWgRows, t);
@@ -1365,7 +1624,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // through V's rows and dK * scale through K's.
     bar_sync_consumers();
     unsigned char* tile = gbase + (wg == 0 ? L::kV : L::kK);
-    stage_acc<kWgRows, D>(tile, 0, acc, wg == 0 ? 1.f : p.scale, t);
+    const float m = wg == 0 ? 1.f : p.scale;
+    const float mul[2] = {m, m};
+    stage_acc<kWgRows, D>(tile, 0, acc, mul, t);
     wg_sync(1 + wg);
     store_rows<kWgRows, D>(static_cast<bf16*>(wg == 0 ? p.dv : p.dk) + head,
                            k0, seq, tile, 0, t);
@@ -1397,17 +1658,17 @@ cudaError_t raise_smem(K kern, std::atomic<bool>* raised) {
 template <typename T, int D>
 cudaError_t launch(int kind, const Params& p, int bh, cudaStream_t stream) {
   static std::atomic<bool> raised[3][kMaxDevices];
-  const dim3 grid(bh, (p.seq + kTile - 1) / kTile);
   cudaError_t e;
-  if (kind == kFwd) {
-    static_assert(fwd_smem<T, D>() <= kSmemLimit, "fwd shared memory");
-    e = raise_smem(flash_fwd_kernel<T, D>, raised[kFwd]);
-    if (e != cudaSuccess) return e;
-    flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<T, D>(), stream>>>(p);
-  } else if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, float>::value) {
+    static_assert(fwd_smem<D>() <= kSmemLimit, "fwd shared memory");
     static_assert(dq_smem<D>() <= kSmemLimit, "dq shared memory");
     static_assert(dkv_smem<D>() <= kSmemLimit, "dkv shared memory");
-    if (kind == kDq) {
+    const dim3 grid(bh, (p.seq + kTile - 1) / kTile);
+    if (kind == kFwd) {
+      e = raise_smem(flash_fwd_kernel<D>, raised[kFwd]);
+      if (e != cudaSuccess) return e;
+      flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(p);
+    } else if (kind == kDq) {
       e = raise_smem(flash_bwd_dq_kernel<D>, raised[kDq]);
       if (e != cudaSuccess) return e;
       flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), stream>>>(p);
@@ -1419,10 +1680,16 @@ cudaError_t launch(int kind, const Params& p, int bh, cudaStream_t stream) {
       return cudaErrorInvalidValue;
     }
   } else {
+    static_assert(FwdLayout<D>::kBytes <= kSmemLimit, "fwd shared memory");
     static_assert(DqLayout<D>::kBytes <= kSmemLimit, "dq shared memory");
     static_assert(DkvLayout<D>::kBytes <= kSmemLimit, "dkv shared memory");
     const dim3 ws_grid(bh, (p.seq + kCtaRows - 1) / kCtaRows);
-    if (kind == kDq) {
+    if (kind == kFwd) {
+      e = raise_smem(flash_fwd_wgmma_kernel<D>, raised[kFwd]);
+      if (e != cudaSuccess) return e;
+      flash_fwd_wgmma_kernel<D>
+          <<<ws_grid, kWsThreads, FwdLayout<D>::kBytes, stream>>>(p);
+    } else if (kind == kDq) {
       e = raise_smem(flash_bwd_dq_wgmma_kernel<D>, raised[kDq]);
       if (e != cudaSuccess) return e;
       flash_bwd_dq_wgmma_kernel<D>

@@ -3,7 +3,12 @@
 The forward runs as the hand-written CUDA kernel K5' (``csrc/rmsnorm.cu``,
 replaces ``_rmsnorm_kernel``) for tensors on the card, and as its plain
 PyTorch version for tensors on the CPU; there is no fallback from the
-card to the plain version.  ``fused_rmsnorm`` is a
+card to the plain version.  K5' has two kernels, picked by shape and
+alignment in ``kernel_variant``: the rows kernel (one device read per
+row, a persistent grid, the scale held per CTA) when x and y are 16-byte
+aligned, a row is a whole number of 16-byte vectors and at most
+256 x 8 of them; the two-pass kernel (one CTA per row, any shape)
+otherwise.  ``fused_rmsnorm`` is a
 ``torch.autograd.Function`` whose backward is the JAX package's ``_bwd``
 in plain PyTorch from the saved rstd (the JAX package has no backward
 kernel).  ``rmsnorm`` is the dispatcher.
@@ -18,11 +23,30 @@ import ctypes
 
 import torch
 
-# K5' launches by the wrapper (one per call that reached the card); the
-# plain version on the CPU counts nothing.
+# K5' launches by the wrapper (one per call that reached the card), and
+# by kernel; the plain version on the CPU counts nothing.
 LAUNCHES = {"rmsnorm": 0}
+VARIANT_LAUNCHES = {"rows": 0, "two_pass": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# The rows kernel: at most this many threads on a row, each holding 1, 2,
+# 4 or 8 16-byte vectors of it.
+ROW_THREADS = 256
+ROW_VECS = (1, 2, 4, 8)
+
+
+def kernel_variant(d: int, itemsize: int, x_ptr: int, y_ptr: int) -> int:
+    """The K5' kernel for rows of ``d`` elements of ``itemsize`` bytes at
+    addresses ``x_ptr`` (input) and ``y_ptr`` (output): the rows kernel's
+    vectors per thread (1, 2, 4 or 8; the fewest that cover a row with
+    at most 256 threads), or 0 for the two-pass kernel, which takes rows
+    that are not a whole number of 16-byte vectors, x or y not 16-byte
+    aligned, and rows wider than 256 x 8 vectors."""
+    if (d * itemsize) % 16 or x_ptr % 16 or y_ptr % 16:
+        return 0
+    nvec = d * itemsize // 16
+    return next((v for v in ROW_VECS if nvec <= ROW_THREADS * v), 0)
 
 
 def _plain_forward(x, scale, eps: float):
@@ -45,7 +69,8 @@ def _bind():
     if lib.rmsnorm_forward.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rmsnorm_forward.argtypes = [vp, vp, vp, vp, ctypes.c_longlong,
-                                        ci, ctypes.c_float, ci, ci, ci, vp]
+                                        ci, ctypes.c_float, ci, ci, ci, ci,
+                                        vp]
         lib.rmsnorm_forward.restype = ci
         lib.rmsnorm_error_string.argtypes = [ci]
         lib.rmsnorm_error_string.restype = ctypes.c_char_p
@@ -76,17 +101,20 @@ def _cuda_forward(x, scale, eps: float):
     y = torch.empty_like(x2)
     rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
     vec = int(x2.data_ptr() % 16 == y.data_ptr() % 16)
+    row_vecs = kernel_variant(d, x.element_size(), x2.data_ptr(),
+                              y.data_ptr())
     lib = _bind()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.rmsnorm_forward(
             x2.data_ptr(), scale.data_ptr(), y.data_ptr(), rstd.data_ptr(),
             rows, d, float(eps), _DTYPE_CODES[x.dtype],
-            int(scale.dtype == torch.float32), vec, stream)
+            int(scale.dtype == torch.float32), vec, row_vecs, stream)
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: "
                            f"{lib.rmsnorm_error_string(rc).decode()}")
     LAUNCHES["rmsnorm"] += 1
+    VARIANT_LAUNCHES["rows" if row_vecs else "two_pass"] += 1
     return y.view(x.shape), rstd.view(x.shape[:-1])
 
 

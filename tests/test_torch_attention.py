@@ -26,12 +26,13 @@ ta = importlib.import_module("mpi_operator_tpu_torch.ops.attention")
 
 F32_TOL = 2e-5
 GRAD_TOL = 5e-4
-# S = 200 and S = 1 are not multiples of the kernels' 64-row tiles.
+# S = 200, 255, 257 and 1 are not multiples of the kernels' 64-row tiles;
+# 255 and 257 sit on either side of two 128-row CTAs of the bf16 kernels.
 CASES = [(128, True), (128, False), (80, True), (80, False), (200, True),
-         (1, True)]
+         (1, True), (255, True), (257, False)]
 # bf16 sequence lengths of the card test: around the 64-row tiles of the
-# backward's ring and the 128-row tiles its CTAs own.
-CUDA_BF16_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 383)
+# ring and the 128-row tiles the CTAs of the forward and dq own.
+CUDA_BF16_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 383)
 
 
 def _inputs(s, seed=0, b=1, h=2, d=64, n=4):
@@ -160,10 +161,11 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_kernels_match_plain_version(cuda_device, dtype):
     """K1', K2', K3' against the plain versions on the same card inputs,
-    causal and not, D 64 and 128; bf16 (the wgmma backward) at every S of
-    CUDA_BF16_SEQS, f32 at S = 127 (a ragged last tile) and 256; plus the
-    dlse path of flash_attention_with_lse.  Every case carries an lse
-    cotangent, so dq and dk are not zero at S = 1."""
+    causal and not, D 64 and 128; bf16 (the wgmma kernels) at every S of
+    CUDA_BF16_SEQS, where the forward is also checked with its f32 output
+    (the path of flash_attention_with_lse), f32 at S = 127 (a ragged last
+    tile) and 256; plus the dlse path of flash_attention_with_lse.  Every
+    case carries an lse cotangent, so dq and dk are not zero at S = 1."""
     fwd_tol, grad_tol = ((F32_TOL, GRAD_TOL) if dtype == torch.float32
                          else (2e-2, 5e-2))
     seqs = (127, 256) if dtype == torch.float32 else CUDA_BF16_SEQS
@@ -191,6 +193,12 @@ def test_cuda_kernels_match_plain_version(cuda_device, dtype):
                 case = (s, d, causal)
                 assert _head_rel_err(out, ref_out) <= fwd_tol, case
                 assert (lse - ref_lse).abs().max().item() <= 1e-4, case
+                if dtype == torch.bfloat16:
+                    out32, lse32 = ta._flash_forward(q, k, v, scale, causal,
+                                                     out_f32=True)
+                    assert out32.dtype == torch.float32, case
+                    assert _head_rel_err(out32, ref_out) <= fwd_tol, case
+                    assert (lse32 - ref_lse).abs().max().item() <= 1e-4, case
                 for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
                     assert _head_rel_err(got, want) <= grad_tol, case
     # dlse: gradients of sum(out*g) + sum(lse*gl) against autograd
@@ -206,6 +214,25 @@ def test_cuda_kernels_match_plain_version(cuda_device, dtype):
     ((pout * g.float()).sum() + (plse * gl).sum()).backward()
     for got, want in zip(leaves, plain):
         assert _head_rel_err(got.grad, want.grad) <= grad_tol
+
+
+@pytest.mark.cuda
+def test_cuda_forward_is_deterministic(cuda_device):
+    """K1' owns its output rows and uses no atomics: two calls on the same
+    inputs give bit-identical out and lse, in bf16 (both output types),
+    causal and not, D 64 and 128, at a ragged S."""
+    for d in (64, 128):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                   for a in _inputs(383, seed=5, b=2, h=3, d=d, n=3))
+        for causal in (True, False):
+            for out_f32 in (False, True):
+                runs = [ta._flash_forward(q, k, v, d ** -0.5, causal,
+                                          out_f32=out_f32)
+                        for _ in range(2)]
+                torch.cuda.synchronize(cuda_device)
+                case = (d, causal, out_f32)
+                assert torch.equal(runs[0][0], runs[1][0]), case
+                assert torch.equal(runs[0][1], runs[1][1]), case
 
 
 @pytest.mark.cuda
@@ -229,11 +256,11 @@ def test_cuda_backward_is_deterministic(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_register_a_fault_is_caught(cuda_device, tmp_path):
-    """A planted fault in the backward's register A fragments (the bf16
-    pairs of an accumulator packed with their two columns swapped), built
-    from a copy of the source in a temporary directory, must fail the
-    bf16 limit for dq, dk and dv: the card test sees a wrong fragment
-    order."""
+    """A planted fault in the register A fragments of the bf16 kernels
+    (the bf16 pairs of an accumulator packed with their two columns
+    swapped), built from a copy of the source in a temporary directory,
+    must fail the bf16 limit for the forward's out (P of P V) and for dq,
+    dk and dv: the card test sees a wrong fragment order."""
     import ctypes
     import subprocess
 
@@ -256,11 +283,14 @@ def test_cuda_register_a_fault_is_caught(cuda_device, tmp_path):
     real = ta._bind()
     _build._libs["flash_attention"] = ctypes.CDLL(str(lib))
     try:
+        bad_out, _ = ta._flash_forward(q, k, v, scale, True)
         dq = ta._cuda_bwd_dq(q, k, v, g, lse, delta, scale, True)
         dk, dv = ta._cuda_bwd_dkv(q, k, v, g, lse, delta, scale, True)
         torch.cuda.synchronize(cuda_device)
     finally:
         _build._libs["flash_attention"] = real
+    ref_out, _ = ta._plain_forward(q, k, v, scale, True)
+    assert _head_rel_err(bad_out, ref_out) > 2e-2
     ref_dq = ta._torch_bwd_dq(q, k, v, g, lse, delta, scale, True)
     ref_dk, ref_dv = ta._torch_bwd_dkv(q, k, v, g, lse, delta, scale, True)
     for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):

@@ -8,7 +8,9 @@ of x and scale through the custom VJPs at 1e-5 in f32 (tests/test_ops.py
 holds the JAX kernel to 1e-5 forward and 1e-4 for gradients).  The CUDA
 kernel itself is held against the plain version in the ``cuda``-marked
 test, which runs only on a card: per row, the largest error over the
-largest |plain output| within 2e-5 (f32) and 2e-2 (bf16).
+largest |plain output| within 2e-5 (f32) and 2e-2 (bf16).  Which of
+K5''s two kernels a shape takes (``kernel_variant``) is a pure function,
+tested here over every shape of the card test.
 """
 
 import importlib
@@ -30,6 +32,25 @@ rn = importlib.import_module("mpi_operator_tpu_torch.ops.rmsnorm")
 EPS = 1e-5
 TOL = {np.float32: 1e-6, "bfloat16": 2e-2}
 
+# Shapes of the card test: (shape, x dtype, scale dtype, the rows
+# kernel's vectors per thread that kernel_variant gives, 0 for the
+# two-pass kernel).  Rows of 8200, 16396 and 66 bytes are not a whole
+# number of 16-byte vectors; 32768 bf16 is 4096 vectors, more than
+# 256 x 8; 50,000 rows are far more than the persistent grid's CTAs.
+CARD_CASES = [((2, 512, 4096), torch.bfloat16, torch.float32, 2),
+              ((64, 4096), torch.float32, torch.float32, 4),
+              ((8, 4096), torch.bfloat16, torch.float32, 2),
+              ((64, 5120), torch.bfloat16, torch.float32, 4),
+              ((16, 8192), torch.bfloat16, torch.float32, 4),
+              ((4, 16384), torch.bfloat16, torch.float32, 8),
+              ((300, 1024), torch.bfloat16, torch.bfloat16, 1),
+              ((7, 2048), torch.float16, torch.float32, 1),
+              ((50000, 4096), torch.bfloat16, torch.float32, 2),
+              ((4, 32768), torch.bfloat16, torch.float32, 0),
+              ((1003, 4100), torch.bfloat16, torch.bfloat16, 0),
+              ((37, 4099), torch.float32, torch.float32, 0),
+              ((5, 33), torch.float16, torch.float16, 0)]
+
 
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
@@ -43,11 +64,14 @@ def _jax(x, dtype):
     return jnp.asarray(x, dtype=dtype)
 
 
-@pytest.mark.parametrize("shape", [(4, 96, 128), (3, 100, 64), (7, 33)],
-                         ids=["test_ops", "block_150", "ragged"])
+@pytest.mark.parametrize("shape", [(4, 96, 128), (3, 100, 64), (7, 33),
+                                   (3, 5120), (2, 8192)],
+                         ids=["test_ops", "block_150", "ragged", "d_5120",
+                              "d_8192"])
 def test_forward_matches_jax_kernel_and_xla_f32(shape):
     """(3, 100, 64) has 300 rows, so the JAX kernel's block drops to 150
-    rows; (7, 33) to 7 rows of an odd width."""
+    rows; (7, 33) to 7 rows of an odd width; d 5120 and 8192 are widths
+    the card takes with 4 vectors a thread."""
     x, scale = _inputs(shape, 0)
     want_kernel, want_rstd = jax_forward(jnp.asarray(x), jnp.asarray(scale),
                                          EPS, True)
@@ -126,6 +150,26 @@ def test_dispatcher_and_cpu_never_launches():
         fused_rmsnorm(tx.to("meta"), ts.to("meta"))
 
 
+@pytest.mark.parametrize("case", CARD_CASES,
+                         ids=["x".join(map(str, c[0])) + "_" + str(c[1])[6:]
+                              for c in CARD_CASES])
+def test_kernel_variant_of_card_shapes(case):
+    """The kernel each card-test shape takes, for the whole tensor and for
+    the view one row in (as the card test launches both), from 256-byte
+    aligned allocations; a misaligned x or y always takes the two-pass
+    kernel."""
+    shape, dtype, _, want = case
+    d = shape[-1]
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert rn.kernel_variant(d, size, 256, 512) == want
+    assert rn.kernel_variant(d, size, 256 + d * size, 512) == want
+    assert rn.kernel_variant(d, size, 8, 512) == 0
+    assert rn.kernel_variant(d, size, 256, 520) == 0
+    if want:
+        assert d * size // 16 <= rn.ROW_THREADS * want
+        assert want == 1 or d * size // 16 > rn.ROW_THREADS * want // 2
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip: decided here, never at import."""
@@ -136,14 +180,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version(cuda_device):
+    """K5' against its plain version at every shape of CARD_CASES, each
+    launch counted under the kernel kernel_variant names (both kernels
+    run)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    cases = [((2, 512, 4096), torch.bfloat16, torch.float32),
-             ((64, 4096), torch.float32, torch.float32),
-             ((8, 4096), torch.bfloat16, torch.float32),
-             ((1003, 4100), torch.bfloat16, torch.bfloat16),
-             ((37, 4099), torch.float32, torch.float32),
-             ((5, 33), torch.float16, torch.float16)]
-    for shape, dtype, sdtype in cases:
+    for shape, dtype, sdtype, vecs in CARD_CASES:
         base = torch.randn((shape[0] + 1,) + shape[1:], generator=gen,
                            device=cuda_device).to(dtype)
         scale = (torch.randn(shape[-1], generator=gen, device=cuda_device)
@@ -152,9 +193,12 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
         # row's bytes are not a multiple of 16).
         for x in (base[:shape[0]], base[1:]):
             before = rn.LAUNCHES["rmsnorm"]
+            kernels = dict(rn.VARIANT_LAUNCHES)
             out, rstd = rn._forward(x, scale, EPS)
             torch.cuda.synchronize()
             assert rn.LAUNCHES["rmsnorm"] == before + 1
+            kernels[("rows" if vecs else "two_pass")] += 1
+            assert rn.VARIANT_LAUNCHES == kernels, (shape, dtype)
             ref, ref_rstd = rn._plain_forward(x, scale, EPS)
             d = shape[-1]
             o, r = out.float().view(-1, d), ref.float().view(-1, d)
