@@ -16,12 +16,15 @@ continued:
              HGMMA (wgmma) instructions that cuobjdump -sass finds in each
              bf16 flash kernel (forward, dQ, dK/dV), which must not be 0.
 3. kernels   each kernel against its plain PyTorch version on the card.
-             K4' (paged decode attention) at the serving path's shapes:
-             per (row, query head), the largest error over the largest
-             |plain output| is at most 2e-2 in bf16 and 2e-5 in f32; a
-             planted fault (one table entry pointing at another block)
-             must exceed it.  K1'-K3' (flash attention forward, dQ,
-             dK/dV) at the training shape (2 x 32 heads x 4096 x 128,
+             K4' (paged decode attention: a split kernel and a merge
+             kernel) at the serving path's shapes (PAGED_CASES): per
+             (row, query head), the largest error over the largest
+             |plain output| is at most 2e-2 in bf16 and 2e-5 in f32, a
+             second call gives the same bits, and a planted fault (one
+             table entry pointing at another block) must exceed the
+             limit; each case prints its split plan, share of its bound
+             and host us (median of 7 runs of 200 calls).  K1'-K3'
+             (flash attention forward, dQ, dK/dV) at the training shape (2 x 32 heads x 4096 x 128,
              bf16, causal) and non-causal, S = 4095, D = 64, f32 and
              flash_attention_with_lse with an lse cotangent: per
              (batch, head), the largest error over the largest |plain
@@ -52,7 +55,11 @@ continued:
              bytes.
 4. parity    tiny f32 models on the card equal the plain path on the CPU:
              paged greedy generate, and two AdamW train steps through the
-             flash kernels (loss and grad_norm at 1e-4).
+             flash kernels (loss and grad_norm at 1e-4).  Then
+             examples/llama_train_torch.py with its defaults (--config
+             tiny, head_dim 32, which attention(impl="auto") zero-pads to
+             the flash kernels' 64) takes 2 steps on the card, and
+             K1'-K3' each launch once per layer and step.
 5. serving   llama2_7b at full width and depth (32 layers, dim 4096),
              random bf16 weights from a seeded generator on the card,
              served through InferenceServer(max_batch_slots=8,
@@ -101,6 +108,11 @@ continued:
              launches == 6 steps x 8 layers each, peak memory < 80 GB.
              Then the phase runs once more: its six losses must be
              bit-identical to the first run's.
+7. profile   after every measured phase, the serving phase's concurrent
+             prompts on a fresh server of the same shape, once to warm
+             up and once under torch.profiler: K4''s device ms per
+             decode step (its split and merge kernels) and its share of
+             the device's busy time.
 
 Before the last line it prints the card line and one
 {"kernels": [...]} JSON line; the last line is
@@ -164,16 +176,20 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def host_us(fn, iters: int = 200) -> float:
-    """Host time of one call (launch overhead of the Python wrapper)."""
+def host_us(fn, iters: int = 200, rounds: int = 1) -> float:
+    """Host time of one call (launch overhead of the Python wrapper):
+    the median over ``rounds`` runs of ``iters`` calls each (the host's
+    clock is shared with other work, so one run can be far off)."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed / iters * 1e6
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -236,48 +252,61 @@ def paged_bound(q, pk, table, lengths, ks, window):
                                  "operations")
 
 
+MIXED7 = [4096, 3000, 2048, 1500, 1024, 517, 100, 5000]   # last idle
+MIXED8 = [8192, 6000, 4096, 2500, 1024, 333, 17, 9000]    # last idle
+# K4' cases: name, b, h, kh, d, page, maxb, dtype, lens, int8, idle, window
+PAGED_CASES = [
+    ("llama2_7b", 8, 32, 32, 128, 16, 256, torch.bfloat16, MIXED7, False,
+     True, None),
+    ("llama3_8b_gqa", 8, 32, 8, 128, 16, 512, torch.bfloat16, MIXED8, False,
+     True, None),
+    ("llama2_7b_int8", 8, 32, 32, 128, 16, 256, torch.bfloat16, MIXED7, True,
+     True, None),
+    ("llama2_7b_window", 8, 32, 32, 128, 16, 256, torch.bfloat16, MIXED7,
+     False, True, 1024),
+    ("llama2_7b_uniform", 8, 32, 32, 128, 16, 256, torch.bfloat16,
+     [2048] * 8, False, False, None),
+    ("f32_gqa", 4, 8, 2, 64, 16, 64, torch.float32, [1024, 700, 17, 1],
+     False, False, None),
+]
+
+
+def paged_case(gen, case):
+    """(inputs, kernel call, plain call) of one PAGED_CASES entry."""
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+
+    (_, b, h, kh, d, page, maxb, dtype, lens, int8, idle, window) = case
+    q, pk, pv, table, lengths, ks, vs = paged_inputs(
+        gen, b, h, kh, d, page, maxb, dtype, lens, int8, idle)
+    scale = 1.0 / d ** 0.5
+
+    def kern(tbl=table):
+        return pa.paged_decode_attention(q, pk, pv, tbl, lengths,
+                                         k_scale=ks, v_scale=vs,
+                                         window=window)
+
+    def plain():
+        return pa._torch_paged(q, pk, pv, table, lengths, scale,
+                               k_scale=ks, v_scale=vs, window=window)
+
+    bound = paged_bound(q, pk, table, lengths, ks, window)
+    return (q, pk, table, lengths), kern, plain, bound
+
+
 def kernel_phase():
     from mpi_operator_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    bf16, f32 = torch.bfloat16, torch.float32
-    mixed7 = [4096, 3000, 2048, 1500, 1024, 517, 100, 5000]   # last idle
-    mixed8 = [8192, 6000, 4096, 2500, 1024, 333, 17, 9000]    # last idle
-    cases = [
-        # name, b, h, kh, d, page, maxb, dtype, lens, int8, idle, window
-        ("llama2_7b", 8, 32, 32, 128, 16, 256, bf16, mixed7, False, True,
-         None),
-        ("llama3_8b_gqa", 8, 32, 8, 128, 16, 512, bf16, mixed8, False,
-         True, None),
-        ("llama2_7b_int8", 8, 32, 32, 128, 16, 256, bf16, mixed7, True,
-         True, None),
-        ("llama2_7b_window", 8, 32, 32, 128, 16, 256, bf16, mixed7, False,
-         True, 1024),
-        ("llama2_7b_uniform", 8, 32, 32, 128, 16, 256, bf16, [2048] * 8,
-         False, False, None),
-        ("f32_gqa", 4, 8, 2, 64, 16, 64, f32, [1024, 700, 17, 1], False,
-         False, None),
-    ]
     results = {}
-    for (name, b, h, kh, d, page, maxb, dtype, lens, int8, idle,
-         window) in cases:
-        q, pk, pv, table, lengths, ks, vs = paged_inputs(
-            gen, b, h, kh, d, page, maxb, dtype, lens, int8, idle)
-        scale = 1.0 / d ** 0.5
-
-        def kern():
-            return pa.paged_decode_attention(q, pk, pv, table, lengths,
-                                             k_scale=ks, v_scale=vs,
-                                             window=window)
-
-        def plain():
-            return pa._torch_paged(q, pk, pv, table, lengths, scale,
-                                   k_scale=ks, v_scale=vs, window=window)
-
+    for case in PAGED_CASES:
+        name, dtype = case[0], case[7]
+        (q, pk, table, lengths), kern, plain, (bound_ms, bound_by) = \
+            paged_case(gen, case)
         out = kern()
+        again = kern()
         torch.cuda.synchronize()
         ref = plain()
-        tol = 2e-5 if dtype == f32 else 2e-2
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
         err = (out.float() - ref.float()).abs().max().item()
         rel = head_rel_err(out, ref)
         if not torch.isfinite(out.float()).all():
@@ -285,27 +314,33 @@ def kernel_phase():
         if not rel <= tol:
             raise SystemExit(f"kernel case {name}: error {rel} of the "
                              f"largest output exceeds tolerance {tol}")
+        if not torch.equal(out, again):
+            raise SystemExit(f"kernel case {name}: two calls differ")
         fault = None
         if name == "llama2_7b":
             # Negative control: one live page of the 4096-token row read
             # from another row's block must fail the limit.
             bad = table.clone()
             bad[0, 100] = table[1, 100]
-            fault = head_rel_err(pa.paged_decode_attention(
-                q, pk, pv, bad, lengths), ref)
+            fault = head_rel_err(kern(bad), ref)
             if not fault > tol:
                 raise SystemExit(f"kernel case {name}: a planted one-page "
                                  f"fault ({fault}) passes tolerance {tol}")
+        plan = pa.split_plan(q.shape[0], pk.shape[2],
+                             q.shape[1] // pk.shape[2], q.shape[2],
+                             pk.shape[1], table.shape[1])
         ms = time_ms(kern, iters=20)
         plain_ms = time_ms(plain, iters=3)
-        bound_ms, bound_by = paged_bound(q, pk, table, lengths, ks, window)
         results[name] = dict(max_abs_err=err, max_rel_err=rel, tol=tol,
-                             planted_fault_rel_err=fault, ms=ms,
+                             planted_fault_rel_err=fault,
+                             bitwise_repeat=True, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, host_us=host_us(kern))
+                             bound_by=bound_by, bound_share=bound_ms / ms,
+                             host_us=host_us(kern, rounds=7),
+                             split_plan=plan._asdict())
         print(f"kernel paged_decode_attention[{name}]: "
               + json.dumps(results[name]), flush=True)
-        del q, pk, pv, table, lengths, ks, vs, out, ref
+        del q, pk, table, lengths, out, again, ref, kern, plain
         torch.cuda.empty_cache()
     return results
 
@@ -521,6 +556,56 @@ def serving_phase(card: str, model):
     return {"launches": launches, "prompts": prompts, "alone": alone,
             "itl_mean_s": stats["inter_token_latency_mean_s"],
             "peak_bytes": peak}
+
+
+def serving_profile_phase(prompts):
+    """K4''s device time per decode step on the serving path: the
+    serving phase's concurrent prompts on a server of the same shape (a
+    fresh model from SEED), once to warm up and once under
+    torch.profiler; the self device time of K4''s two kernels (split and
+    merge) over the decode steps of that window, beside all kernels'
+    device time.  It runs after every measured phase, so the profiler's
+    host cost reaches none of their numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_operator_tpu_torch.serving import InferenceServer
+
+    model = serving_model()
+    server = InferenceServer(model, max_batch_slots=8, kv_page_size=16,
+                             device="cuda").start()
+    fns = [lambda p=p: post(server.url + "/generate",
+                            {"tokens": [p],
+                             "max_new_tokens": SERVE_NEW_TOKENS})
+           for p in prompts]
+    try:
+        run_concurrently(fns)
+        steps0 = server.telemetry["dispatches_total"].value
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_concurrently(fns)
+            torch.cuda.synchronize()
+        steps = server.telemetry["dispatches_total"].value - steps0
+    finally:
+        server.stop()
+    del server, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    k4 = sum(e.self_device_time_total for e in kernels
+             if "paged_split_kernel" in e.key
+             or "paged_merge_kernel" in e.key) / 1e3
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if steps <= 0 or k4 <= 0:
+        raise SystemExit(f"serving profile: {steps} decode steps, K4' "
+                         f"device time {k4} ms")
+    result = {"decode_steps": steps,
+              "paged_attention_ms_per_step": k4 / steps,
+              "device_busy_ms_per_step": busy / steps,
+              "paged_attention_share_of_device": k4 / busy}
+    print("serving profile: " + json.dumps(result), flush=True)
+    return result
 
 
 # -- phase 5b: speculative decoding -------------------------------------------
@@ -1501,6 +1586,47 @@ def training_phase(card: str):
     return launches, losses
 
 
+def train_example_phase():
+    """examples/llama_train_torch.py with its defaults (--config tiny,
+    f32, head_dim 32, which attention(impl="auto") zero-pads to the flash
+    kernels' 64) on the card, 2 steps after its warm-up step, run in this
+    process: it must exit 0 and print a finite loss, and K1'-K3' must
+    each launch once per layer and step."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from mpi_operator_tpu_torch.models.llama import llama2_tiny
+    from mpi_operator_tpu_torch.ops import attention as fa
+
+    path = os.path.join(HERE, "examples", "llama_train_torch.py")
+    spec = importlib.util.spec_from_file_location("llama_train_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv, sys.argv = sys.argv, [path, "--steps", "2"]
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = example.main()
+    finally:
+        sys.argv = argv
+    launches = dict(fa.LAUNCHES)
+    text = out.getvalue()
+    found = re.search(r"tokens/sec: (\S+) loss=(\S+)", text)
+    if rc != 0 or not found or not np.isfinite(float(found.group(2))):
+        raise SystemExit(f"training example failed ({rc}):\n{text[-2000:]}")
+    want = 3 * llama2_tiny().n_layers          # warm-up + 2 steps
+    if any(n != want for n in launches.values()):
+        raise SystemExit(f"training example: flash launches {launches}, "
+                         f"want {want} each (3 steps x n_layers)")
+    print(f"train example (tiny defaults, on the card): "
+          f"{text.strip().splitlines()[-2]} | {found.group(0)} | "
+          f"flash launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def training_repeat_phase(card: str, losses):
     """The training phase once more on the same card: the flash kernels
     use no atomics, so the six losses must be bit-identical."""
@@ -1601,7 +1727,7 @@ def hgmma_counts():
     return counts
 
 
-def flash_entry(name, flash, launches):
+def flash_entry(name, flash, launches, example_launches):
     main_case = flash["llama2_7b_train"]
     rel = {case: r["rel_err"][name] for case, r in flash.items()
            if isinstance(r, dict)}
@@ -1614,6 +1740,9 @@ def flash_entry(name, flash, launches):
         "source": "mpi_operator_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": FLASH_REPLACES[name],
         "launches": launches[name],
+        # The training example's tiny defaults (head_dim 32, padded).
+        "launches_other_paths": {"train_example_tiny":
+                                 example_launches[name]},
         "max_abs_err": max(r["max_abs_err"][name] for r in flash.values()
                            if isinstance(r, dict)),
         "max_rel_err": rel,
@@ -1671,6 +1800,7 @@ def main() -> int:
     rms = rmsnorm_phase()
     parity_phase()
     train_parity_phase()
+    example_launches = train_example_phase()
 
     from mpi_operator_tpu_torch.models.quant import quantize_model
 
@@ -1690,6 +1820,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_launches, losses = training_phase(card)
     training_repeat_phase(card, losses)
+    k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]
     entry = {
@@ -1710,14 +1841,26 @@ def main() -> int:
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],
+        "bitwise_repeat": all(k["bitwise_repeat"] for k in kernels.values()),
         "ms": main_case["ms"],
         "kernel_ms": main_case["ms"],
+        "host_us": main_case["host_us"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
+        "bound_share": main_case["bound_share"],
+        "split_plan": main_case["split_plan"],
+        # Every case: ms, share of its bound, host us.
+        "cases": {n: {"ms": k["ms"], "bound_ms": k["bound_ms"],
+                      "bound_share": k["bound_share"],
+                      "host_us": k["host_us"]} for n, k in kernels.items()},
+        # K4' device ms per decode step of the serving phase (profiled).
+        "serving_ms_per_decode_step":
+            k4_profile["paged_attention_ms_per_step"],
         "library_ms": None,
     }
-    entries = [entry] + [flash_entry(name, flash, flash_launches)
+    entries = [entry] + [flash_entry(name, flash, flash_launches,
+                                     example_launches)
                          for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)
     print(json.dumps({"kernels": entries}))

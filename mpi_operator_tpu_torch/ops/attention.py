@@ -13,7 +13,7 @@ fallback from the card to the plain version.  ``flash_attention`` and
 ``flash_attention_with_lse`` are ``torch.autograd.Function``s over the
 wrappers; ``attention`` is the dispatcher on the model layout
 [B, S, H, D].  The kernels take [B, H, S, D] (contiguous, head_dim 64 or
-128, bf16 or f32) and any S: the ragged last tile is masked, where the
+128, bf16 or f32; ``attention`` zero-pads smaller head dims) and any S: the ragged last tile is masked, where the
 JAX kernel needs a block size that divides S.  In bf16, K1', K2' and K3'
 are ``wgmma`` kernels for ``sm_90a`` (the source's header gives the
 design); they use no atomics, so two calls on the same inputs give the
@@ -283,16 +283,63 @@ def flash_attention_with_lse(q, k, v, scale=None, causal: bool = True):
                                         causal)
 
 
+def flash_route(device_type: str, dtype, head_dim: int, impl: str) -> str:
+    """How ``attention`` computes: "plain" (the plain version), "kernel"
+    (K1'-K3' as they are) or "pad" (K1'-K3' at the next head_dim of
+    ``_HEAD_DIMS``, the input zero-padded to it).
+
+    CPU tensors and 'xla' take the plain version.  On the card 'pallas'
+    takes the kernels' own head dims, 64 and 128; 'auto' also pads any
+    smaller head_dim (the tiny configs' 16 and 32), as the JAX 'auto'
+    runs its kernel on a TPU at any head_dim.  Under 'auto' and 'pallas'
+    a CUDA tensor never takes the plain version: what the kernels cannot
+    take (a dtype other than bf16 or f32, a head_dim above 128, 'pallas'
+    off 64 and 128) raises ValueError."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', got "
+                         f"{impl!r}")
+    if device_type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention: unsupported device "
+                         f"{device_type}")
+    if device_type == "cpu" or impl == "xla":
+        return "plain"
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"attention(impl={impl!r}) on the card: the "
+                         f"kernels take bf16 or f32, got {dtype}")
+    if head_dim in _HEAD_DIMS:
+        return "kernel"
+    if impl == "auto" and head_dim < _HEAD_DIMS[-1]:
+        return "pad"
+    raise ValueError(f"attention(impl={impl!r}) on the card: the kernels "
+                     f"take head_dim 64 or 128 ('auto' pads smaller ones), "
+                     f"got head_dim {head_dim}")
+
+
+def _flash_padded(q, k, v, causal: bool):
+    """``flash_attention`` on [B, H, S, D] at a head_dim below 128 that is
+    not one of ``_HEAD_DIMS``, through the kernels at the next of them.
+    Zero columns add nothing to a score and give zero output columns, so
+    with D's own scale the first D columns are the result; autograd drops
+    the padding's gradients."""
+    d = q.shape[-1]
+    width = next(n for n in _HEAD_DIMS if n > d)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, width - d))
+                  for x in (q, k, v))
+    out = flash_attention(qp, kp, vp, 1.0 / math.sqrt(d), causal)
+    return out[..., :d]
+
+
 def attention(q, k, v, causal: bool = True, impl: str = "auto",
               mesh=None, window=None):
     """Dispatcher on [B, S, H, D] (model layout).
 
     impl: 'auto' and 'pallas' launch the kernels for tensors on the
-    card; 'xla' asks for the plain version.  Tensors on the CPU always
-    take the plain version.  ``window`` (sliding-window attention,
-    causal only) takes the plain version on every device: like the JAX
-    package, there is no banded kernel, and an explicit 'pallas' is
-    refused."""
+    card, 'auto' zero-padding a head_dim below 128 to the next one they
+    take; 'xla' asks for the plain version.  Tensors on the CPU always
+    take the plain version; inputs the kernels cannot take raise
+    (``flash_route``).  ``window`` (sliding-window attention, causal
+    only) takes the plain version on every device: like the JAX package,
+    there is no banded kernel, and an explicit 'pallas' is refused."""
     if mesh is not None:
         raise _queue3("attention over a device mesh (mesh=)")
     if impl not in ("auto", "pallas", "xla"):
@@ -306,12 +353,13 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
                 "sliding-window attention runs on the plain path; "
                 "impl='pallas' has no banded kernel yet")
         impl = "xla"
-    if _on(q) == "cpu":
-        impl = "xla"
+    route = flash_route(_on(q), q.dtype, q.shape[-1], impl)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if impl == "xla":
+    if route == "plain":
         out, _ = _torch_attention(qt, kt, vt, 1.0 / math.sqrt(q.shape[-1]),
                                   causal, window=window)
+    elif route == "pad":
+        out = _flash_padded(qt, kt, vt, causal)
     else:
         out = flash_attention(qt.contiguous(), kt.contiguous(),
                               vt.contiguous(), None, causal)

@@ -13,6 +13,7 @@ imports jax but not flax, so it also runs on a machine without flax.
 """
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -137,6 +138,98 @@ def test_dispatcher_layout_window_and_refusals():
         ta.attention(*_t(q, k, v), mesh=object())
     with pytest.raises(ValueError, match="causal"):
         ta.attention(*_t(q, k, v), causal=False, window=7)
+
+
+# (device, dtype, head_dim, impl, route): "plain", "kernel", "pad" (the
+# kernels at the next head_dim they take), or the ValueError raised on
+# the card for an input the kernels cannot take.
+ROUTES = [
+    ("cpu", torch.bfloat16, 128, "auto", "plain"),
+    ("cpu", torch.float32, 32, "pallas", "plain"),
+    ("cpu", torch.float16, 16, "xla", "plain"),
+    ("cuda", torch.bfloat16, 128, "auto", "kernel"),
+    ("cuda", torch.float32, 64, "auto", "kernel"),
+    ("cuda", torch.bfloat16, 64, "pallas", "kernel"),
+    ("cuda", torch.float32, 128, "xla", "plain"),
+    ("cuda", torch.bfloat16, 32, "auto", "pad"),
+    ("cuda", torch.float32, 16, "auto", "pad"),
+    ("cuda", torch.bfloat16, 96, "auto", "pad"),
+    ("cuda", torch.float16, 128, "auto", ValueError),
+    ("cuda", torch.bfloat16, 256, "auto", ValueError),
+    ("cuda", torch.bfloat16, 32, "pallas", ValueError),
+    ("cuda", torch.float32, 16, "pallas", ValueError),
+    ("cuda", torch.float16, 64, "pallas", ValueError),
+    ("cuda", torch.bfloat16, 16, "xla", "plain"),
+]
+
+
+@pytest.mark.parametrize("device,dtype,head_dim,impl,route", ROUTES)
+def test_flash_route(device, dtype, head_dim, impl, route):
+    """attention()'s choice of path, a pure function of what the input
+    is: on the card 'auto' pads a small head_dim to the kernels (as the
+    JAX 'auto' runs its kernel at any head_dim on a TPU), an explicit
+    'pallas' takes only 64 and 128, and nothing falls back to the plain
+    version."""
+    if route is ValueError:
+        with pytest.raises(ValueError, match="head_dim|bf16"):
+            ta.flash_route(device, dtype, head_dim, impl)
+    else:
+        assert ta.flash_route(device, dtype, head_dim, impl) == route
+
+
+def test_flash_route_refuses_bad_impl_and_device():
+    with pytest.raises(ValueError, match="impl"):
+        ta.flash_route("cuda", torch.bfloat16, 128, "triton")
+    with pytest.raises(ValueError, match="device"):
+        ta.flash_route("meta", torch.bfloat16, 128, "auto")
+
+
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_auto_head_dims_off_the_kernels_match_jax(head_dim):
+    """attention(impl='auto') at a head_dim the kernels do not take as it
+    is (the tiny training config's 32) equals the JAX
+    attention(impl='auto') on the same inputs, causal, in f32."""
+    rng = np.random.default_rng(head_dim)
+    q, k, v = (rng.standard_normal((2, 24, 4, head_dim), dtype=np.float32)
+               for _ in range(3))
+    before = dict(ta.LAUNCHES)
+    got = ta.attention(*_t(q, k, v), impl="auto")
+    want = ja.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        impl="auto")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    assert ta.LAUNCHES == before
+
+
+@pytest.mark.parametrize("head_dim,causal", [(16, True), (32, True),
+                                             (32, False), (96, True)])
+def test_padded_head_dim_matches_jax(head_dim, causal):
+    """The padding that 'auto' applies on the card (zero columns up to the
+    kernels' next head_dim, D's own scale, the first D columns kept), run
+    here through the plain versions: output and dq, dk, dv equal the JAX
+    attention at the unpadded head_dim, f32."""
+    rng = np.random.default_rng(head_dim + causal)
+    q, k, v, g = (rng.standard_normal((2, 3, 40, head_dim), dtype=np.float32)
+                  for _ in range(4))
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = ta._flash_padded(tq, tk, tv, causal)
+    assert out.shape == tq.shape
+    (out * torch.from_numpy(g)).sum().backward()
+
+    def loss(q, k, v):
+        o = ja.attention(q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+                         v.transpose(0, 2, 1, 3), causal, impl="xla")
+        return jnp.sum(o.transpose(0, 2, 1, 3) * jnp.asarray(g)), o
+
+    (_, want), grads = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                          has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=F32_TOL, rtol=F32_TOL)
+    for got, w in zip((tq.grad, tk.grad, tv.grad), grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
 # -- on the card ----------------------------------------------------------------
@@ -295,3 +388,33 @@ def test_cuda_register_a_fault_is_caught(cuda_device, tmp_path):
     ref_dk, ref_dv = ta._torch_bwd_dkv(q, k, v, g, lse, delta, scale, True)
     for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert _head_rel_err(got, want) > 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_auto_small_head_dim_pads_to_the_kernels(cuda_device, dtype):
+    """On the card, attention(impl='auto') at head_dim 32 (the tiny
+    training config's) launches K1' forward and K2'/K3' backward at
+    head_dim 64, and its output and gradients match the plain version at
+    head_dim 32; impl='pallas' refuses the same input."""
+    fwd_tol, grad_tol = ((F32_TOL, GRAD_TOL) if dtype == torch.float32
+                         else (2e-2, 5e-2))
+    rng = np.random.default_rng(12)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (2, 40, 4, 32), dtype=np.float32)).to(cuda_device, dtype)
+        for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = dict(ta.LAUNCHES)
+    got = ta.attention(q, k, v, impl="auto")
+    (got.float() * g.float()).sum().backward()
+    torch.cuda.synchronize(cuda_device)
+    assert all(ta.LAUNCHES[n] == before[n] + 1 for n in ta.LAUNCHES)
+    qp, kp, vp = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    want, _ = ta._torch_attention(qp, kp, vp, 1.0 / math.sqrt(32), True)
+    (want.float() * g.transpose(1, 2).float()).sum().backward()
+    assert _head_rel_err(got.transpose(1, 2), want) <= fwd_tol
+    for x, xp in ((q, qp), (k, kp), (v, vp)):
+        assert _head_rel_err(x.grad.transpose(1, 2), xp.grad) <= grad_tol
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.attention(q, k, v, impl="pallas")

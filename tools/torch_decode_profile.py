@@ -10,7 +10,8 @@ length (``ContinuousBatcher.fill_slots``), then times ``steps`` decode
 steps three ways: wall clock with a final synchronise, host time to
 enqueue them, and device busy time from
 torch.profiler (the sum of kernel self times).  Prints the card line
-and one JSON object per context with the top kernels by device time.
+and one JSON object per context with the top kernels by device time and
+K4''s device ms per step (its split and merge kernels together).
 Needs the card; imports nothing of JAX.
 """
 
@@ -93,6 +94,10 @@ def main() -> int:
                    if e.device_type == DeviceType.CUDA]
         device = sum(e.self_device_time_total for e in kernels) \
             / args.steps / 1e6
+        # K4' is two kernels (split over the sequence, then the merge).
+        paged = sum(e.self_device_time_total for e in kernels
+                    if "paged_split_kernel" in e.key
+                    or "paged_merge_kernel" in e.key) / args.steps / 1e3
         top = sorted(((e.key, e.self_device_time_total / args.steps / 1e3,
                        e.count // args.steps) for e in kernels),
                      key=lambda k: -k[1])[:8]
@@ -102,6 +107,7 @@ def main() -> int:
             "host_enqueue_ms_per_step": host * 1e3,
             "device_busy_ms_per_step": device * 1e3,
             "device_idle_share": 1.0 - device / wall,
+            "paged_attention_ms_per_step": paged,
             "top_kernels_ms_per_step": [
                 {"name": k[:80], "ms": ms, "calls": c}
                 for k, ms, c in top]}), flush=True)
