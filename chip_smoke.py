@@ -53,13 +53,17 @@ continued:
              also prints its share of its bound, the flash kernels their
              achieved TFLOP/s, K5' the time of a device copy of the same
              bytes.
-4. parity    tiny f32 models on the card equal the plain path on the CPU:
-             paged greedy generate, and two AdamW train steps through the
-             flash kernels (loss and grad_norm at 1e-4).  Then
-             examples/llama_train_torch.py with its defaults (--config
-             tiny, head_dim 32, which attention(impl="auto") zero-pads to
-             the flash kernels' 64) takes 2 steps on the card, and
-             K1'-K3' each launch once per layer and step.
+4. parity    tiny f32 models on the card equal the plain path on the CPU,
+             the dense llama2_tiny and the MoE mixtral_tiny (4 experts,
+             top-2): paged greedy generate, and two AdamW train steps
+             through the flash kernels (loss and grad_norm at 1e-4).
+             Then examples/llama_train_torch.py takes 2 steps on the card
+             with its defaults (--config tiny, head_dim 32, which
+             attention(impl="auto") zero-pads to the flash kernels' 64)
+             and with --config mixtral-tiny --data over a token file
+             written by write_token_file (the native loader); each exits
+             0 with a finite loss and K1'-K3' each launch once per layer
+             and step.
 5. serving   llama2_7b at full width and depth (32 layers, dim 4096),
              random bf16 weights from a seeded generator on the card,
              served through InferenceServer(max_batch_slots=8,
@@ -99,6 +103,18 @@ continued:
                            latency, the logits' error
                            against the bf16 weights on one prompt
                            (checked below 0.2).
+             moe (5e)      mixtral_8x7b at full width (dim 4096, FFN
+                           14336, 8 experts top-2, 8 kv heads: K4' at GQA
+                           groups of 4), 16 of 32 layers (47.0 GB of bf16
+                           weights; 32 would take 93.4), random weights
+                           from SEED, through the same serving run as the
+                           7B (alone, then concurrent, SSE, prefix pair).
+                           Checked as the 7B (counts, concurrent ==
+                           alone, K4' launches == decode steps x 16) and
+                           peak memory < 80 GB.  Printed: TTFT, mean
+                           inter-token latency, output tokens/s, peak
+                           memory and the share of routed assignments
+                           per expert (every expert must get some).
 6. training  llama2_7b at full width, 8 of 32 layers, batch 2 x 4096
              tokens, f32 parameters and AdamW state, bf16 compute: one
              warm step and 5 more through run_train_loop(build_train_step)
@@ -108,6 +124,13 @@ continued:
              launches == 6 steps x 8 layers each, peak memory < 80 GB.
              Then the phase runs once more: its six losses must be
              bit-identical to the first run's.
+   moe (6b)  mixtral_8x7b at full width, 2 of 32 layers, batch 1 x 4096
+             tokens (capacity 1280 per expert), f32 parameters and AdamW
+             state, bf16 compute: one warm step and 3 more, then the
+             phase once more.  Checked as above (K1'/K2'/K3' launches ==
+             4 steps x 2 layers, peak < 80 GB, the losses of the two runs
+             bit-identical).  train_mfu counts attention, the top-2 of 8
+             experts, the router and the head.
 7. profile   after every measured phase, the serving phase's concurrent
              prompts on a fresh server of the same shape, once to warm
              up and once under torch.profiler: K4''s device ms per
@@ -348,24 +371,29 @@ def kernel_phase():
 # -- phase 4: tiny-model parity -----------------------------------------------
 
 def parity_phase():
-    from mpi_operator_tpu_torch.models.llama import generate, llama2_tiny
+    """Tiny f32 models (dense llama2_tiny and MoE mixtral_tiny): paged
+    greedy generate on the card equals the plain path on the CPU."""
+    from mpi_operator_tpu_torch.models.llama import (generate, llama2_tiny,
+                                                     mixtral_tiny)
     from mpi_operator_tpu_torch.models.params import init_params
 
-    cfg = llama2_tiny(page_size=16)
-    cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED),
-                            device="cpu")
-    card_model = type(cpu_model)(cfg, device="cuda")
-    card_model.load_state_dict(cpu_model.state_dict())
-    prompt = np.random.default_rng(SEED).integers(1, cfg.vocab_size,
-                                                  (4, 21))
-    lengths = [21, 9, 16, 3]
-    want = generate(cpu_model, prompt, 12, prompt_lengths=lengths)
-    got = generate(card_model, prompt, 12, prompt_lengths=lengths).cpu()
-    if not torch.equal(want, got):
-        raise SystemExit(f"tiny paged generate: card {got.tolist()} != "
-                         f"cpu {want.tolist()}")
-    print("parity: tiny f32 paged generate, card == cpu (4 rows x 12 "
-          "tokens)", flush=True)
+    for name, preset in (("tiny", llama2_tiny),
+                         ("mixtral_tiny", mixtral_tiny)):
+        cfg = preset(page_size=16)
+        cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED),
+                                device="cpu")
+        card_model = type(cpu_model)(cfg, device="cuda")
+        card_model.load_state_dict(cpu_model.state_dict())
+        prompt = np.random.default_rng(SEED).integers(1, cfg.vocab_size,
+                                                      (4, 21))
+        lengths = [21, 9, 16, 3]
+        want = generate(cpu_model, prompt, 12, prompt_lengths=lengths)
+        got = generate(card_model, prompt, 12, prompt_lengths=lengths).cpu()
+        if not torch.equal(want, got):
+            raise SystemExit(f"{name} paged generate: card {got.tolist()} "
+                             f"!= cpu {want.tolist()}")
+        print(f"parity: {name} f32 paged generate, card == cpu (4 rows x "
+              f"12 tokens)", flush=True)
 
 
 # -- phase 5: serving -------------------------------------------------------
@@ -443,9 +471,10 @@ def serving_model():
     return model
 
 
-def serving_phase(card: str, model):
+def serving_phase(card: str, model, model_name: str = "llama2_7b"):
     """Returns the K4' launches of the run, the prompts, each prompt's
-    stream alone, the inter-token latency and the peak memory."""
+    stream alone, the inter-token latency, the peak memory and the
+    printed stats."""
     from mpi_operator_tpu_torch.ops import paged_attention as pa
     from mpi_operator_tpu_torch.serving import InferenceServer
     from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
@@ -539,7 +568,9 @@ def serving_phase(card: str, model):
         raise SystemExit("/metrics lacks serving_ttft_seconds")
     total = sum(len(o) for o in outs) + len(streamed)
     stats = {
-        "card": card, "model": "llama2_7b", "slots": 8, "page_size": 16,
+        "card": card, "model": model_name, "n_layers": cfg.n_layers,
+        "slots": 8,
+        "page_size": 16,
         "concurrent_requests": len(fns), "new_tokens_each": n_new,
         "prompt_lens": list(SERVE_PROMPT_LENS),
         "concurrent_wall_s": wall,
@@ -555,7 +586,69 @@ def serving_phase(card: str, model):
     print("serving: " + json.dumps(stats), flush=True)
     return {"launches": launches, "prompts": prompts, "alone": alone,
             "itl_mean_s": stats["inter_token_latency_mean_s"],
-            "peak_bytes": peak}
+            "peak_bytes": peak, "stats": stats}
+
+
+# -- phase 5e: MoE serving ---------------------------------------------------
+
+MOE_SERVE_LAYERS = 16        # of 32: 47.0 GB of bf16 weights (93.4 at 32)
+
+
+def moe_serving_phase(card: str):
+    """mixtral_8x7b at full width, 16 of 32 layers, random bf16 weights
+    from SEED on the card, through serving_phase (each prompt alone,
+    then concurrently, K4' at GQA groups of 4); also the share of routed
+    (token, expert) assignments per expert over the phase, every row the
+    model routes (prefill tokens and decode rows, idle slots included),
+    counted by forward hooks on the MoE layers."""
+    import dataclasses
+
+    from mpi_operator_tpu_torch.models.llama import mixtral_8x7b
+    from mpi_operator_tpu_torch.models.params import init_params
+
+    cfg = dataclasses.replace(mixtral_8x7b(), n_layers=MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"moe serving: mixtral_8x7b random init ({cfg.n_layers} of 32 "
+          f"layers, dim {cfg.dim}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    experts = torch.arange(cfg.n_experts, device="cuda")
+    hits = []
+
+    def count(module, inputs, output):
+        # A comparison, not bincount: no host sync on the serving path.
+        idx = module.last_routing[0]
+        hits.append((idx[..., None] == experts).sum((0, 1)))
+
+    hooks = [layer.feed_forward.register_forward_hook(count)
+             for layer in model.layers]
+    try:
+        serve = serving_phase(card, model, model_name="mixtral_8x7b")
+    finally:
+        for h in hooks:
+            h.remove()
+    routed = torch.stack(hits).sum(0).double()
+    share = (routed / routed.sum()).tolist()
+    peak = serve["peak_bytes"]
+    stats = {k: serve["stats"][k] for k in (
+        "ttft_mean_s", "inter_token_latency_mean_s", "output_tokens_per_s",
+        "decode_steps", "paged_attention_launches",
+        "max_memory_allocated_bytes")}
+    stats.update(card=card, model="mixtral_8x7b",
+                 reduced=f"n_layers {cfg.n_layers} of 32",
+                 routed_share_per_expert=share)
+    print("moe serving: " + json.dumps(stats), flush=True)
+    if not peak < 80e9:
+        raise SystemExit(f"moe serving: peak memory {peak} bytes")
+    if min(share) <= 0:
+        raise SystemExit(f"moe serving: an expert routed nothing: {share}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve
 
 
 def serving_profile_phase(prompts):
@@ -1455,17 +1548,18 @@ def rmsnorm_entry(results):
 
 # -- phase 4b: training parity -------------------------------------------------
 
-def train_parity_phase():
+def train_parity_phase(preset_name="llama2_tiny"):
     """A tiny f32 model's first two train steps through the kernels on the
-    card equal the plain path on the CPU (loss and grad_norm at 1e-4)."""
-    from mpi_operator_tpu_torch.models.llama import (llama2_tiny,
-                                                     next_token_loss)
+    card equal the plain path on the CPU (loss and grad_norm at 1e-4):
+    the dense llama2_tiny, or the MoE mixtral_tiny."""
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.llama import next_token_loss
     from mpi_operator_tpu_torch.models.params import init_params
     from mpi_operator_tpu_torch.ops import attention as fa
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
     # head_dim 64 (the kernels take 64 or 128), GQA, a ragged sequence.
-    cfg = llama2_tiny(dim=128, n_heads=2, n_kv_heads=1)
+    cfg = getattr(llama, preset_name)(dim=128, n_heads=2, n_kv_heads=1)
     cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED),
                             device="cpu", dtype=torch.float32)
     card_model = type(cpu_model)(cfg, device="cuda",
@@ -1496,26 +1590,35 @@ def train_parity_phase():
                 and abs(cn - gn) <= 1e-4 * max(1.0, abs(cn))):
             raise SystemExit(f"training parity: card {metrics[1]} != cpu "
                              f"{metrics[0]}")
-    print(f"parity: tiny f32 training, 2 AdamW steps, card {metrics[1]} == "
-          f"cpu {metrics[0]} (loss, grad_norm) at 1e-4", flush=True)
+    print(f"parity: {preset_name} f32 training, 2 AdamW steps, card "
+          f"{metrics[1]} == cpu {metrics[0]} (loss, grad_norm) at 1e-4",
+          flush=True)
 
 
 # -- phase 6: training -----------------------------------------------------------
 
-TRAIN_LAYERS = 8
-TRAIN_BATCH = 2
-TRAIN_SEQ = 4096
-TRAIN_STEPS = 6              # one warm step + 5 timed
+# Per model: layers of 32, batch, sequence, steps (one warm + the rest
+# timed).  f32 weights, gradients and two Adam moments (16 B a parameter)
+# set the cut: llama2_7b 30.1 GB at 8 layers; mixtral_8x7b 3.16 B
+# parameters (50.6 GB) at 2 layers, whose saved MoE activations at
+# capacity 1280 add about 1.5 GB a layer.
+TRAIN_CONFIGS = {
+    "llama2_7b": dict(layers=8, batch=2, seq=4096, steps=6),
+    "mixtral_8x7b": dict(layers=2, batch=1, seq=4096, steps=4),
+}
 
 
-def training_phase(card: str):
-    """llama2_7b at full width, 8 of 32 layers, 2 x 4096 tokens, f32
+def training_phase(card: str, name: str = "llama2_7b"):
+    """A model at full width, cut to TRAIN_CONFIGS' layers, f32
     parameters and AdamW state, bf16 compute, through
-    run_train_loop(build_train_step(...)) with the flash kernels."""
+    run_train_loop(build_train_step(...)) with the flash kernels.
+    train_mfu counts the matmul parameters that do useful work: for MoE
+    attention, the top-k of the experts, the router and the head (not
+    the dispatch products or capacity padding)."""
     import dataclasses
 
-    from mpi_operator_tpu_torch.models.llama import (llama2_7b,
-                                                     next_token_loss)
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.llama import next_token_loss
     from mpi_operator_tpu_torch.models.params import init_params
     from mpi_operator_tpu_torch.ops import attention as fa
     from mpi_operator_tpu_torch.parallel.train import (adamw,
@@ -1524,13 +1627,15 @@ def training_phase(card: str):
     from mpi_operator_tpu_torch.telemetry.goodput import GoodputTracker
     from mpi_operator_tpu_torch.telemetry.metrics import Registry
 
-    cfg = dataclasses.replace(llama2_7b(), n_layers=TRAIN_LAYERS)
+    run = TRAIN_CONFIGS[name]
+    cfg = dataclasses.replace(getattr(llama, name)(), n_layers=run["layers"])
+    batch, seq, n_steps = run["batch"], run["seq"], run["steps"]
     torch.cuda.reset_peak_memory_stats()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                         device="cuda", dtype=cfg.param_dtype)
     n_params = sum(p.numel() for p in model.parameters())
     tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)), device="cuda")
+        0, cfg.vocab_size, (batch, seq)), device="cuda")
 
     def loss_fn(model, batch):
         return next_token_loss(model(batch), batch)
@@ -1547,37 +1652,40 @@ def training_phase(card: str):
         stamps.append(time.perf_counter())
         losses.append(metrics["loss"].item())
 
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    for kernel in fa.LAUNCHES:
+        fa.LAUNCHES[kernel] = 0
     t0 = time.perf_counter()
     state, steps = run_train_loop(state, step, (tokens for _ in range(
-        TRAIN_STEPS)), max_steps=TRAIN_STEPS, on_metrics=on_metrics)
+        n_steps)), max_steps=n_steps, on_metrics=on_metrics)
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     warm_s = stamps[0] - t0
     step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
-    n_tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_tokens = batch * seq
+    moe = cfg.n_experts > 1
+    ffn_params = ((cfg.top_k if moe else 1) * 3 * cfg.dim * cfg.ffn_dim
+                  + (cfg.dim * cfg.n_experts if moe else 0))
     matmul_params = cfg.n_layers * (
         2 * cfg.dim * cfg.n_heads * cfg.head_dim
         + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
-        + 3 * cfg.dim * cfg.ffn_dim) + cfg.dim * cfg.vocab_size
+        + ffn_params) + cfg.dim * cfg.vocab_size
     flops = (6 * n_tokens * matmul_params
-             + 12 * cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.dim / 2)
+             + 12 * cfg.n_layers * batch * seq ** 2 * cfg.dim / 2)
     stats = {
-        "card": card, "model": "llama2_7b", "n_layers": cfg.n_layers,
-        "reduced": "n_layers 8 of 32", "batch": TRAIN_BATCH,
-        "seq_len": TRAIN_SEQ, "params": n_params, "steps": steps,
+        "card": card, "model": name, "n_layers": cfg.n_layers,
+        "reduced": f"n_layers {cfg.n_layers} of 32", "batch": batch,
+        "seq_len": seq, "params": n_params, "steps": steps,
         "losses": losses, "warm_step_s": warm_s, "step_ms": step_s * 1e3,
         "tokens_per_s": n_tokens / step_s,
         "train_mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
         "flops_per_step": flops, "max_memory_allocated_bytes": peak,
         "kernel_launches": launches, "goodput": goodput.summary(),
     }
-    print("training: " + json.dumps(stats), flush=True)
+    print(f"training[{name}]: " + json.dumps(stats), flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"training: losses {losses} are not finite and "
                          f"falling")
-    want = TRAIN_STEPS * cfg.n_layers
+    want = n_steps * cfg.n_layers
     if any(n != want for n in launches.values()):
         raise SystemExit(f"training: kernel launches {launches}, expected "
                          f"{want} each (steps x layers)")
@@ -1586,24 +1694,36 @@ def training_phase(card: str):
     return launches, losses
 
 
-def train_example_phase():
-    """examples/llama_train_torch.py with its defaults (--config tiny,
+def train_example_phase(moe_data: bool = False):
+    """examples/llama_train_torch.py on the card, 2 steps after its
+    warm-up step, run in this process: with its defaults (--config tiny,
     f32, head_dim 32, which attention(impl="auto") zero-pads to the flash
-    kernels' 64) on the card, 2 steps after its warm-up step, run in this
-    process: it must exit 0 and print a finite loss, and K1'-K3' must
-    each launch once per layer and step."""
+    kernels' 64), or with ``moe_data`` as --config mixtral-tiny --data
+    over a token file written by write_token_file (the native loader).
+    It must exit 0 and print a finite loss, and K1'-K3' must each launch
+    once per layer and step."""
     import contextlib
     import importlib.util
     import io
+    import tempfile
 
     from mpi_operator_tpu_torch.models.llama import llama2_tiny
+    from mpi_operator_tpu_torch.native import write_token_file
     from mpi_operator_tpu_torch.ops import attention as fa
 
     path = os.path.join(HERE, "examples", "llama_train_torch.py")
     spec = importlib.util.spec_from_file_location("llama_train_torch", path)
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
-    argv, sys.argv = sys.argv, [path, "--steps", "2"]
+    tmp = tempfile.TemporaryDirectory()
+    extra, label = [], "tiny defaults"
+    if moe_data:
+        corpus = os.path.join(tmp.name, "corpus.bin")
+        write_token_file(corpus, np.random.default_rng(SEED).integers(
+            0, llama2_tiny().vocab_size, 64 * llama2_tiny().max_seq_len))
+        extra = ["--config", "mixtral-tiny", "--data", corpus]
+        label = "mixtral-tiny --data"
+    argv, sys.argv = sys.argv, [path, "--steps", "2", *extra]
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
     out = io.StringIO()
@@ -1612,6 +1732,7 @@ def train_example_phase():
             rc = example.main()
     finally:
         sys.argv = argv
+        tmp.cleanup()
     launches = dict(fa.LAUNCHES)
     text = out.getvalue()
     found = re.search(r"tokens/sec: (\S+) loss=(\S+)", text)
@@ -1621,20 +1742,21 @@ def train_example_phase():
     if any(n != want for n in launches.values()):
         raise SystemExit(f"training example: flash launches {launches}, "
                          f"want {want} each (3 steps x n_layers)")
-    print(f"train example (tiny defaults, on the card): "
+    print(f"train example ({label}, on the card): "
           f"{text.strip().splitlines()[-2]} | {found.group(0)} | "
           f"flash launches {json.dumps(launches)}", flush=True)
     return launches
 
 
-def training_repeat_phase(card: str, losses):
+def training_repeat_phase(card: str, losses, name: str = "llama2_7b"):
     """The training phase once more on the same card: the flash kernels
-    use no atomics, so the six losses must be bit-identical."""
+    and the MoE one-hot dispatch use no atomics, so the losses must be
+    bit-identical."""
     gc.collect()
     torch.cuda.empty_cache()
-    _, again = training_phase(card)
-    print(f"training[repeat]: losses {again}, identical: {again == losses}",
-          flush=True)
+    _, again = training_phase(card, name)
+    print(f"training[{name}, repeat]: losses {again}, identical: "
+          f"{again == losses}", flush=True)
     if again != losses:
         raise SystemExit(f"training: a second run gave losses {again}, the "
                          f"first {losses}")
@@ -1727,7 +1849,7 @@ def hgmma_counts():
     return counts
 
 
-def flash_entry(name, flash, launches, example_launches):
+def flash_entry(name, flash, launches, other_launches):
     main_case = flash["llama2_7b_train"]
     rel = {case: r["rel_err"][name] for case, r in flash.items()
            if isinstance(r, dict)}
@@ -1740,9 +1862,10 @@ def flash_entry(name, flash, launches, example_launches):
         "source": "mpi_operator_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": FLASH_REPLACES[name],
         "launches": launches[name],
-        # The training example's tiny defaults (head_dim 32, padded).
-        "launches_other_paths": {"train_example_tiny":
-                                 example_launches[name]},
+        # The training example's tiny defaults (head_dim 32, padded),
+        # its mixtral-tiny --data run and the MoE training phase.
+        "launches_other_paths": {path: counts[name] for path, counts in
+                                 other_launches.items()},
         "max_abs_err": max(r["max_abs_err"][name] for r in flash.values()
                            if isinstance(r, dict)),
         "max_rel_err": rel,
@@ -1800,7 +1923,9 @@ def main() -> int:
     rms = rmsnorm_phase()
     parity_phase()
     train_parity_phase()
+    train_parity_phase("mixtral_tiny")
     example_launches = train_example_phase()
+    moe_example_launches = train_example_phase(moe_data=True)
 
     from mpi_operator_tpu_torch.models.quant import quantize_model
 
@@ -1818,8 +1943,13 @@ def main() -> int:
     del qmodel
     gc.collect()
     torch.cuda.empty_cache()
+    moe_serve = moe_serving_phase(card)
     flash_launches, losses = training_phase(card)
     training_repeat_phase(card, losses)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_flash_launches, moe_losses = training_phase(card, "mixtral_8x7b")
+    training_repeat_phase(card, moe_losses, "mixtral_8x7b")
     k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]
@@ -1837,7 +1967,8 @@ def main() -> int:
             "speculative_prompt_lookup":
                 spec["prompt_lookup"]["paged_attention_launches"],
             "chunked_prefill": chunked["paged_attention_launches"],
-            "int8_weights": int8["paged_attention_launches"]},
+            "int8_weights": int8["paged_attention_launches"],
+            "moe_serving": moe_serve["launches"]},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],
@@ -1859,8 +1990,10 @@ def main() -> int:
             k4_profile["paged_attention_ms_per_step"],
         "library_ms": None,
     }
-    entries = [entry] + [flash_entry(name, flash, flash_launches,
-                                     example_launches)
+    other = {"train_example_tiny": example_launches,
+             "train_example_mixtral_tiny_data": moe_example_launches,
+             "moe_training": moe_flash_launches}
+    entries = [entry] + [flash_entry(name, flash, flash_launches, other)
                          for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)
     print(json.dumps({"kernels": entries}))

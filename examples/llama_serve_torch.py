@@ -1,11 +1,13 @@
 #!/usr/bin/env python
-"""Serve a Llama-family model over HTTP with the PyTorch/CUDA port.
+"""Serve a Llama/Mixtral-family model over HTTP with the PyTorch/CUDA port.
 
 Continuous batching over a paged KV cache with prefix caching, optional
 int8 KV, weight-only int8, chunked prefill, speculative decoding (the
 model as its own draft, or prompt lookup), stop tokens and SSE
 streaming; decode attention runs through the port's hand-written CUDA
-kernel.  Weights are random, made on the device from ``--seed``.
+kernel.  Weights are random, made on the device from ``--seed``, or
+loaded from a HuggingFace Llama, Mistral or Mixtral checkpoint
+(``--hf``; bf16 on the card, f32 on the CPU).
 
     # llama2_7b on the card, 8 slots, one demo request:
     python examples/llama_serve_torch.py --config 7b --slots 8 --demo
@@ -14,14 +16,17 @@ kernel.  Weights are random, made on the device from ``--seed``.
     python examples/llama_serve_torch.py --config 7b --weight-dtype int8 \
         --prefill-chunk 512 --draft-strategy prompt_lookup --demo
 
-    # tiny model on the CPU (the plain PyTorch path):
+    # tiny model on the CPU (the plain PyTorch path), dense or MoE:
     python examples/llama_serve_torch.py --config tiny --device cpu --demo
+    python examples/llama_serve_torch.py --config mixtral-tiny \
+        --device cpu --demo
+
+    # an HF checkpoint directory (Llama, Mistral or Mixtral):
+    python examples/llama_serve_torch.py --hf /path/to/checkpoint --demo
 
     # then:
     curl -s localhost:8080/generate -d \
       '{"tokens": [[1,2,3]], "max_new_tokens": 16, "eos_token_id": 2}'
-
-Loading a HuggingFace checkpoint (``--hf``) is not ported yet.
 """
 
 import argparse
@@ -35,20 +40,43 @@ import urllib.request
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-CONFIGS = ("tiny", "7b", "llama3-8b")
+CONFIGS = ("tiny", "7b", "llama3-8b", "mixtral-tiny")
 
 
-def build_model(config_name: str, device, seed: int):
+def load_hf(path: str, dev):
+    """An HF checkpoint directory through the port's converter (the
+    weights in bf16 on the card, f32 on the CPU)."""
+    import torch
+    from transformers import AutoConfig, AutoModelForCausalLM
+
+    from mpi_operator_tpu_torch.models.convert import (config_from_hf,
+                                                       convert_hf_llama,
+                                                       convert_hf_mixtral)
+    from mpi_operator_tpu_torch.models.llama import LlamaModel
+
+    dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+    cfg = config_from_hf(AutoConfig.from_pretrained(path), dtype=dtype)
+    with torch.no_grad():
+        state = AutoModelForCausalLM.from_pretrained(path).state_dict()
+    convert = convert_hf_mixtral if cfg.n_experts > 1 else convert_hf_llama
+    model = LlamaModel(cfg, device=dev)
+    model.load_state_dict(convert(state, cfg))
+    return model.eval()
+
+
+def build_model(config_name: str, device, seed: int, hf: str = ""):
     import torch
 
     from mpi_operator_tpu_torch import resolve_device
     from mpi_operator_tpu_torch.models.llama import (llama2_7b, llama2_tiny,
-                                                     llama3_8b)
+                                                     llama3_8b, mixtral_tiny)
     from mpi_operator_tpu_torch.models.params import init_params
 
-    cfg = {"tiny": llama2_tiny, "7b": llama2_7b,
-           "llama3-8b": llama3_8b}[config_name]()
     dev = resolve_device(device)
+    if hf:
+        return load_hf(hf, dev)
+    cfg = {"tiny": llama2_tiny, "7b": llama2_7b, "llama3-8b": llama3_8b,
+           "mixtral-tiny": mixtral_tiny}[config_name]()
     gen = torch.Generator(device=dev).manual_seed(seed)
     return init_params(cfg, gen, device=dev)
 
@@ -56,7 +84,11 @@ def build_model(config_name: str, device, seed: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="tiny", choices=CONFIGS,
-                    help="model configuration (random weights)")
+                    help="model configuration (random weights) when "
+                         "no --hf is given")
+    ap.add_argument("--hf", default="",
+                    help="HuggingFace checkpoint dir (Llama, Mistral or "
+                         "Mixtral)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--slots", type=int, default=4,
@@ -91,7 +123,7 @@ def main() -> int:
         raise SystemExit(
             "--kv-cache-dtype needs continuous batching (--slots > 0); "
             "the single-flight path uses the dense cache")
-    model = build_model(args.config, args.device, args.seed)
+    model = build_model(args.config, args.device, args.seed, args.hf)
     if args.weight_dtype == "int8":
         # Quantize here and drop the full-precision model, so only the
         # int8 weights stay resident.
@@ -107,7 +139,7 @@ def main() -> int:
         draft_model=draft, draft_strategy=strategy,
         draft_len=args.draft_len, kv_prefill_chunk=args.prefill_chunk,
         device=model.device).start()
-    print(f"serving on {server.url}  (config={args.config}, "
+    print(f"serving on {server.url}  (config={args.hf or args.config}, "
           f"device={model.device}, slots={args.slots}, page={page}, "
           f"kv={args.kv_cache_dtype}, weights={args.weight_dtype}, "
           f"prefill_chunk={args.prefill_chunk}, "

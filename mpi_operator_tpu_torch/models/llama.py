@@ -28,8 +28,16 @@ With ``weight_dtype="int8"`` the matmul layers are ``QuantLinear``s
 (int8 weight, f32 scale per output row; ``models/quant.py``), as the
 JAX model builds ``QuantDenseGeneral``.
 
-Not ported: MoE (``n_experts > 1``) raises NotImplementedError naming
-the roadmap item that ports it.
+With ``n_experts > 1`` (the Mixtral presets) each block's
+``feed_forward`` is ``ops/moe.py``'s ``MoEMLP``, as in the JAX block:
+drop-free routing exactly when a KV cache is passed (the JAX
+``decode=True``: dense and paged prefill, the decode step, the
+speculative verify, chunked prefill), capacity factor 1.25 in the
+training forward.  Each MoE layer's Switch load-balancing value (the
+JAX ``losses`` collection) is its attribute ``load_balancing`` after a
+forward (``model.layers[i].feed_forward.load_balancing``); the training
+loss does not include it, as the JAX example drops that collection.
+Weight-only int8 with MoE raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import attention
+from ..ops.moe import MoEMLP
 from ..ops.paged_attention import paged_decode_attention
 
 
@@ -64,7 +73,7 @@ class LlamaConfig:
     param_dtype: Any = torch.float32          # norm scales
     remat: bool = False
     attention_impl: str = "auto"
-    n_experts: int = 0                        # >1 -> MoE (not ported)
+    n_experts: int = 0                        # >1 -> MoE (ops/moe.py)
     top_k: int = 2
     ring_impl: str = "dense"
     weight_dtype: str = "auto"                # 'int8': weight-only
@@ -147,6 +156,19 @@ def llama3_8b(**overrides) -> LlamaConfig:
                                  n_heads=32, n_kv_heads=8,
                                  hidden_dim=14336, rope_theta=500000.0,
                                  max_seq_len=8192), **overrides})
+
+
+def mixtral_tiny(**overrides) -> LlamaConfig:
+    """Tiny Mixtral-style MoE config (tests)."""
+    return llama2_tiny(**{**dict(n_experts=4, top_k=2), **overrides})
+
+
+def mixtral_8x7b(**overrides) -> LlamaConfig:
+    """Mixtral-8x7B-shaped config (vocab 32k, dim 4096, 8 experts)."""
+    return LlamaConfig(**{**dict(vocab_size=32000, dim=4096, n_layers=32,
+                                 n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                                 max_seq_len=4096, n_experts=8, top_k=2),
+                          **overrides})
 
 
 def quantize_kv(x):
@@ -403,12 +425,26 @@ class LlamaBlock(nn.Module):
         self.attention = LlamaAttention(cfg, store_dtype)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps,
                                       cfg.param_dtype, None)
-        self.feed_forward = LlamaMLP(cfg, store_dtype)
+        self.moe = cfg.n_experts > 1
+        if self.moe:
+            self.feed_forward = MoEMLP(
+                cfg.dim, cfg.ffn_dim, cfg.n_experts, top_k=cfg.top_k,
+                dtype=cfg.dtype, store_dtype=store_dtype,
+                param_dtype=cfg.param_dtype)
+        else:
+            self.feed_forward = LlamaMLP(cfg, store_dtype)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, None)
 
     def forward(self, x, cache: Optional[dict], positions=None):
         h = x + self.attention(self.attention_norm(x), cache, positions)
-        return h + self.feed_forward(self.ffn_norm(h))
+        normed = self.ffn_norm(h)
+        if self.moe:
+            # With a cache (JAX decode=True) routing is drop-free: a
+            # decode step's capacity differs from the prefill's, so
+            # dropping would make generation diverge from the model's
+            # own forward pass (ops/moe.py).
+            return h + self.feed_forward(normed, no_drop=cache is not None)
+        return h + self.feed_forward(normed)
 
 
 class LlamaModel(nn.Module):
@@ -424,10 +460,6 @@ class LlamaModel(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, store_dtype=None):
         super().__init__()
-        if config.n_experts > 1:
-            raise NotImplementedError(
-                "MoE (n_experts > 1) is not ported yet: ROADMAP.md, queue "
-                "1, 'Modules left out of the serving slice' (ops/moe.py)")
         dev = resolve_device(device)
         store = store_dtype or config.dtype
         self.config = config

@@ -4,9 +4,13 @@ param tree, and seeded random initialisation on the device.
 Flax ``DenseGeneral`` kernels are laid out [in, ...out] (``wq``/``wk``/
 ``wv`` [dim, H, D], ``wo`` [H, D, dim], ``w1``/``w3`` [dim, F], ``w2``
 [F, dim], ``output`` [dim, V]); a torch ``nn.Linear`` weight is
-[out, in].  Matmul weights and the embedding are stored in
-``config.dtype`` for serving (flax casts its f32 params to it at every
-use) or, given ``dtype=torch.float32``, in f32 for training; norm scales
+[out, in].  An MoE layer (``ops/moe.py``) maps ``router/kernel``
+[dim, E] to an f32 ``router.weight`` [E, dim] and keeps the expert
+stacks ``w1``/``w3`` [E, dim, F] and ``w2`` [E, F, dim] in their own
+layout, the one its batched products take.  Matmul weights, expert
+stacks and the embedding are stored in ``config.dtype`` for serving
+(flax casts its f32 params to it at every use) or, given
+``dtype=torch.float32``, in f32 for training; norm scales and the router
 stay f32.  A quantized tree (``quantize_params`` of the JAX package:
 ``{kernel: int8, scale: f32}`` per matmul) keeps its int8 weights and
 f32 scales, for a ``weight_dtype="int8"`` config.
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.moe import init_expert_stack_
 from .llama import LlamaConfig, LlamaModel
 
 _LINEARS = {"attention": ("wq", "wk", "wv", "wo"),
@@ -77,6 +82,13 @@ def from_flax_params(tree, cfg: LlamaConfig,
     for i in range(cfg.n_layers):
         layer = tree[f"layers_{i}"]
         for group, names in _LINEARS.items():
+            if group == "feed_forward" and cfg.n_experts > 1:
+                ffn, key = layer[group], f"layers.{i}.{group}"
+                sd[key + ".router.weight"] = t(
+                    np.asarray(ffn["router"]["kernel"]).T, cfg.param_dtype)
+                for name in names:
+                    sd[f"{key}.{name}"] = t(ffn[name], dtype)
+                continue
             for name in names:
                 linear(sd, f"layers.{i}.{group}.{name}", layer[group][name],
                        name)
@@ -101,10 +113,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None, dtype: Optional[torch.dtype] = None
                 ) -> LlamaModel:
     """A seeded random LlamaModel built on ``device``: normal weights
-    with std 1/sqrt(fan_in) (the embedding std 1), norm scales 1, matmul
-    weights and embedding stored in ``dtype`` (default ``cfg.dtype``).
-    The values are drawn in f32 on the generator's device, which must be
-    ``device``."""
+    with std 1/sqrt(fan_in) (the embedding std 1), MoE expert stacks as
+    flax's truncated ``lecun_normal`` draws them (``ops/moe.py``), norm
+    scales 1, matmul weights and embedding stored in ``dtype`` (default
+    ``cfg.dtype``).  The values are drawn in f32 on the generator's
+    device, which must be ``device``."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
@@ -118,6 +131,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     for name, p in model.named_parameters():
         if name.endswith(".scale"):
             p.fill_(1.0)
+            continue
+        if p.dim() == 3:                 # an MoE expert stack [E, in, out]
+            init_expert_stack_(p, generator)
             continue
         std = 1.0 if name == "tok_embeddings.weight" else \
             1.0 / math.sqrt(p.shape[1])

@@ -1,6 +1,7 @@
 """Input pipeline helpers: counterpart of ``mpi_operator_tpu/utils/data.py``
-on one device (``global_batch_iterator`` is multi-process and waits for
-ROADMAP.md queue 3)."""
+on one device.  The token file loader is ``native/dataloader.py``
+(``NativeTokenLoader``); ``global_batch_iterator`` is multi-process and
+waits for ROADMAP.md queue 1 item 3 (multi-GPU parallelism)."""
 
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ from mpi_operator_tpu_torch.models import llama as tl
 from mpi_operator_tpu_torch.models.params import (from_flax_params,
                                                   init_params,
                                                   load_flax_params)
+from mpi_operator_tpu_torch.ops.moe import MoEMLP
 
 LOGIT_TOL = 1e-4
 ROPE_SCALING = dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
@@ -263,8 +264,15 @@ def test_out_of_slice_paths_raise():
                      device="cpu")
     # The training forward (no cache) is ported: logits [B, S, V].
     assert tm(torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
+    # MoE is ported (tests/test_torch_mixtral.py); int8 weights with MoE
+    # and an MoE layer over a mesh still raise.
+    assert tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")(
+        torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     with pytest.raises(NotImplementedError, match="MoE"):
-        tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")
+        tl.LlamaModel(tl.llama2_tiny(n_experts=4, weight_dtype="int8"),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        MoEMLP(128, 256, 4, mesh=object())
     # Weight-only int8 is ported (tests/test_torch_quant.py): the matmul
     # layers hold int8 weights.
     q = tl.LlamaModel(tl.llama2_tiny(weight_dtype="int8"), device="cpu")

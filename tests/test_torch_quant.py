@@ -209,8 +209,10 @@ def test_quant_guards(quant):
     with pytest.raises(NotImplementedError, match="MoE"):
         quantize_params({}, LlamaConfig(vocab_size=8, dim=8, n_layers=1,
                                         n_heads=1, n_experts=4))
+    # An MoE model builds (ops/moe.py), but quantizing it still raises.
+    moe = LlamaModel(LlamaConfig(vocab_size=8, dim=8, n_layers=1, n_heads=1,
+                                 n_experts=4), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaModel(LlamaConfig(vocab_size=8, dim=8, n_layers=1, n_heads=1,
-                               n_experts=4), device="cpu")
+        quantize_model(moe)
     with pytest.raises(ValueError, match="weight_dtype"):
         InferenceServer(quant["tm"], weight_dtype="int4", device="cpu")

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Profile training steps of the PyTorch port on the CUDA card.
 
-    python3 tools/torch_train_profile.py [--n-layers 8] [--batch 2]
-        [--seq-len 4096] [--steps 3]
+    python3 tools/torch_train_profile.py [--config llama2_7b] [--n-layers 8]
+        [--batch 2] [--seq-len 4096] [--steps 3]
+    python3 tools/torch_train_profile.py --config mixtral_8x7b \
+        --n-layers 2 --batch 1
 
-Builds llama2_7b at full width (``--n-layers`` of its 32 layers) with
+Builds the config at full width (``--n-layers`` of its 32 layers) with
 f32 weights from a seeded generator on the card, takes two warm AdamW
 steps on a fixed batch, then times ``steps`` steps: wall clock with a
 final synchronise, and device busy time from torch.profiler (the sum of
 kernel self times).  Prints the card line and one JSON object with the
-device time per step grouped by kernel family (flash kernels, matmuls,
-optimizer, the rest) and the top kernels.  Needs the card; imports
+device time per step grouped by kernel family (flash kernels, bf16 and
+f32 matmuls, optimizer, the rest) and the top kernels.  Needs the card; imports
 nothing of JAX.
 """
 
@@ -31,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 # reductions, copies and casts).
 FAMILIES = (("flash_fwd", ("flash_fwd",)),
             ("flash_bwd", ("flash_bwd",)),
+            ("f32_matmul", ("sgemm", "simt", "f32f32_f32f32")),
             ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
             ("adamw", ("multi_tensor",)))
 
@@ -45,6 +48,8 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="llama2_7b",
+                    choices=["llama2_7b", "mixtral_8x7b"])
     ap.add_argument("--n-layers", type=int, default=8)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=4096)
@@ -58,8 +63,8 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mpi_operator_tpu_torch.models.llama import (llama2_7b,
-                                                     next_token_loss)
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.llama import next_token_loss
     from mpi_operator_tpu_torch.models.params import init_params
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
@@ -68,7 +73,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    cfg = dataclasses.replace(llama2_7b(), n_layers=args.n_layers)
+    cfg = dataclasses.replace(getattr(llama, args.config)(),
+                              n_layers=args.n_layers)
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         args.seed), device="cuda", dtype=cfg.param_dtype)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq_len),
@@ -108,7 +114,7 @@ def main() -> int:
                    e.count // args.steps) for e in kernels),
                  key=lambda k: -k[1])[:10]
     print(json.dumps({
-        "card": card, "model": "llama2_7b", "n_layers": cfg.n_layers,
+        "card": card, "model": args.config, "n_layers": cfg.n_layers,
         "batch": args.batch, "seq_len": args.seq_len,
         "wall_ms_per_step": wall * 1e3,
         "device_busy_ms_per_step": device_ms,
