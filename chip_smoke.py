@@ -103,7 +103,40 @@ continued:
                            latency, the logits' error
                            against the bf16 weights on one prompt
                            (checked below 0.2).
-             moe (5e)      mixtral_8x7b at full width (dim 4096, FFN
+             disagg (5e)   the bf16 7B again (32 layers, from SEED): a
+                           prefill replica and a decode replica,
+                           InferenceServer(role="prefill"/"decode", 8
+                           slots, page 16, kv_cache_blocks 512: 4 GiB of
+                           pool each).  For the serving prompts of 100,
+                           700 and 2000 tokens, each with its own
+                           trace_context: POST /prefill to the prefill
+                           replica, which ships the prompt's pages to the
+                           decode replica (POST /kv/pages), then a
+                           streamed /generate of 32 tokens on the decode
+                           replica, then the same /generate on the
+                           prefill replica over its own cached pages (the
+                           reference).  Checked per prompt: shipped ==
+                           imported == pages, 0 rejected; the decode
+                           replica's prefix hits rose by the pages; the
+                           prefill replica ran 0 decode steps and 0 K4'
+                           launches in its /prefill; K4' launches on the
+                           decode replica == its decode steps x 32; the
+                           decode stream == the reference, token for
+                           token.  Then: the decode replica's own export
+                           of the pages has the prefill replica's bytes;
+                           a /prefill that names its pages as present
+                           ships 0 and dedups all; the tracer holds each
+                           context's serve_queue_wait and prefill spans,
+                           parented to it; GET /debug-bundle writes every
+                           artifact its MANIFEST.json names, with the
+                           spans in flight.jsonl.  The same again in int8
+                           KV pools on the 700-token prompt.  Printed:
+                           pages, raw and wire bytes, the /prefill ms
+                           split into export, encode, push, the
+                           receiver's wire decoding and import, the
+                           handoff GB/s, TTFT of the decode replica
+                           beside the reference's, peak memory.
+             moe (5f)      mixtral_8x7b at full width (dim 4096, FFN
                            14336, 8 experts top-2, 8 kv heads: K4' at GQA
                            groups of 4), 16 of 32 layers (47.0 GB of bf16
                            weights; 32 would take 93.4), random weights
@@ -589,7 +622,185 @@ def serving_phase(card: str, model, model_name: str = "llama2_7b"):
             "peak_bytes": peak, "stats": stats}
 
 
-# -- phase 5e: MoE serving ---------------------------------------------------
+# -- phase 5e: disaggregated prefill/decode ----------------------------------
+
+DISAGG_PROMPT_LENS = (100, 700, 2000)     # of SERVE_PROMPT_LENS
+DISAGG_BLOCKS = 512                       # 4 GiB of bf16 pool per replica
+
+
+def page_bytes(pages):
+    """Raw KV bytes of exported pages (every pool leaf of every page)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for p in pages for leaf in p["leaves"].values())
+
+
+def disagg_run(card: str, model, prompts, kv: str):
+    """One prefill/decode replica pair (see the module docstring, 5e)
+    over ``prompts``, with pools of ``kv``; returns its stats and the
+    decode replica's K4' launches."""
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
+    from mpi_operator_tpu_torch.telemetry.trace import (TraceContext,
+                                                        default_tracer)
+
+    cfg = model.config
+    tracer = default_tracer()
+    common = dict(max_batch_slots=8, kv_page_size=16,
+                  kv_cache_blocks=DISAGG_BLOCKS, kv_cache_dtype=kv,
+                  model_name="llama2_7b", device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill = InferenceServer(model, role="prefill", **common).start()
+    decode = InferenceServer(model, role="decode", **common).start()
+    ptm, dtm = prefill.telemetry, decode.telemetry
+    rows, contexts, decode_launches = [], [], 0
+    try:
+        for prompt in prompts:
+            n = len(prompt)
+            digests = prefix_page_digests(prompt, 16)
+            ctx = TraceContext(f"req-disagg-{kv}-{n}", tracer.allocate_id())
+            contexts.append(ctx)
+            hit0 = decode.batcher_stats()["prefix"]["hit_blocks"]
+            launches0, steps0 = pa.LAUNCHES, ptm["dispatches_total"].value
+            t0 = time.perf_counter()
+            reply = post(prefill.url + "/prefill", {
+                "tokens": prompt, "trace_context": ctx.encode(),
+                "transfer": {"url": decode.url, "have": []}})
+            prefill_s = time.perf_counter() - t0
+            if pa.LAUNCHES != launches0 or \
+                    ptm["dispatches_total"].value != steps0:
+                raise SystemExit(
+                    f"disagg {kv} {n}: the prefill replica ran "
+                    f"{ptm['dispatches_total'].value - steps0} decode steps"
+                    f" and {pa.LAUNCHES - launches0} K4' launches")
+            if not (reply["shipped"] == reply["imported"] == len(digests)
+                    and reply["rejected"] == 0
+                    and reply["digests"] == digests):
+                raise SystemExit(f"disagg {kv} {n}: handoff {reply}")
+            launches0, steps0 = pa.LAUNCHES, dtm["dispatches_total"].value
+            events, ttft = read_sse(decode.url + "/generate", {
+                "tokens": [prompt], "max_new_tokens": SERVE_NEW_TOKENS,
+                "stream": True, "trace_context": ctx.encode()})
+            launches = pa.LAUNCHES - launches0
+            steps = dtm["dispatches_total"].value - steps0
+            decode_launches += launches
+            gained = decode.batcher_stats()["prefix"]["hit_blocks"] - hit0
+            ref_events, ref_ttft = read_sse(prefill.url + "/generate", {
+                "tokens": [prompt], "max_new_tokens": SERVE_NEW_TOKENS,
+                "stream": True})
+            got = [e["token"] for e in events if "token" in e]
+            want = [e["token"] for e in ref_events if "token" in e]
+            if gained != len(digests):
+                raise SystemExit(f"disagg {kv} {n}: the decode replica hit "
+                                 f"{gained} cached pages, expected "
+                                 f"{len(digests)} (self-prefill fallback?)")
+            if launches != steps * cfg.n_layers or launches == 0:
+                raise SystemExit(f"disagg {kv} {n}: K4' launches {launches}"
+                                 f" != decode steps {steps} x "
+                                 f"{cfg.n_layers}")
+            if len(got) != SERVE_NEW_TOKENS or got != want:
+                raise SystemExit(f"disagg {kv} {n}: decode stream {got} != "
+                                 f"reference {want}")
+            sec = reply["seconds"]
+            handoff = sec["export"] + sec["encode"] + sec["push"]
+            rows.append({
+                "prompt_len": n, "pages": len(digests),
+                "wire_bytes": reply["bytes"],
+                "prefill_ms": prefill_s * 1e3,
+                "export_ms": sec["export"] * 1e3,
+                "encode_ms": sec["encode"] * 1e3,
+                "push_ms": sec["push"] * 1e3,
+                "receiver_wire_decode_ms": sec["wire_decode"] * 1e3,
+                "receiver_import_ms": sec["import"] * 1e3,
+                "handoff_ms": handoff * 1e3,
+                "decode_ttft_s": ttft, "reference_ttft_s": ref_ttft,
+                "decode_steps": steps, "k4_launches": launches})
+
+        # Byte integrity: the decode replica's pool holds what was sent.
+        raw = 0
+        for prompt, row in zip(prompts, rows):
+            digests = prefix_page_digests(prompt, 16)
+            sent = prefill._batcher.export_kv_pages(digests)
+            held = decode._batcher.export_kv_pages(digests)
+            if [p["digest"] for p in held] != digests or any(
+                    not torch.equal(a["leaves"][k].view(torch.uint8),
+                                    b["leaves"][k].view(torch.uint8))
+                    for a, b in zip(sent, held) for k in a["leaves"]):
+                raise SystemExit(f"disagg {kv}: the decode replica's pages "
+                                 f"of the {len(prompt)}-token prompt differ "
+                                 f"from the prefill replica's")
+            row["raw_kv_bytes"] = page_bytes(sent)
+            row["handoff_gb_per_s"] = (row["raw_kv_bytes"]
+                                       / row["handoff_ms"] / 1e6)
+            raw += row["raw_kv_bytes"]
+        # Dedup: pages the destination names as present are not sent.
+        digests = prefix_page_digests(prompts[0], 16)
+        again = post(prefill.url + "/prefill", {
+            "tokens": prompts[0],
+            "transfer": {"url": decode.url, "have": digests}})
+        if again["shipped"] != 0 or again["deduped"] != len(digests):
+            raise SystemExit(f"disagg {kv}: re-ship was not pure dedup: "
+                             f"{again}")
+        # Spans: one serve_queue_wait and one prefill per replica request.
+        events = tracer.events()
+        for ctx in contexts:
+            names = sorted(e["name"] for e in events
+                           if e.get("trace_id") == ctx.trace_id
+                           and e.get("parent_id") == ctx.span_id)
+            if names != ["prefill", "prefill", "serve_queue_wait",
+                         "serve_queue_wait"]:
+                raise SystemExit(f"disagg {kv}: spans of {ctx.trace_id}: "
+                                 f"{names}")
+        bundle = json.loads(get(decode.url + "/debug-bundle"))["bundle"]
+        with open(os.path.join(bundle, "MANIFEST.json")) as f:
+            artifacts = json.load(f)["artifacts"]
+        missing = [a for a in artifacts
+                   if not os.path.isfile(os.path.join(bundle, a))]
+        with open(os.path.join(bundle, "flight.jsonl")) as f:
+            ring = [json.loads(line) for line in f]
+        in_ring = {r["data"].get("trace_id") for r in ring
+                   if r["kind"] == "span"
+                   and r["data"]["name"] in ("prefill", "serve_queue_wait")}
+        if missing or not {c.trace_id for c in contexts} <= in_ring:
+            raise SystemExit(f"disagg {kv}: bundle {bundle} lacks "
+                             f"{missing} or the serving spans")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        prefill.stop()
+        decode.stop()
+    stats = {"card": card, "model": "llama2_7b", "n_layers": cfg.n_layers,
+             "kv_cache_dtype": kv, "slots": 8, "page_size": 16,
+             "kv_cache_blocks": DISAGG_BLOCKS, "prompts": rows,
+             "raw_kv_bytes": raw,
+             "wire_bytes": sum(r["wire_bytes"] for r in rows),
+             "pages": sum(r["pages"] for r in rows),
+             "handoff_gb_per_s": raw / sum(r["handoff_ms"] for r in rows)
+             / 1e6,
+             "bundle_artifacts": artifacts,
+             "max_memory_allocated_bytes": peak}
+    return stats, decode_launches
+
+
+def disagg_phase(card: str, model, serve):
+    """Phase 5e: the bf16 pools over the three prompts, then int8 pools
+    over the 700-token prompt (K4''s int8-pool path inside a model)."""
+    from mpi_operator_tpu_torch.telemetry import flight
+
+    os.environ.setdefault(flight.DEBUG_DIR_ENV,
+                          os.path.join(HERE, "build", "debug-bundles"))
+    by_len = dict(zip(SERVE_PROMPT_LENS, serve["prompts"]))
+    bf16, launches = disagg_run(card, model,
+                                [by_len[n] for n in DISAGG_PROMPT_LENS],
+                                "auto")
+    int8, int8_launches = disagg_run(card, model, [by_len[700]], "int8")
+    print("disagg: " + json.dumps({"bf16_pools": bf16, "int8_pools": int8}),
+          flush=True)
+    return {"launches": launches, "int8_launches": int8_launches}
+
+
+# -- phase 5f: MoE serving ---------------------------------------------------
 
 MOE_SERVE_LAYERS = 16        # of 32: 47.0 GB of bf16 weights (93.4 at 32)
 
@@ -1943,6 +2154,11 @@ def main() -> int:
     del qmodel
     gc.collect()
     torch.cuda.empty_cache()
+    model = serving_model()         # the bf16 7B again, from SEED
+    disagg = disagg_phase(card, model, serve)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_serve = moe_serving_phase(card)
     flash_launches, losses = training_phase(card)
     training_repeat_phase(card, losses)
@@ -1968,6 +2184,8 @@ def main() -> int:
                 spec["prompt_lookup"]["paged_attention_launches"],
             "chunked_prefill": chunked["paged_attention_launches"],
             "int8_weights": int8["paged_attention_launches"],
+            "disagg_decode": disagg["launches"],
+            "disagg_decode_int8_pool": disagg["int8_launches"],
             "moe_serving": moe_serve["launches"]},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},

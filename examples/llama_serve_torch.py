@@ -24,6 +24,14 @@ loaded from a HuggingFace Llama, Mistral or Mixtral checkpoint
     # an HF checkpoint directory (Llama, Mistral or Mixtral):
     python examples/llama_serve_torch.py --hf /path/to/checkpoint --demo
 
+    # a disaggregated pair (same --seed, so the same weights): a decode
+    # replica, a prefill replica, then prefill on one, decode on the other
+    python examples/llama_serve_torch.py --role decode --port 8081 &
+    python examples/llama_serve_torch.py --role prefill --port 8080 &
+    curl -s localhost:8080/prefill -d '{"tokens": [1,2,3,...],
+      "transfer": {"url": "http://127.0.0.1:8081", "have": []}}'
+    curl -s localhost:8081/generate -d '{"tokens": [[1,2,3,...]]}'
+
     # then:
     curl -s localhost:8080/generate -d \
       '{"tokens": [[1,2,3]], "max_new_tokens": 16, "eos_token_id": 2}'
@@ -97,6 +105,10 @@ def main() -> int:
                     help="paged KV block size (with --slots > 0)")
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=["auto", "int8"])
+    ap.add_argument("--role", default="unified",
+                    choices=["unified", "prefill", "decode"],
+                    help="disaggregated serving role (advertised at "
+                         "/fleet-state; needs --slots > 0)")
     ap.add_argument("--weight-dtype", default="auto",
                     choices=["auto", "int8"],
                     help="int8: weight-only int8 matmul weights")
@@ -136,11 +148,13 @@ def main() -> int:
     server = InferenceServer(
         model, host=args.host, port=args.port, max_batch_slots=args.slots,
         kv_page_size=page, kv_cache_dtype=args.kv_cache_dtype,
+        role=args.role, model_name=args.hf or args.config,
         draft_model=draft, draft_strategy=strategy,
         draft_len=args.draft_len, kv_prefill_chunk=args.prefill_chunk,
         device=model.device).start()
     print(f"serving on {server.url}  (config={args.hf or args.config}, "
-          f"device={model.device}, slots={args.slots}, page={page}, "
+          f"device={model.device}, role={args.role}, "
+          f"slots={args.slots}, page={page}, "
           f"kv={args.kv_cache_dtype}, weights={args.weight_dtype}, "
           f"prefill_chunk={args.prefill_chunk}, "
           f"draft={args.draft_strategy or 'off'})", flush=True)

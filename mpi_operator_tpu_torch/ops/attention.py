@@ -39,9 +39,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
-def _queue3(what: str) -> NotImplementedError:
+def _multi_gpu(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 3 (multi-GPU "
+        f"{what} is not ported yet: ROADMAP.md queue 1 item 3 (multi-GPU "
         f"parallelism)")
 
 
@@ -341,7 +341,7 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
     only) takes the plain version on every device: like the JAX package,
     there is no banded kernel, and an explicit 'pallas' is refused."""
     if mesh is not None:
-        raise _queue3("attention over a device mesh (mesh=)")
+        raise _multi_gpu("attention over a device mesh (mesh=)")
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', got "
                          f"{impl!r}")

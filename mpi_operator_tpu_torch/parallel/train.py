@@ -6,13 +6,14 @@ its jitted step returns new ones.  Here the state holds the model and a
 ``torch.optim`` optimizer, and the step updates both in place (one copy
 of the weights and moments, not two).  Sharded training (``mesh``,
 ``param_specs``, ``shard_update``, ``hierarchical_allreduce``) waits for
-ROADMAP.md queue 3.
+ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -20,9 +21,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 
-def _queue3(what: str) -> NotImplementedError:
+def _multi_gpu(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 3 (multi-GPU "
+        f"{what} is not ported yet: ROADMAP.md queue 1 item 3 (multi-GPU "
         f"parallelism)")
 
 
@@ -91,9 +92,9 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
     metrics) with ``loss`` and ``grad_norm`` (of the gradients before the
     update) as f32 device scalars, read by nobody unless asked."""
     if mesh is not None or param_specs is not None:
-        raise _queue3("sharded training (mesh=, param_specs=)")
+        raise _multi_gpu("sharded training (mesh=, param_specs=)")
     if shard_update or hierarchical_allreduce:
-        raise _queue3("shard_update / hierarchical_allreduce")
+        raise _multi_gpu("shard_update / hierarchical_allreduce")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     run_loss = loss_fn
@@ -205,6 +206,22 @@ def resize_requested(path: Optional[str] = None) -> Optional[int]:
         return None
 
 
+def _first_step_span(t0: float, metrics, step: int) -> None:
+    """Causal-trace terminal milestone: the first step of this
+    incarnation, parented to the job context in the worker's env.  The
+    step is asynchronous on the card (``step_fn`` returns once it is
+    queued), so the span closes when the step's metrics have reached the
+    host, not at the enqueue."""
+    from ..telemetry.goodput import _block
+    from ..telemetry.trace import default_tracer, env_context
+    ctx = env_context()
+    if ctx is None:
+        return
+    _block(metrics)
+    default_tracer().emit("first_step", ts=t0, dur=time.time() - t0,
+                          ctx=ctx, step=step)
+
+
 class _NoticePoller:
     """At most one stat of the notice file per step, none once seen."""
 
@@ -268,8 +285,19 @@ def run_train_loop(state, step_fn, batches, checkpoint_manager=None,
                 drain_checkpoints()
             except Exception as exc:
                 ckpt_error = exc
-        # The flight-recorder record and bundle of the JAX loop are not
-        # ported yet (ROADMAP.md queue 1 item 2.6).
+        # Black-box the exit: record the preemption on the flight ring,
+        # export it as a sidecar (so the control plane's bundle gets a
+        # train lane), and dump this process's own bundle; SystemExit
+        # never reaches sys.excepthook, so this is the only chance.
+        from ..telemetry import flight
+        flight.record("train", "preemption", step=step,
+                      checkpointed=(checkpoint_manager is not None
+                                    and ckpt_error is None),
+                      checkpoint_error=(repr(ckpt_error)
+                                        if ckpt_error is not None else None),
+                      exit_code=PREEMPTION_EXIT_CODE)
+        flight.export_sidecar()
+        flight.dump_bundle("train-preemption")
         if exit_on_preemption:
             raise SystemExit(PREEMPTION_EXIT_CODE)
 
@@ -289,10 +317,13 @@ def run_train_loop(state, step_fn, batches, checkpoint_manager=None,
         for batch in source:
             if max_steps is not None and step >= max_steps:
                 break
+            first = step == start_step
+            if first:
+                first_t0 = time.time()
             state, metrics = step_fn(state, batch)
             step += 1
-            # The causal-trace "first_step" milestone is not ported yet
-            # (ROADMAP.md queue 1 item 2.6).
+            if first:
+                _first_step_span(first_t0, metrics, step)
             if on_metrics is not None:
                 on_metrics(step, metrics)
             saved = False

@@ -51,7 +51,13 @@ uncached suffix) runs through batch-1 paged forwards of at most
 ``prefill_chunk`` tokens that write the slot's blocks in place, so the
 peak activation memory of an admission is that of one chunk.
 
-Not in this slice: KV-page export/import (disaggregated serving).
+Disaggregated serving (serving/kv_transfer.py): ``export_kv_pages``
+copies registered prompt pages out of the pool to the host, and
+``import_kv_pages`` installs pages another replica exported, verified
+against their chain digests, as cached blocks.  A request that carries
+a causal-trace context emits its ``serve_queue_wait`` and ``prefill``
+spans at its first token, and a fatal scheduler error leaves a
+``batcher-fatal`` flight bundle behind.
 """
 
 from __future__ import annotations
@@ -72,10 +78,24 @@ import torch
 from ..device import resolve_device
 from ..models.llama import (_set_block_tables, _set_cache_index, init_cache,
                             quantize_kv, select_rows)
+from ..telemetry import flight
 from ..telemetry.metrics import Registry, new_serving_metrics
+from ..telemetry.trace import default_tracer
 from .drafts import DRAFT_STRATEGIES, propose_prompt_lookup
 
 log = logging.getLogger(__name__)
+
+# KV export and import move pages in waves.  An export wave (on a
+# prefill replica, where nothing competes for the card) gathers up to
+# one push batch of pages (MAX_PAGES_PER_PUSH in serving/kv_transfer.py)
+# in one index_select per pool leaf and one device-to-host copy.  Import
+# waves land on DECODE replicas with live streams, so they are narrow:
+# the device lock is released between waves and decode steps interleave,
+# bounding a decode stall to one narrow scatter.  Unlike the JAX
+# package, waves are not padded to these widths: that padding only
+# bounds XLA recompiles.
+_EXPORT_WAVE_WIDTH = 64
+_IMPORT_WAVE_WIDTH = 8
 
 
 def _page_digest(parent_hex: str, page) -> str:
@@ -138,6 +158,12 @@ class _WaitQueue:
                 self._cond.wait(timeout)
             return bool(self._items)
 
+    def poke(self) -> None:
+        """Wake an idle ``wait_nonempty`` without enqueuing anything, so
+        out-of-band scheduler work (KV-page imports) runs at once."""
+        with self._cond:
+            self._cond.notify_all()
+
 
 @dataclass
 class _Request:
@@ -159,6 +185,12 @@ class _Request:
     submitted_at: float = 0.0
     _last_emit: float = 0.0
     was_deferred: bool = False
+    # Causal tracing: the carried context, the wall-clock submit time and
+    # the perf_counter admission mark, so the first token emits the
+    # replica-side queue-wait and prefill spans retroactively.
+    trace_ctx: Optional[object] = None
+    submitted_wall: float = 0.0
+    admitted_at: float = 0.0
 
     def emit(self, token: int) -> None:
         if self.metrics is not None:
@@ -166,6 +198,8 @@ class _Request:
             if not self.output and self.submitted_at:
                 self.metrics["ttft_seconds"].observe(
                     now - self.submitted_at)
+                if self.trace_ctx is not None:
+                    self._trace_first_token(now)
             elif self.output and self._last_emit:
                 self.metrics["token_latency_seconds"].observe(
                     now - self._last_emit)
@@ -173,6 +207,21 @@ class _Request:
         self.output.append(token)
         if self.on_token is not None:
             self.on_token(token)
+
+    def _trace_first_token(self, now: float) -> None:
+        """Replica-side spans of the request's causal trace, emitted once
+        at the first token: submit -> admission (``serve_queue_wait``)
+        and admission -> first token (``prefill``), both parented to the
+        carried context."""
+        admitted = self.admitted_at or self.submitted_at
+        queue_wait = max(0.0, admitted - self.submitted_at)
+        tracer = default_tracer()
+        tracer.emit("serve_queue_wait", ts=self.submitted_wall,
+                    dur=queue_wait, ctx=self.trace_ctx,
+                    deferred=self.was_deferred)
+        tracer.emit("prefill", ts=self.submitted_wall + queue_wait,
+                    dur=max(0.0, now - admitted), ctx=self.trace_ctx,
+                    prompt_tokens=len(self.tokens))
 
     @property
     def finished(self) -> bool:
@@ -269,6 +318,11 @@ class ContinuousBatcher:
             self._retire_count = 0
             self.prefix_stats = {"lookups": 0, "hit_blocks": 0,
                                  "hit_tokens": 0, "evicted": 0}
+            # Transferred KV pages wait here until the scheduler thread
+            # installs them: all pool and registry mutation stays on that
+            # thread, as admission's does.
+            self._kv_imports: deque = deque()
+            self._kv_imports_lock = threading.Lock()
         else:
             decode_cfg = cfg
         with torch.inference_mode():
@@ -544,6 +598,207 @@ class ContinuousBatcher:
                 continue
         return len(self._free_blocks)
 
+    # -- KV-page transfer (disaggregated serving) ---------------------------
+    def _pool_leaves(self) -> List[tuple]:
+        """(wire path, tensor) of every pool_* leaf, in cache order; the
+        paths are the JAX cache tree's (``layers_<i>/attention/pool_key``
+        and ``pool_value``, plus ``*_scale`` for int8 pools)."""
+        return [(f"{name}/attention/{leaf}", tensor)
+                for name, node in self._cache.items()
+                for leaf, tensor in node["attention"].items()
+                if leaf.startswith("pool_")]
+
+    def export_kv_pages(self, digests: List[str]) -> List[dict]:
+        """Snapshot the requested prefix-cache pages for transfer to a
+        decode replica: for each chain digest this replica has
+        registered, the page's tokens, its parent digest and its raw pool
+        K/V leaves as host tensors.
+
+        Safe from HTTP threads while the scheduler ticks.  Each wave of
+        blocks is gathered with one ``index_select`` per leaf under the
+        device lock, on the stream the scheduler writes the pool on, and
+        copied to the host in ONE copy.  A block that was evicted and
+        reused before the gather changes or loses its digest before the
+        copy returns, so each block's digest is checked again after the
+        copy and a changed one is dropped (best-effort protocol: a
+        missing page just means the importer prefills that span)."""
+        if self.page_size <= 0:
+            raise ValueError(
+                "export_kv_pages requires the paged KV cache "
+                "(page_size > 0)")
+        by_digest: dict = {}
+        for _ in range(8):
+            try:
+                by_digest = {d: b
+                             for b, d in list(self._block_digest.items())}
+                break
+            except RuntimeError:
+                continue
+        entries: List[tuple] = []  # (digest, blk, parent, tokens)
+        for digest in digests:
+            blk = by_digest.get(digest)
+            meta = self._block_meta.get(blk) if blk is not None else None
+            if meta is None:
+                continue
+            parent_blk = meta["parent"]
+            parent = ("" if parent_blk is None
+                      else self._block_digest.get(parent_blk, ""))
+            entries.append((digest, blk, parent,
+                            [int(t) for t in meta["key"][1]]))
+        # Wider elements first, so every leaf's bytes start aligned to its
+        # element size inside the one flat host buffer of a wave.
+        leaves = sorted(self._pool_leaves(),
+                        key=lambda pl: -pl[1].element_size())
+        pages: List[dict] = []
+        for off in range(0, len(entries), _EXPORT_WAVE_WIDTH):
+            wave = entries[off:off + _EXPORT_WAVE_WIDTH]
+            with torch.inference_mode():
+                idx = self._tensor([e[1] for e in wave], torch.long)
+                with self._device_lock:
+                    rows = [leaf.index_select(0, idx) for _, leaf in leaves]
+                    flat = torch.cat([r.reshape(-1).view(torch.uint8)
+                                      for r in rows])
+                host = flat.cpu()
+            split = {}
+            pos = 0
+            for (path, _), r in zip(leaves, rows):
+                n = r.numel() * r.element_size()
+                split[path] = host[pos:pos + n].view(r.dtype).view(r.shape)
+                pos += n
+            for i, (digest, blk, parent, tokens) in enumerate(wave):
+                if self._block_digest.get(blk) != digest:
+                    continue  # evicted and reused mid-gather: drop
+                pages.append({"digest": digest, "parent": parent,
+                              "tokens": tokens,
+                              "leaves": {path: split[path][i]
+                                         for path, _ in leaves}})
+                self.telemetry["kv_pages_exported"].inc()
+        return pages
+
+    def import_kv_pages(self, pages: List[dict],
+                        timeout: float = 30.0) -> dict:
+        """Install transferred KV pages into this replica's pool and
+        prefix registry (decode-replica side).  Called from HTTP threads:
+        the pages are queued for the scheduler thread, the only thread
+        that mutates the pool, which is woken at once; this call blocks
+        until that import completes.  Returns per-page accounting
+        ``{"imported", "deduped", "rejected"}``."""
+        if self.page_size <= 0:
+            raise ValueError(
+                "import_kv_pages requires the paged KV cache "
+                "(page_size > 0)")
+        if self._stop.is_set():
+            raise self._shutdown_error()
+        result = {"imported": 0, "deduped": 0, "rejected": 0}
+        done = threading.Event()
+        with self._kv_imports_lock:
+            self._kv_imports.append((pages, result, done))
+        self._queue.poke()
+        if not done.wait(timeout):
+            raise TimeoutError("KV-page import timed out")
+        if self._stop.is_set() and self.fatal_error is not None:
+            raise self._shutdown_error()
+        return result
+
+    def _drain_kv_imports(self) -> None:
+        """Scheduler thread: install every queued import.  Pages arrive
+        parent-first; each is digest-verified and registered like a
+        locally prefilled block at refcount 0 (a retired prompt's
+        blocks), then the staged blocks' data lands in place, one
+        ``index_copy_`` per pool leaf per wave.  Staged blocks are
+        unreadable until then: prefix matching runs on this thread,
+        after this method returns.  A page whose parent is missing or
+        whose digest or shape does not verify is rejected (its
+        descendants are too), and pool exhaustion rejects rather than
+        taking blocks from live slots.  A failure inside the scatter
+        leaves the pool half-written, so it is fatal to the batcher."""
+        while True:
+            with self._kv_imports_lock:
+                if not self._kv_imports:
+                    return
+                pages, result, done = self._kv_imports.popleft()
+            protected: set = set()
+            staged: List[tuple] = []  # (blk, leaves dict)
+            try:
+                shapes = {path: tuple(leaf.shape[1:])
+                          for path, leaf in self._pool_leaves()}
+                for page in pages:
+                    verdict, blk = self._stage_import(page, protected,
+                                                      shapes)
+                    result[verdict] += 1
+                    if verdict == "imported":
+                        staged.append((blk, page["leaves"]))
+                        self.telemetry["kv_pages_imported"].inc()
+                self._scatter_staged(staged)
+            except Exception as exc:
+                self._tick_fatal(exc, "kv-import")
+                return
+            finally:
+                done.set()
+
+    def _reject(self, reason: str) -> tuple:
+        self.telemetry["kv_import_rejected"].labels(reason).inc()
+        return "rejected", None
+
+    def _stage_import(self, page: dict, protected: set,
+                      shapes: dict) -> tuple:
+        """Verify one transferred page and claim a pool block for it.
+        Returns ``(verdict, blk)``; on "imported" the block is
+        REGISTERED (later pages of the import chain through it) but its
+        data is not in the pool yet: the caller scatters every staged
+        block before the scheduler does anything else."""
+        tokens = [int(t) for t in page.get("tokens", ())]
+        digest = page.get("digest", "")
+        parent_digest = page.get("parent", "")
+        if (len(tokens) != self.page_size
+                or _page_digest(parent_digest, tokens) != digest):
+            return self._reject("digest_mismatch")
+        # Root pages have parent ""; others chain through a block already
+        # registered here (shipped parent-first, or cached locally).
+        parent_blk: Optional[int] = None
+        if parent_digest:
+            parent_blk = next((b for b, d in self._block_digest.items()
+                               if d == parent_digest), None)
+            if parent_blk is None:
+                return self._reject("missing_parent")
+        key = (parent_blk, tuple(tokens))
+        if key in self._registry or digest in self._block_digest.values():
+            return "deduped", None
+        leaves = page.get("leaves", {})
+        for path, shape in shapes.items():
+            arr = leaves.get(path)
+            if arr is None or tuple(np.shape(arr)) != shape:
+                return self._reject("shape")
+        if not self._free_blocks and not self._evict_one(protected):
+            return self._reject("pool_exhausted")
+        blk = self._free_blocks.pop()
+        self._prefix_clock += 1
+        self._registry[key] = blk
+        self._block_meta[blk] = {"key": key, "refs": 0,
+                                 "last": self._prefix_clock,
+                                 "parent": parent_blk, "children": set()}
+        self._block_digest[blk] = digest
+        if parent_blk is not None and parent_blk in self._block_meta:
+            self._block_meta[parent_blk]["children"].add(blk)
+        protected.add(blk)
+        return "imported", blk
+
+    def _scatter_staged(self, staged: List[tuple]) -> None:
+        """Land an import's K/V data in place: per wave of
+        ``_IMPORT_WAVE_WIDTH`` blocks, one host-to-device copy and one
+        ``index_copy_`` per pool leaf, each leaf cast to the pool's dtype,
+        under the device lock (released between waves)."""
+        leaves = self._pool_leaves()
+        for off in range(0, len(staged), _IMPORT_WAVE_WIDTH):
+            wave = staged[off:off + _IMPORT_WAVE_WIDTH]
+            idx = self._tensor([blk for blk, _ in wave], torch.long)
+            with self._device_lock:
+                for path, leaf in leaves:
+                    rows = torch.stack([torch.as_tensor(lv[path])
+                                        for _, lv in wave])
+                    leaf.index_copy_(0, idx, rows.to(self.device,
+                                                      leaf.dtype))
+
     def _retire_slot(self, slot: int) -> None:
         """Drop the slot's block references and point its table row back
         at scratch block 0, so the still-ticking inactive row cannot
@@ -794,7 +1049,8 @@ class ContinuousBatcher:
         return self.draft_len + 1
 
     def _enqueue(self, tokens, max_new_tokens, temperature, top_p, seed,
-                 on_token=None, stop_tokens=(), top_k=0) -> _Request:
+                 on_token=None, stop_tokens=(), top_k=0,
+                 trace_ctx=None) -> _Request:
         headroom = self._headroom(float(temperature))
         if len(tokens) + max_new_tokens + headroom > self._max_seq_len:
             raise ValueError(
@@ -820,7 +1076,8 @@ class ContinuousBatcher:
                        on_token=on_token,
                        stop_tokens=frozenset(map(int, stop_tokens)),
                        metrics=self.telemetry,
-                       submitted_at=time.perf_counter())
+                       submitted_at=time.perf_counter(),
+                       trace_ctx=trace_ctx, submitted_wall=time.time())
         self._queue.put(req)
         # The scheduler may have stopped and drained between the check
         # above and this put: re-check and fail the request here.
@@ -834,11 +1091,13 @@ class ContinuousBatcher:
     def submit(self, tokens: List[int], max_new_tokens: int,
                timeout: float = 300.0, temperature: float = 0.0,
                top_p: float = 1.0, seed: Optional[int] = None,
-               stop_tokens=(), top_k: int = 0) -> List[int]:
+               stop_tokens=(), top_k: int = 0,
+               trace_ctx=None) -> List[int]:
         if max_new_tokens <= 0:
             return []
         req = self._enqueue(tokens, max_new_tokens, temperature, top_p,
-                            seed, stop_tokens=stop_tokens, top_k=top_k)
+                            seed, stop_tokens=stop_tokens, top_k=top_k,
+                            trace_ctx=trace_ctx)
         if not req.done.wait(timeout):
             raise TimeoutError("generation timed out")
         if req.error is not None:
@@ -848,7 +1107,7 @@ class ContinuousBatcher:
     def submit_iter(self, tokens: List[int], max_new_tokens: int,
                     timeout: float = 300.0, temperature: float = 0.0,
                     top_p: float = 1.0, seed: Optional[int] = None,
-                    stop_tokens=(), top_k: int = 0):
+                    stop_tokens=(), top_k: int = 0, trace_ctx=None):
         """Streaming submit: yields each generated id as the batcher
         produces it."""
         if max_new_tokens <= 0:
@@ -857,7 +1116,8 @@ class ContinuousBatcher:
         out: "queue.Queue" = queue.Queue()
         req = self._enqueue(tokens, max_new_tokens, temperature, top_p,
                             seed, on_token=out.put,
-                            stop_tokens=stop_tokens, top_k=top_k)
+                            stop_tokens=stop_tokens, top_k=top_k,
+                            trace_ctx=trace_ctx)
         threading.Thread(
             target=lambda: (req.done.wait(timeout), out.put(sentinel)),
             daemon=True).start()
@@ -918,8 +1178,8 @@ class ContinuousBatcher:
         if self.fatal_error is not None:
             return RuntimeError(
                 f"batcher failed fatally during "
-                f"{self._fatal_phase or 'admission'}: "
-                f"{self.fatal_error!r}")
+                f"{self._fatal_phase or 'admission'} (see the "
+                f"batcher-fatal debug bundle): {self.fatal_error!r}")
         return RuntimeError("batcher stopped")
 
     def start(self) -> "ContinuousBatcher":
@@ -936,14 +1196,25 @@ class ContinuousBatcher:
     # -- scheduler loop ----------------------------------------------------
     def _tick_fatal(self, exc: BaseException, phase: str) -> None:
         """The scheduler cannot continue (a device error mid-launch or
-        mid-fetch, a failed in-place prefill, a streaming callback
-        blowing up): fail the whole batcher loudly."""
+        mid-fetch, a failed KV import, a streaming callback blowing
+        up): fail the whole batcher loudly, black-box bundle FIRST, so
+        the evidence is on disk when submit() raises."""
         self.fatal_error = exc
         self._fatal_phase = phase
         self._stop.set()
         log.error("batcher failed fatally during %s (dispatched %d, "
                   "fetched %d ticks)", phase, self.ticks_dispatched,
                   self.ticks_fetched, exc_info=exc)
+        flight.record(
+            "serving", "fatal_error", phase=phase,
+            error=f"{type(exc).__name__}: {exc}",
+            queue_depth=self._queue.qsize(),
+            pipeline_depth=self.ticks_dispatched - self.ticks_fetched,
+            last_dispatched_tick=self.ticks_dispatched,
+            last_fetched_tick=self.ticks_fetched)
+        flight.dump_bundle("batcher-fatal",
+                           registry=self.telemetry["registry"],
+                           once_key=f"batcher-fatal-{id(self)}")
 
     def _loop(self) -> None:
         with torch.inference_mode():
@@ -1025,6 +1296,13 @@ class ContinuousBatcher:
                     self._retire_slot(i)
 
         while not self._stop.is_set():
+            # Transferred KV pages install before this turn's admissions,
+            # so a /generate that raced its own page push still hits the
+            # prefix cache.
+            if self.page_size > 0 and self._kv_imports:
+                self._drain_kv_imports()
+                if self._stop.is_set():
+                    break
             # Pipelined launch-ahead: queue step k+1 from step k's
             # on-device tokens BEFORE reading step k.
             try:
@@ -1077,9 +1355,10 @@ class ContinuousBatcher:
                     deferred_mark = self._retire_count
                     req.was_deferred = True
                     break
+                req.admitted_at = time.perf_counter()
                 tm["queue_wait_seconds"].labels(
                     "deferred" if req.was_deferred else "direct").observe(
-                        time.perf_counter() - req.submitted_at)
+                        req.admitted_at - req.submitted_at)
                 try:
                     gen = None
                     if req.temperature > 0.0:
@@ -1189,6 +1468,12 @@ class ContinuousBatcher:
         if deferred is not None:
             deferred.error = self._shutdown_error()
             deferred.done.set()
+        if self.page_size > 0:
+            # Unblock importers waiting on a dead scheduler
+            # (import_kv_pages re-checks the fatal state after the event).
+            with self._kv_imports_lock:
+                while self._kv_imports:
+                    self._kv_imports.popleft()[2].set()
         while True:
             try:
                 req = self._queue.get_nowait()

@@ -11,8 +11,20 @@ Counterpart of ``mpi_operator_tpu/serving/server.py``:
     GET /healthz
     GET /metrics      -> Prometheus text (serving registry + process
       default registry)
-    GET /fleet-state  -> queue depth, slots and the prefix-cache digest
-      index
+    GET /fleet-state  -> queue depth, slots, the prefix-cache digest
+      index, role, model and free pool blocks
+    GET /debug-bundle -> {"bundle": path}: a flight-recorder bundle of
+      this process, dumped on demand
+    POST /prefill {"tokens": [...], "transfer": {"url": ..., "have": [...]},
+                   "trace_context": ...}
+      -> {"digests": [...], "shipped", "deduped", "imported", "rejected",
+          "bytes", "seconds"}: the prefill stage of a disaggregated
+      request, its pages pushed to the decode replica at ``url``
+    POST /kv/pages {"pages": [...]} -> {"imported", "deduped", "rejected"}:
+      install pages another replica pushed (serving/kv_transfer.py)
+
+A ``trace_context`` on /generate or /prefill (``"<trace_id>:<span_id>"``)
+parents the replica's ``serve_queue_wait`` and ``prefill`` spans.
 
 With ``max_batch_slots > 0`` single-sequence requests share decode ticks
 through the continuous batcher (paged with ``kv_page_size > 0``, chunked
@@ -22,11 +34,9 @@ is off, go through ``generate()`` on the dense cache, or through
 ``speculative_generate`` for greedy requests when a draft model is set.
 ``weight_dtype="int8"`` quantizes the model's matmul weights up front.
 The card is a serial resource behind one device lock shared with the
-batcher.
-
-Not in this slice: ``/prefill``, ``/kv/pages`` and ``/debug-bundle``
-(501), ``mesh=``, ``role != "unified"`` and causal-trace contexts — each
-raises, or answers 501, where it is asked for.
+batcher.  ``role`` ("unified", "prefill" or "decode") only changes what
+the replica advertises at /fleet-state: either role serves either verb.
+Not ported yet: tensor-parallel serving (``mesh=`` raises).
 """
 
 from __future__ import annotations
@@ -42,11 +52,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..telemetry import flight
 from ..telemetry.metrics import (Registry, expose_with_defaults,
                                  new_serving_metrics, record_build_info)
-
-_LEFT_OUT = ("is not ported yet (ROADMAP.md, queue 1, modules left out "
-             "of the serving slice)")
+from ..telemetry.trace import TraceContext
 
 # Sliding-window attention takes the materialized-score path, so an
 # S-token prefill allocates an O(S^2) f32 score matrix; past this prompt
@@ -102,22 +111,31 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/fleet-state":
             self._respond(200, server.fleet_state())
         elif self.path == "/debug-bundle":
-            self._respond(501, {"error": f"/debug-bundle {_LEFT_OUT}"})
+            # On-demand black box: freeze the flight ring and the metrics
+            # of a live server without stopping it.
+            path = flight.dump_bundle(
+                "serving-on-demand", registry=server.telemetry_registry)
+            if path is None:
+                self._respond(500, {"error": "bundle dump failed"})
+            else:
+                self._respond(200, {"bundle": path})
         else:
             self._respond(404, {"error": "not found"})
 
+    def _read_json(self) -> dict:
+        length = int(self.headers.get("Content-Length", "0"))
+        return json.loads(self.rfile.read(length))
+
     def do_POST(self):
-        if self.path in ("/prefill", "/kv/pages"):
-            return self._respond(501, {"error": f"{self.path} {_LEFT_OUT}"})
+        if self.path == "/prefill":
+            return self._prefill()
+        if self.path == "/kv/pages":
+            return self._kv_pages()
         if self.path != "/generate":
             return self._respond(404, {"error": "not found"})
         server: "InferenceServer" = self.server.inference  # type: ignore
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            req = json.loads(self.rfile.read(length))
-            if req.get("trace_context") is not None:
-                return self._respond(
-                    501, {"error": f"causal-trace contexts {_LEFT_OUT}"})
+            req = self._read_json()
             tokens = req["tokens"]
             stop = req.get("stop") or []  # null = unset
             if req.get("eos_token_id") is not None:
@@ -128,11 +146,53 @@ class _Handler(BaseHTTPRequestHandler):
                 top_p=float(req.get("top_p", 1.0)),
                 top_k=int(req.get("top_k") or 0),
                 seed=req.get("seed"),
-                stop_tokens=tuple(map(int, stop)))
+                stop_tokens=tuple(map(int, stop)),
+                trace_ctx=TraceContext.decode(req.get("trace_context")))
             if req.get("stream"):
                 return self._stream(server, tokens, kwargs)
             out = server.generate(tokens, **kwargs)
             self._respond(200, {"tokens": out})
+        except Exception as exc:
+            self._respond(400, {"error": str(exc)})
+
+    def _prefill(self) -> None:
+        """POST /prefill: the prefill stage of a disaggregated request.
+        Prefill the prompt into this replica's paged pool (the request
+        retires at admission, so no decode step runs here), then push
+        the pages the destination decode replica is missing."""
+        server: "InferenceServer" = self.server.inference  # type: ignore
+        try:
+            req = self._read_json()
+            transfer = req.get("transfer") or {}
+            out = server.prefill(
+                [int(t) for t in req["tokens"]],
+                dest_url=transfer.get("url"), have=transfer.get("have"),
+                trace_ctx=TraceContext.decode(req.get("trace_context")))
+            self._respond(200, out)
+        except Exception as exc:
+            self._respond(400, {"error": str(exc)})
+
+    def _kv_pages(self) -> None:
+        """POST /kv/pages: install content-addressed KV pages pushed by
+        a prefill replica (best-effort: rejected pages are prefilled
+        here by the next /generate).  The reply adds this side's seconds
+        of wire decoding and of the import."""
+        server: "InferenceServer" = self.server.inference  # type: ignore
+        try:
+            from . import kv_transfer
+            req = self._read_json()
+            b = server._batcher
+            if b is None or b.page_size <= 0:
+                return self._respond(400, {
+                    "error": "KV-page import requires the paged cache "
+                             "(kv_page_size > 0)"})
+            t0 = time.perf_counter()
+            pages = kv_transfer.decode_pages(req.get("pages") or [])
+            t1 = time.perf_counter()
+            out = b.import_kv_pages(pages)
+            out.update(wire_decode_s=t1 - t0,
+                       import_s=time.perf_counter() - t1)
+            self._respond(200, out)
         except Exception as exc:
             self._respond(400, {"error": str(exc)})
 
@@ -202,12 +262,21 @@ class InferenceServer:
                  telemetry_registry: Optional[Registry] = None,
                  role: str = "unified", model_name: str = "",
                  device=None):
-        if role != "unified":
-            raise NotImplementedError(f"role={role!r} (disaggregated "
-                                      f"serving) {_LEFT_OUT}")
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'unified', 'prefill' or 'decode', "
+                f"got {role!r}")
+        if role != "unified" and kv_page_size <= 0:
+            # The handoff IS the paged pool: without it there is nothing
+            # to transfer.
+            raise ValueError(
+                f"role={role!r} (disaggregated serving) requires a "
+                f"paged KV cache (kv_page_size > 0); unpaged replicas "
+                f"can only serve unified")
         if mesh is not None:
-            raise NotImplementedError(f"tensor-parallel serving (mesh=) "
-                                      f"{_LEFT_OUT}")
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh=) is not ported yet: "
+                "ROADMAP.md queue 1 item 3 (multi-GPU)")
         if weight_dtype not in ("auto", "int8"):
             raise ValueError(f"weight_dtype must be 'auto' or 'int8', "
                              f"got {weight_dtype!r}")
@@ -255,6 +324,9 @@ class InferenceServer:
         self.telemetry_registry = telemetry_registry or Registry()
         self.telemetry = new_serving_metrics(self.telemetry_registry)
         record_build_info()
+        # Wire the tracer into the flight ring now, so the replica's spans
+        # are in the ring a /debug-bundle freezes.
+        flight.default_recorder()
         self._batcher = None
         if max_batch_slots > 0:
             from .batcher import ContinuousBatcher
@@ -275,11 +347,13 @@ class InferenceServer:
     # -- inference ---------------------------------------------------------
     def generate(self, tokens, max_new_tokens: int = 16,
                  temperature: float = 0.0, top_p: float = 1.0,
-                 seed=None, stop_tokens=(), top_k: int = 0) -> list:
+                 seed=None, stop_tokens=(), top_k: int = 0,
+                 trace_ctx=None) -> list:
         try:
             with self.telemetry["request_seconds"].time():
                 return self._generate(tokens, max_new_tokens, temperature,
-                                      top_p, seed, stop_tokens, top_k)
+                                      top_p, seed, stop_tokens, top_k,
+                                      trace_ctx)
         finally:
             self.telemetry["requests_total"].inc()
 
@@ -289,7 +363,7 @@ class InferenceServer:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _generate(self, tokens, max_new_tokens, temperature, top_p, seed,
-                  stop_tokens, top_k) -> list:
+                  stop_tokens, top_k, trace_ctx) -> list:
         from ..models.llama import generate
 
         rows = _rows(tokens)
@@ -297,7 +371,7 @@ class InferenceServer:
             return [self._batcher.submit(
                 rows[0], max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, stop_tokens=stop_tokens,
-                top_k=top_k)]
+                top_k=top_k, trace_ctx=trace_ctx)]
         # Right-pad to a rectangle; each row decodes from its own end.
         lengths = [len(r) for r in rows]
         width = max(lengths)
@@ -335,21 +409,22 @@ class InferenceServer:
 
     def stream(self, tokens, max_new_tokens: int = 16,
                temperature: float = 0.0, top_p: float = 1.0, seed=None,
-               stop_tokens=(), top_k: int = 0):
+               stop_tokens=(), top_k: int = 0, trace_ctx=None):
         """Yield generated ids one at a time for ONE sequence (the SSE
         source): through the batcher when enabled, else per decode step
         under the device lock so a slow consumer never holds the card."""
         start = time.perf_counter()
         try:
             yield from self._stream(tokens, max_new_tokens, temperature,
-                                    top_p, seed, stop_tokens, top_k)
+                                    top_p, seed, stop_tokens, top_k,
+                                    trace_ctx)
         finally:
             self.telemetry["request_seconds"].observe(
                 time.perf_counter() - start)
             self.telemetry["requests_total"].inc()
 
     def _stream(self, tokens, max_new_tokens, temperature, top_p, seed,
-                stop_tokens, top_k):
+                stop_tokens, top_k, trace_ctx):
         from ..models.llama import stream_generate
 
         rows = _rows(tokens)
@@ -359,7 +434,7 @@ class InferenceServer:
             yield from self._batcher.submit_iter(
                 rows[0], max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, stop_tokens=stop_tokens,
-                top_k=top_k)
+                top_k=top_k, trace_ctx=trace_ctx)
             return
         gen = stream_generate(
             self.model, rows[0], max_new_tokens, temperature=temperature,
@@ -384,6 +459,37 @@ class InferenceServer:
                 yield tok
         finally:
             gen.close()
+
+    def prefill(self, tokens, dest_url: Optional[str] = None,
+                have=None, trace_ctx=None) -> dict:
+        """Disaggregated prefill stage: put the prompt's full pages into
+        this replica's prefix cache (a greedy budget-1 submit retires at
+        admission, so no decode step runs here), then push the pages
+        ``dest_url`` is missing over the KV-transfer channel.  Returns
+        the prompt's chain digests and the transfer's accounting; with
+        ``dest_url=None`` it only warms this replica's cache."""
+        from . import kv_transfer
+        from .batcher import prefix_page_digests
+        b = self._batcher
+        if b is None or b.page_size <= 0:
+            raise ValueError(
+                "prefill stage requires the paged cache "
+                "(max_batch_slots > 0 and kv_page_size > 0)")
+        rows = [int(t) for t in tokens]
+        if not rows:
+            raise ValueError("empty prompt")
+        digests = prefix_page_digests(rows, b.page_size)
+        with self.telemetry["request_seconds"].time():
+            # The emitted token is discarded: the decode replica derives
+            # it again from the transferred pages (K/V depends only on
+            # the token prefix).
+            b.submit(rows, 1, temperature=0.0, seed=0, trace_ctx=trace_ctx)
+        out = {"digests": digests, "shipped": 0, "deduped": 0,
+               "imported": 0, "rejected": 0, "bytes": 0}
+        if dest_url and digests:
+            out.update(kv_transfer.transfer_pages(
+                b, digests, dest_url, have=have))
+        return out
 
     def fleet_state(self) -> dict:
         """The GET /fleet-state payload: queue depth and slot occupancy,

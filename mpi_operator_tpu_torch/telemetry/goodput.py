@@ -6,8 +6,9 @@ Wall time is attributed to named buckets — productive steps, the first
 ``summary()`` reports per-bucket seconds and fractions plus the goodput
 fraction (productive / total).  Wrap a step function once with
 :func:`instrument_step` and it attributes warm-up against productive
-time itself.  The flight-recorder and causal-trace hooks of the JAX
-module are not ported yet (ROADMAP.md queue 1 item 2.6).
+time itself.  A change of bucket is recorded on the flight ring
+(``goodput_phase``), and the first step is the causal trace's
+``compile`` milestone when the process carries a trace context.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class GoodputTracker:
         self._steps = 0
         self._gauge = None
         self._step_hist = None
+        self._last_bucket: Optional[str] = None
         if registry is not None:
             self._gauge = registry.gauge(
                 f"{gauge_prefix}_goodput_fraction",
@@ -68,6 +70,12 @@ class GoodputTracker:
                         self._step_hist.observe(per_step)
             if self._gauge is not None:
                 self._gauge.set(self._fraction_locked(PRODUCTIVE))
+            transitioned = bucket != self._last_bucket
+            self._last_bucket = bucket
+        if transitioned:
+            from .flight import record as flight_record
+            flight_record("train", "goodput_phase", bucket=bucket,
+                          seconds=round(seconds, 6))
 
     @contextlib.contextmanager
     def account(self, bucket: str):
@@ -167,6 +175,7 @@ def instrument_step(step_fn: Callable, goodput: Optional[GoodputTracker]
     The wrapper exposes ``sync()`` (flush the open window) and
     ``goodput``."""
     from .metrics import default_registry
+    from .trace import default_tracer, env_context
 
     if goodput is None:
         goodput = GoodputTracker()
@@ -208,9 +217,19 @@ def instrument_step(step_fn: Callable, goodput: Optional[GoodputTracker]
             if not state["compiled"]:
                 state["compiled"] = True
                 out = _block(out)
-                # Causal-trace "compile" milestone: not ported yet
-                # (ROADMAP.md queue 1 item 2.6).
-                goodput.add(COMPILE, goodput._clock() - start)
+                elapsed = goodput._clock() - start
+                goodput.add(COMPILE, elapsed)
+                # Causal-trace milestone, parented to the carried job
+                # context.  The name is the JAX package's (the analyzer
+                # decomposes by name), but nothing is compiled by XLA
+                # here: the span is the first step, up to its output on
+                # the host, with the CUDA kernels' first-use nvcc builds
+                # (ops/_build.py) and library warm-up in it.
+                ctx = env_context()
+                if ctx is not None:
+                    default_tracer().emit("compile",
+                                          ts=time.time() - elapsed,
+                                          dur=elapsed, ctx=ctx)
                 return out
             state["pending_steps"] += 1
             state["last_out"] = out

@@ -435,4 +435,21 @@ def new_serving_metrics(registry: Registry) -> dict:
             "mpi_operator_serve_prefix_evicted_total",
             "Refcount-0 cached prefix blocks evicted under pool"
             " pressure"),
+        # Disaggregated prefill/decode: the paged KV-transfer protocol's
+        # replica-side accounting (serving/kv_transfer.py), under the
+        # JAX package's exposition names.
+        "kv_pages_exported": registry.counter(
+            "mpi_operator_serve_kv_pages_exported_total",
+            "KV pages exported by this replica for transfer to a"
+            " decode replica (disaggregated serving)"),
+        "kv_pages_imported": registry.counter(
+            "mpi_operator_serve_kv_pages_imported_total",
+            "KV pages imported into this replica's pool from a"
+            " prefill replica (disaggregated serving)"),
+        "kv_import_rejected": registry.counter_vec(
+            "mpi_operator_serve_kv_import_rejected_total",
+            "KV-page imports rejected, by reason (digest mismatch,"
+            " missing parent chain, pool exhausted, shape/dtype"
+            " mismatch, duplicate)",
+            label_names=("reason",)),
     }

@@ -13,12 +13,13 @@ properties carry over from the JAX module:
 - **Async saves** (:class:`CheckpointManager`, the default): ``save()``
   copies the state to host memory and hands the write to one background
   writer thread; the loop blocks only when a save finds the previous
-  write still running.  A writer failure is stored and re-raised at the
-  next save point or ``drain()``.
+  write still running.  A writer failure is recorded on the flight ring,
+  dumped as a ``checkpoint-writer-error`` bundle, stored, and re-raised
+  at the next save point or ``drain()``.
 
-Not ported yet: the flight-recorder bundle on a writer failure and the
-causal-trace spans (ROADMAP.md queue 1 item 2.6), and multi-process
-writes (queue 3).
+Saves and restores are ``checkpoint_save`` / ``checkpoint_restore``
+spans.  Not ported yet: multi-process writes (ROADMAP.md queue 1 item
+3).
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from typing import Any, Optional
 
 import torch
 
+from ..telemetry.goodput import _tensors
 from ..telemetry.metrics import default_registry
+from ..telemetry.trace import span
 
 COMMIT_MARKER = "_COMMITTED"
 STATE_FILE = "state.pt"
@@ -126,7 +129,8 @@ def save_checkpoint(directory: str, state: Any, step: int,
     os.makedirs(directory, exist_ok=True)
     path = _step_dir(directory, step)
     tmp = _tmp_dir(directory, step)
-    with _checkpoint_metrics()["save"].time():
+    with span("checkpoint_save", step=step), \
+            _checkpoint_metrics()["save"].time():
         if os.path.isdir(tmp):
             # Crash leftover from a previous attempt at this exact step.
             shutil.rmtree(tmp, ignore_errors=True)
@@ -185,7 +189,8 @@ def restore_checkpoint(directory: str, target: Any,
             f"checkpoint step {step} in {directory} is uncommitted "
             f"(absent, empty, or still under a .tmp dir); refusing to "
             f"restore a torn write")
-    with _checkpoint_metrics()["restore"].time():
+    with span("checkpoint_restore", step=step), \
+            _checkpoint_metrics()["restore"].time():
         payload = torch.load(os.path.join(_step_dir(directory, step),
                                           STATE_FILE), weights_only=True)
         target.load_state_dict(payload)
@@ -238,6 +243,18 @@ class CheckpointManager:
             with self._lock:
                 self.last_written_step = step
         except BaseException as exc:  # stored, re-raised on the loop
+            try:
+                from ..telemetry import flight
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in _tensors(host_state))
+                flight.record("train", "checkpoint_writer_error",
+                              step=step, in_flight_bytes=nbytes,
+                              error=repr(exc))
+                flight.dump_bundle("checkpoint-writer-error")
+            # Best-effort telemetry must never mask the stored writer
+            # error (re-raised at the next save point).
+            except Exception:  # lint: allow[silent-except]
+                pass
             with self._lock:
                 self._writer_error = exc
         finally:

@@ -134,7 +134,7 @@ def test_dispatcher_layout_window_and_refusals():
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        atol=F32_TOL, rtol=F32_TOL)
     assert ta.LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="queue 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         ta.attention(*_t(q, k, v), mesh=object())
     with pytest.raises(ValueError, match="causal"):
         ta.attention(*_t(q, k, v), causal=False, window=7)

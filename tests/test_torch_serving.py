@@ -282,9 +282,10 @@ def test_http_wire_format_and_fleet_digests(weights):
             state = json.loads(resp.read())
         assert state["page_size"] == 16 and state["slots"] == 2
         assert set(state["prefix_digests"]) == set(jax_digests(prompt, 16))
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _post(server.url + "/prefill", {"tokens": prompt})
-        assert err.value.code == 501
+        # /prefill without a destination only warms this replica's cache.
+        warm = _post(server.url + "/prefill", {"tokens": prompt})
+        assert warm["digests"] == jax_digests(prompt, 16)
+        assert warm["shipped"] == 0 and warm["rejected"] == 0
     finally:
         server.stop()
 
@@ -323,18 +324,32 @@ def test_entry_points_default_to_the_card(weights):
 
 
 def test_out_of_slice_options_raise(weights):
+    """mesh= is still out of the port; a disaggregated role needs the
+    paged cache, as in the JAX server, and /kv/pages answers 400 on an
+    unpaged replica."""
     _, _, tm = weights
-    for kw in (dict(role="prefill", kv_page_size=16, max_batch_slots=1),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            InferenceServer(tm, device="cpu", **kw)
-    server = InferenceServer(tm, max_batch_slots=1, kv_page_size=16,
-                             device="cpu").start()
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        InferenceServer(tm, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="paged KV cache"):
+        InferenceServer(tm, device="cpu", role="prefill", kv_page_size=0)
+    with pytest.raises(ValueError, match="role"):
+        InferenceServer(tm, device="cpu", role="warmish")
+    server = InferenceServer(tm, max_batch_slots=1, device="cpu").start()
     try:
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(server.url + "/kv/pages", {"pages": []})
-        assert err.value.code == 501
-        assert "not ported" in json.loads(err.value.read())["error"]
+        assert err.value.code == 400
+        assert "paged cache" in json.loads(err.value.read())["error"]
+    finally:
+        server.stop()
+    server = InferenceServer(tm, max_batch_slots=1, kv_page_size=16,
+                             role="decode", device="cpu").start()
+    try:
+        assert _post(server.url + "/kv/pages", {"pages": []}) == {
+            "imported": 0, "deduped": 0, "rejected": 0,
+            "wire_decode_s": pytest.approx(0, abs=5),
+            "import_s": pytest.approx(0, abs=5)}
+        assert server.fleet_state()["role"] == "decode"
     finally:
         server.stop()
     with pytest.raises(ValueError, match="dense-layout"):

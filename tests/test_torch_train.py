@@ -217,7 +217,7 @@ def test_accum_steps_equals_the_full_batch_and_out_of_slice_raise():
         _tiny_state(3)[1](_tiny_state(3)[0], tokens)
     for kw in (dict(mesh=object()), dict(shard_update=True),
                dict(hierarchical_allreduce=True)):
-        with pytest.raises(NotImplementedError, match="queue 3"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
             _tiny_state(**kw)
 
 
