@@ -164,7 +164,35 @@ continued:
              4 steps x 2 layers, peak < 80 GB, the losses of the two runs
              bit-identical).  train_mfu counts attention, the top-2 of 8
              experts, the router and the head.
-7. profile   after every measured phase, the serving phase's concurrent
+7. distributed  one process per visible card (at most 4), each given
+             the operator's env (JAX_COORDINATOR_ADDRESS on a free local
+             port, JAX_PROCESS_ID, JAX_NUM_PROCESSES, MPIJOB_SUBMIT_TIME)
+             and forming its NCCL group through
+             bootstrap.initialize_from_env (at one card, a one-rank
+             group); a rank that fails or outlives its deadline fails the
+             run.  (a) examples/torch_pi.py, 10^7 points a rank: rank 0
+             prints workers=world, |pi - π| < 0.01 and the
+             launch-to-first-all-reduce seconds.  (b) with two cards or
+             more: llama2_tiny in f32, 3 AdamW steps at dp = world with
+             shard_update and at fsdp = world through llama_param_specs,
+             losses, grad norms and parameters equal to card 0 alone on
+             the same global batch at 1e-5 (an element whose gradient
+             came within rounding of zero at 3 lr), and a planted fault
+             (rank 1 keeps its own gradient chunk instead of the
+             reduced one) that must fail the check; at one card it
+             prints that (b) needs two.  (c) llama2_7b at full width,
+             fsdp = world, 8 x world layers (all 32 at four cards), 1 x
+             4096 tokens a rank, f32 parameters and AdamW state, bf16
+             compute, built on the meta device and each rank filling
+             only its shard: one warm-up step and 3 more, twice, with
+             growable allocator segments (PYTORCH_CUDA_ALLOC_CONF=
+             expandable_segments:True unless the caller set it).
+             Printed per rank: ms per step (and each step's), tokens/s
+             per card, train_mfu, peak memory, allocator retries, and
+             whether the two runs' losses are bit-identical.  Checked:
+             K1'/K2'/K3' launches == 4 x layers on each rank, finite
+             losses, peak < 80 GB.
+8. profile   after every measured phase, the serving phase's concurrent
              prompts on a fresh server of the same shape, once to warm
              up and once under torch.profiler: K4''s device ms per
              decode step (its split and merge kernels) and its share of
@@ -1973,6 +2001,366 @@ def training_repeat_phase(card: str, losses, name: str = "llama2_7b"):
                          f"first {losses}")
 
 
+# -- phase 7: distributed -------------------------------------------------------
+
+DIST_MAX_WORLD = 4
+DIST_PI_SAMPLES = 10_000_000
+DIST_LAYERS_PER_CARD = 8          # 8 x world layers of llama2_7b
+DIST_STEPS = 4                    # one warm-up + 3 timed
+DIST_PARITY_STEPS = 3
+DIST_STEP_TOL = 1e-5              # tests/test_torch_train.py STEP_TOL
+DIST_LR = 3e-4
+DIST_DEADLINE_S = 600
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, world: int, what: str, deadline_s: float,
+              logs_dir: str):
+    """``world`` processes, one per card, each with the operator's env
+    (coordinator on a free local port, its process id, the process count,
+    the submit time); their output goes to files in ``logs_dir``.  A rank
+    that fails, or ranks that outlive the deadline, fail the run, and
+    every rank still running is killed.  Returns each rank's output."""
+    port, submit = free_port(), time.time()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_PROCESS_ID=str(rank), JAX_NUM_PROCESSES=str(world),
+                   MPIJOB_SUBMIT_TIME=repr(submit))
+        # Phase (c) runs near the card's memory: the default caching
+        # allocator frees and re-mallocs there every step (6 retries in
+        # 3 steps, each slower than the last, on four H100 80GB HBM3 at
+        # 700 W), growable segments do not.
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        log = open(os.path.join(logs_dir, f"rank{rank}.log"), "w")
+        procs.append((log, subprocess.Popen(argv, env=env, stdout=log,
+                                            stderr=subprocess.STDOUT,
+                                            cwd=HERE)))
+    end = time.monotonic() + deadline_s
+    try:
+        # A rank that fails leaves the others waiting in a collective:
+        # stop at the first failure, not at the deadline.
+        while time.monotonic() < end:
+            codes = [proc.poll() for _, proc in procs]
+            if all(c == 0 for c in codes) or any(c for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    texts = [open(os.path.join(logs_dir, f"rank{r}.log")).read()
+             for r in range(world)]
+    codes = [proc.returncode for _, proc in procs]
+    if any(codes):
+        raise SystemExit(f"distributed {what}: ranks exited {codes}:\n" +
+                         "\n".join(f"--- rank {r}\n{t[-4000:]}"
+                                    for r, t in enumerate(texts)))
+    return texts
+
+
+def dist_loss(model, batch):
+    from mpi_operator_tpu_torch.models.llama import next_token_loss
+    return next_token_loss(model(batch), batch)
+
+
+def dist_parity_inputs(world: int):
+    """llama2_tiny f32 weights from SEED and a global batch of 2 rows
+    per card, the same in every process."""
+    from mpi_operator_tpu_torch.models.llama import llama2_tiny
+    from mpi_operator_tpu_torch.models.params import init_params
+    cfg = llama2_tiny()
+    weights = init_params(cfg, torch.Generator().manual_seed(SEED),
+                          device="cpu", dtype=torch.float32).state_dict()
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2 * world, 128)))
+    return cfg, weights, tokens
+
+
+def dist_parity_run(world: int, fsdp: bool, fault: bool):
+    """One rank of phase (b): DIST_PARITY_STEPS AdamW steps at dp = world
+    with shard_update, or at fsdp = world through llama_param_specs.
+    ``fault`` plants one rank's gradients skipping the reduction: rank 1
+    takes part in the reduce-scatter and keeps its own chunk."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from mpi_operator_tpu_torch.models.llama import (LlamaModel,
+                                                     llama_param_specs)
+    from mpi_operator_tpu_torch.parallel.mesh import (MeshConfig,
+                                                      batch_rows,
+                                                      create_mesh)
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    cfg, weights, tokens = dist_parity_inputs(world)
+    mesh = create_mesh(MeshConfig(dp=1, fsdp=world) if fsdp
+                       else MeshConfig(dp=world))
+    init, step = build_train_step(
+        dist_loss, adamw(DIST_LR), mesh=mesh,
+        param_specs=llama_param_specs(cfg) if fsdp else None,
+        shard_update=not fsdp)
+    model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
+    model.load_state_dict(weights)
+    state = init(model)
+    rows = tokens[batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                             len(tokens))].cuda()
+    real = dist.reduce_scatter_tensor
+    if fault and dist.get_rank() == 1:
+        def skipped(output, input, group=None, **kw):
+            work = real(output, input, group=group, **kw)
+            n = input.numel() // output.numel()
+            output.copy_(input.view(n, -1)[dist.get_rank(group)] * n)
+            return work
+        dist.reduce_scatter_tensor = skipped
+    try:
+        metrics = []
+        for _ in range(DIST_PARITY_STEPS):
+            state, m = step(state, rows)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    finally:
+        dist.reduce_scatter_tensor = real
+    params = {n: (p.full_tensor() if isinstance(p, DTensor) else p)
+              .detach().cpu() for n, p in state.model.named_parameters()}
+    return metrics, params
+
+
+def dist_full_width_run(world: int):
+    """One rank of phase (c): llama2_7b at full width, 8 x world layers,
+    fsdp = world through llama_param_specs, 1 x 4096 tokens a rank, bf16
+    compute, f32 parameters and AdamW state.  The model is built on the
+    meta device, sharded, then each rank fills only its shard with
+    init_params' draws for SEED."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.params import init_params_
+    from mpi_operator_tpu_torch.ops import attention as fa
+    from mpi_operator_tpu_torch.parallel.mesh import (MeshConfig,
+                                                      batch_rows,
+                                                      create_mesh)
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    cfg = dataclasses.replace(llama.llama2_7b(),
+                              n_layers=DIST_LAYERS_PER_CARD * world)
+    seq = cfg.max_seq_len
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = create_mesh(MeshConfig(dp=1, fsdp=world))
+    init, step = build_train_step(dist_loss, adamw(3e-4), mesh=mesh,
+                                  param_specs=llama.llama_param_specs(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    state = init(llama.LlamaModel(cfg, device="meta",
+                                  store_dtype=cfg.param_dtype),
+                 init_weights=lambda m: init_params_(m, gen))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    local_params = sum(p.to_local().numel() if hasattr(p, "to_local")
+                       else p.numel() for p in state.model.parameters())
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (world, seq))
+    rows = torch.as_tensor(tokens[batch_rows(
+        tuple(mesh.shape), mesh.get_coordinate(), world)], device="cuda")
+    for kernel in fa.LAUNCHES:
+        fa.LAUNCHES[kernel] = 0
+    losses, stamps = [], []
+    dist.barrier()
+    for _ in range(DIST_STEPS):
+        state, metrics = step(state, rows)
+        losses.append(metrics["loss"].item())     # waits for the step
+        stamps.append(time.perf_counter())
+    launches = dict(fa.LAUNCHES)
+    step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    peak = torch.cuda.max_memory_allocated()
+    # cudaMalloc retries after freeing the cache (each one syncs the
+    # card): what a step near the memory limit pays.
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    matmul_params = cfg.n_layers * (
+        2 * cfg.dim * cfg.n_heads * cfg.head_dim
+        + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
+        + 3 * cfg.dim * cfg.ffn_dim) + cfg.dim * cfg.vocab_size
+    flops = 6 * seq * matmul_params + 12 * cfg.n_layers * seq ** 2 \
+        * cfg.dim / 2
+    del state
+    return {"n_layers": cfg.n_layers, "fsdp": world, "tokens_per_rank": seq,
+            "local_params": local_params, "init_s": init_s,
+            "losses": losses, "step_ms": step_s * 1e3,
+            "each_step_ms": [(b - a) * 1e3 for a, b in zip(stamps,
+                                                          stamps[1:])],
+            "alloc_retries": retries,
+            "tokens_per_s_per_card": seq / step_s,
+            "train_mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
+            "peak_bytes": peak, "launches": launches}
+
+
+def distributed_rank(out_dir: str) -> int:
+    """A child of the distributed phase: phase (b) when there are two
+    cards or more, then phase (c) twice (the determinism check across
+    two runs at this world size)."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.bootstrap import initialize_from_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = initialize_from_env()
+    if not dist.is_initialized():
+        # One card: initialize_from_env forms no group for one process
+        # (as the JAX version); the mesh needs one, so a 1-rank NCCL
+        # group forms here.
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    result = {"rank": rank, "world": world, "env_processes":
+              env.num_processes, "backend": dist.get_backend(),
+              "card": torch.cuda.current_device()}
+    if world >= 2:
+        runs = {"dp_zero": dist_parity_run(world, fsdp=False, fault=False),
+                "fsdp": dist_parity_run(world, fsdp=True, fault=False),
+                "dp_zero_fault": dist_parity_run(world, fsdp=False,
+                                                 fault=True)}
+        result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
+        if rank == 0:
+            torch.save({k: v[1] for k, v in runs.items()},
+                       os.path.join(out_dir, "parity.pt"))
+    result["full_width"] = [dist_full_width_run(world) for _ in range(2)]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_parity_failures(metrics, params, ref_metrics, ref_params,
+                         smallest):
+    """What in a run differs from the one-card reference beyond
+    DIST_STEP_TOL (an element whose gradient came within rounding of
+    zero moves by up to lr a step: held to 3 lr, as the CPU tests)."""
+    bad = []
+    for (loss, norm), (rl, rn) in zip(metrics, ref_metrics):
+        for got, want in ((loss, rl), (norm, rn)):
+            if abs(got - want) > DIST_STEP_TOL * (1 + abs(want)):
+                bad.append(f"metric {got} vs {want}")
+    for name, ref in ref_params.items():
+        err = (params[name] - ref).abs()
+        sound = (smallest[name] == 0) | (smallest[name] >= 1e-7)
+        if (err[sound] > DIST_STEP_TOL * (1 + ref[sound].abs())).any() \
+                or err.max().item() > 3 * DIST_LR:
+            bad.append(f"{name} max err {err.max().item():.3g}")
+    return bad
+
+
+def dist_parity_reference(world: int):
+    """The same steps in this process on card 0, on the whole global
+    batch: metrics, parameters and the smallest |gradient| per
+    element."""
+    from mpi_operator_tpu_torch.models.llama import LlamaModel
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    cfg, weights, tokens = dist_parity_inputs(world)
+    model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
+    model.load_state_dict(weights)
+    init, step = build_train_step(dist_loss, adamw(DIST_LR))
+    state = init(model)
+    metrics, smallest = [], {n: torch.full_like(p, float("inf")) for n, p
+                             in model.named_parameters()}
+    for _ in range(DIST_PARITY_STEPS):
+        state, m = step(state, tokens.cuda())
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        for n, p in state.model.named_parameters():
+            smallest[n] = torch.minimum(smallest[n], p.grad.abs())
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return metrics, params, {n: v.cpu() for n, v in smallest.items()}
+
+
+def distributed_phase(card: str):
+    """Phase 7: one process per card (at most DIST_MAX_WORLD), NCCL.  (a)
+    examples/torch_pi.py; (b) with two cards or more, llama2_tiny f32 at
+    dp = world (ZeRO) and fsdp = world against card 0 alone, and a
+    planted fault that must fail; (c) llama2_7b at full width, fsdp =
+    world, 8 x world layers."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = min(torch.cuda.device_count(), DIST_MAX_WORLD)
+    print(f"distributed: world {world} (one process per card, "
+          f"{'NCCL' if world > 1 else 'one rank'}); {card}", flush=True)
+
+    texts = run_ranks([sys.executable, os.path.join(
+        HERE, "examples", "torch_pi.py"), str(DIST_PI_SAMPLES)], world,
+        "pi", 300, out_dir)
+    found = re.search(r"workers=(\d+) samples=(\d+) pi=(\S+)", texts[0])
+    latency = re.search(r"launch_to_first_allreduce_seconds=(\S+)",
+                        texts[0])
+    if not found or int(found.group(1)) != world or not latency or \
+            abs(float(found.group(3)) - np.pi) >= 0.01:
+        raise SystemExit(f"distributed (a) pi: {texts[0][-2000:]}")
+    print(f"distributed (a) pi: {found.group(0)} (|pi - π| = "
+          f"{abs(float(found.group(3)) - np.pi):.2e}) "
+          f"launch_to_first_allreduce_seconds={latency.group(1)}",
+          flush=True)
+
+    run_ranks([sys.executable, os.path.abspath(__file__),
+               "distributed-rank", out_dir], world, "train",
+              DIST_DEADLINE_S, out_dir)
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(world)]
+    if any(r["world"] != world or (world > 1 and r["backend"] != "nccl")
+           or r["card"] != r["rank"] for r in ranks):
+        raise SystemExit(f"distributed: ranks formed {ranks}")
+
+    if world >= 2:
+        ref_metrics, ref_params, smallest = dist_parity_reference(world)
+        got = torch.load(os.path.join(out_dir, "parity.pt"))
+        verdict = {}
+        for name, params in got.items():
+            bad = [f for r in ranks for f in dist_parity_failures(
+                r["parity_metrics"][name], params, ref_metrics, ref_params,
+                smallest)]
+            verdict[name] = bad
+        if verdict["dp_zero"] or verdict["fsdp"] or \
+                not verdict["dp_zero_fault"]:
+            raise SystemExit(f"distributed (b) parity: {verdict}")
+        print(f"distributed (b) parity: llama2_tiny f32, "
+              f"{DIST_PARITY_STEPS} AdamW steps, dp={world} (shard_update) "
+              f"and fsdp={world} == card 0 alone at {DIST_STEP_TOL}; "
+              f"planted fault caught ({verdict['dp_zero_fault'][:2]})",
+              flush=True)
+    else:
+        print("distributed (b) parity: needs two cards; this machine "
+              "shows one", flush=True)
+
+    stats = []
+    for r in ranks:
+        first, again = r["full_width"]
+        want = DIST_STEPS * first["n_layers"]
+        if any(n != want for n in first["launches"].values()) or \
+                not all(np.isfinite(first["losses"])) or \
+                not first["peak_bytes"] < 80e9:
+            raise SystemExit(f"distributed (c) rank {r['rank']}: {first}")
+        stats.append({**first, "rank": r["rank"],
+                      "losses_repeat": again["losses"],
+                      "repeat_identical": again["losses"] ==
+                      first["losses"]})
+    print(f"distributed (c) llama2_7b full width, fsdp={world}, "
+          f"{stats[0]['n_layers']} layers, 1 x 4096 tokens a rank: "
+          + json.dumps({"card": card, "world": world, "ranks": stats}),
+          flush=True)
+    return {"world": world, "launches_rank0": stats[0]["launches"]}
+
+
 def build_phase() -> None:
     """Both kernel sources, each by its own nvcc, started together."""
     from mpi_operator_tpu_torch.ops import _build
@@ -2113,6 +2501,8 @@ FLASH_REPLACES = {
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["distributed-rank"]:
+        return distributed_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs the card",
               file=sys.stderr)
@@ -2166,6 +2556,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_flash_launches, moe_losses = training_phase(card, "mixtral_8x7b")
     training_repeat_phase(card, moe_losses, "mixtral_8x7b")
+    distributed = distributed_phase(card)
     k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]
@@ -2210,7 +2601,8 @@ def main() -> int:
     }
     other = {"train_example_tiny": example_launches,
              "train_example_mixtral_tiny_data": moe_example_launches,
-             "moe_training": moe_flash_launches}
+             "moe_training": moe_flash_launches,
+             "fsdp_training_rank0": distributed["launches_rank0"]}
     entries = [entry] + [flash_entry(name, flash, flash_launches, other)
                          for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)

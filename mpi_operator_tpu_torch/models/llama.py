@@ -460,7 +460,10 @@ class LlamaModel(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, store_dtype=None):
         super().__init__()
-        dev = resolve_device(device)
+        # "meta" allocates nothing: sharded training places the model
+        # first and fills each rank's shard (models/params.py).
+        dev = torch.device("meta") if str(device) == "meta" else \
+            resolve_device(device)
         store = store_dtype or config.dtype
         self.config = config
         with torch.device("meta"):
@@ -512,6 +515,53 @@ class LlamaModel(nn.Module):
         if return_hidden:
             return x
         return self.output(x)
+
+
+def llama_param_specs(config: LlamaConfig) -> dict:
+    """The mesh axis of each dim of each parameter of :class:`LlamaModel`
+    (``None``: not sharded): the JAX ``llama_param_specs`` (Megatron
+    sharding: head/hidden/vocab dims over 'tp', the opposite matmul dim
+    over 'fsdp', norms replicated) transposed to the port's layouts.  A
+    Flax kernel is [in, ...out] and an ``nn.Linear`` weight [out, in]
+    (``models/params.py``), so ``wq`` P("fsdp", "tp", None) becomes
+    ("tp", "fsdp"); the embedding keeps its [V, dim] layout and the MoE
+    expert stacks theirs.  An int8 weight's ``.scale`` [out] follows the
+    weight's output dim.
+
+    ``parallel/train.build_train_step`` takes the 'fsdp' entries (and
+    grafts 'dp' for its ZeRO update); 'tp' and 'ep' wait for ROADMAP.md
+    queue 1 item 3."""
+    def linear(name, out_axis, in_axis):
+        specs = {f"{name}.weight": (out_axis, in_axis)}
+        if config.weight_dtype == "int8":
+            specs[f"{name}.scale"] = (out_axis,)
+        return specs
+
+    def block(i):
+        pre = f"layers.{i}"
+        specs = {f"{pre}.attention_norm.scale": (None,),
+                 f"{pre}.ffn_norm.scale": (None,)}
+        for name in ("wq", "wk", "wv"):
+            specs.update(linear(f"{pre}.attention.{name}", "tp", "fsdp"))
+        specs.update(linear(f"{pre}.attention.wo", "fsdp", "tp"))
+        ffn = f"{pre}.feed_forward"
+        if config.n_experts > 1:
+            specs.update({f"{ffn}.router.weight": (None, None),
+                          f"{ffn}.w1": ("ep", "fsdp", "tp"),
+                          f"{ffn}.w3": ("ep", "fsdp", "tp"),
+                          f"{ffn}.w2": ("ep", "tp", "fsdp")})
+        else:
+            specs.update(linear(f"{ffn}.w1", "tp", "fsdp"))
+            specs.update(linear(f"{ffn}.w3", "tp", "fsdp"))
+            specs.update(linear(f"{ffn}.w2", "fsdp", "tp"))
+        return specs
+
+    specs = {"tok_embeddings.weight": ("tp", "fsdp"),
+             "norm.scale": (None,)}
+    for i in range(config.n_layers):
+        specs.update(block(i))
+    specs.update(linear("output", "tp", "fsdp"))
+    return specs
 
 
 def next_token_loss(logits, tokens):

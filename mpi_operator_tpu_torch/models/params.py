@@ -128,18 +128,51 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             dataclasses.replace(cfg, weight_dtype="auto"), generator,
             device=dev, dtype=dtype))
     model = LlamaModel(cfg, device=dev, store_dtype=dtype)
+    return init_params_(model, generator).eval()
+
+
+def _local_part(full: torch.Tensor, param) -> torch.Tensor:
+    """This rank's part of a DTensor parameter's full value: each
+    ``Shard(d)`` placement keeps the ``torch.chunk`` the rank's index on
+    that mesh dim names (DTensor's own split; a rank past the last chunk
+    holds none)."""
+    from torch.distributed.tensor import Shard
+    for mesh_dim, placement in enumerate(param.placements):
+        if isinstance(placement, Shard):
+            d = placement.dim
+            chunks = full.chunk(param.device_mesh.size(mesh_dim), dim=d)
+            k = param.device_mesh.get_local_rank(mesh_dim)
+            full = chunks[k] if k < len(chunks) else full.narrow(d, 0, 0)
+    return full
+
+
+@torch.no_grad()
+def init_params_(model: LlamaModel, generator: torch.Generator
+                 ) -> LlamaModel:
+    """Fill ``model``'s parameters in place with the draws of
+    :func:`init_params`, in its order.  A parameter sharded by FSDP2 (a
+    DTensor) receives only this rank's part: each draw is made in full
+    on the generator's device, one parameter at a time, and the rank
+    keeps its part, so no rank ever holds the whole model and every
+    rank's weights equal ``init_params``' for the seed."""
+    from torch.distributed.tensor import DTensor
     for name, p in model.named_parameters():
+        sharded = isinstance(p, DTensor)
+        full = torch.empty(p.shape, dtype=p.dtype,
+                           device=generator.device) if sharded else p
         if name.endswith(".scale"):
-            p.fill_(1.0)
-            continue
-        if p.dim() == 3:                 # an MoE expert stack [E, in, out]
-            init_expert_stack_(p, generator)
-            continue
-        std = 1.0 if name == "tok_embeddings.weight" else \
-            1.0 / math.sqrt(p.shape[1])
-        p.copy_(torch.randn(p.shape, generator=generator, device=dev,
-                            dtype=torch.float32).mul_(std))
-    return model.eval()
+            full.fill_(1.0)
+        elif p.dim() == 3:               # an MoE expert stack [E, in, out]
+            init_expert_stack_(full, generator)
+        else:
+            std = 1.0 if name == "tok_embeddings.weight" else \
+                1.0 / math.sqrt(p.shape[1])
+            full.copy_(torch.randn(p.shape, generator=generator,
+                                   device=generator.device,
+                                   dtype=torch.float32).mul_(std))
+        if sharded:
+            p.to_local().copy_(_local_part(full, p))
+    return model
 
 
 # Configuration fields that shape no tensor: a model that differs from

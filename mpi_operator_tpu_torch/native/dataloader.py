@@ -31,10 +31,8 @@ from typing import Optional
 
 import numpy as np
 
-# The operator's process contract (the env names it injects into every
-# worker; mpi_operator_tpu/api/constants.py).
-PROCESS_ID_ENV = "JAX_PROCESS_ID"
-NUM_PROCESSES_ENV = "JAX_NUM_PROCESSES"
+from ..api.constants import JAX_NUM_PROCESSES_ENV as NUM_PROCESSES_ENV
+from ..api.constants import JAX_PROCESS_ID_ENV as PROCESS_ID_ENV
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "tpudata.cpp"

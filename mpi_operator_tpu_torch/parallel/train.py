@@ -1,12 +1,17 @@
-"""Training step and preemption-aware loop on one device.  Counterpart of
+"""Training step and preemption-aware loop, on one device or over a
+``DeviceMesh`` of processes.  Counterpart of
 ``mpi_operator_tpu/parallel/train.py``.
 
 JAX's ``TrainState`` holds params and optax state as immutable trees and
 its jitted step returns new ones.  Here the state holds the model and a
 ``torch.optim`` optimizer, and the step updates both in place (one copy
-of the weights and moments, not two).  Sharded training (``mesh``,
-``param_specs``, ``shard_update``, ``hierarchical_allreduce``) waits for
-ROADMAP.md queue 1 item 3.
+of the weights and moments, not two).  JAX derives the step's
+collectives from sharding annotations; here the mesh plans name them:
+:class:`_ReplicatedPlan` (replicated parameters, gradients reduced on
+flat f32 buckets, optionally hierarchical and with a ZeRO update) and
+:class:`_ShardedPlan` (FSDP2 ``fully_shard`` over ``fsdp``).  Meshes
+with ``tp``, ``sp``, ``ep`` or ``pp`` above 1 wait for ROADMAP.md queue
+1 item 3.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 
@@ -30,18 +36,26 @@ def _multi_gpu(what: str) -> NotImplementedError:
 @dataclass
 class TrainState:
     """Step count, model and optimizer; ``state_dict()`` is what a
-    checkpoint holds."""
+    checkpoint holds.  Under a mesh, ``plan`` makes it the full state on
+    every rank that writes (a collective: every rank calls it) and
+    ``load_state_dict`` places a full state back onto the shards."""
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    plan: Any = None
 
     def state_dict(self) -> dict:
+        if self.plan is not None:
+            return {"step": self.step, **self.plan.state_dict(self)}
         return {"step": self.step, "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, payload: dict) -> None:
-        self.model.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        if self.plan is not None:
+            self.plan.load_state_dict(self, payload)
+        else:
+            self.model.load_state_dict(payload["model"])
+            self.optimizer.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
 
 
@@ -69,49 +83,435 @@ def optax_global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+# ---------------------------------------------------------------------------
+# Mesh plans: which collectives a step runs
+# ---------------------------------------------------------------------------
+
+# Elements of one flat f32 bucket (256 MiB): the transient buffer of a
+# collective is bounded by it whatever the model's size.
+BUCKET_ELEMENTS = 1 << 26
+
+
+def _axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _buckets(sizes, cap: int = BUCKET_ELEMENTS):
+    """Consecutive index groups of ``sizes`` whose sums stay within
+    ``cap`` (a larger single entry gets a group of its own)."""
+    group, total = [], 0
+    for i, n in enumerate(sizes):
+        if group and total + n > cap:
+            yield group
+            group, total = [], 0
+        group.append(i)
+        total += n
+    if group:
+        yield group
+
+
+def _first_divisible_dim(shape, n: int) -> Optional[int]:
+    """The first dim of ``shape`` divisible by ``n`` (``graft_spec``'s
+    choice of the ZeRO dim on a replicated leaf), or None."""
+    return next((d for d, size in enumerate(shape)
+                 if size > 0 and size % n == 0), None)
+
+
+def _chunk(t: torch.Tensor, d: int, n: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s chunk of ``t`` along dim ``d`` of ``n``, with that
+    dim first (a view)."""
+    return t.movedim(d, 0).chunk(n)[rank]
+
+
+class _RankMajor:
+    """Tensors laid out for a collective over ``n`` ranks: tensor t's
+    chunk r (along its dim ``dims[t]``) lies in the r-th contiguous 1/n
+    of the flat buffer, so ``reduce_scatter_tensor`` hands rank r its
+    chunks of every tensor and ``all_gather_into_tensor`` puts them
+    back."""
+
+    def __init__(self, shapes, dims, n: int):
+        self.n = n
+        self.dims = dims
+        # A chunk in the layout it is packed in: the sharded dim first.
+        self.chunk_shapes = [
+            (s[d] // n,) + tuple(s[:d]) + tuple(s[d + 1:])
+            for s, d in zip(shapes, dims)]
+        self.sizes = [torch.Size(c).numel() for c in self.chunk_shapes]
+        self.per_rank = sum(self.sizes)
+
+    def pack(self, tensors) -> torch.Tensor:
+        return torch.cat([t.float().movedim(d, 0).reshape(self.n, -1)
+                          for t, d in zip(tensors, self.dims)],
+                         dim=1).reshape(-1)
+
+    def chunks(self, shard: torch.Tensor):
+        """Views of one rank's chunk of each tensor in a [per_rank]
+        buffer."""
+        return [piece.view(shape) for piece, shape in
+                zip(shard.split(self.sizes), self.chunk_shapes)]
+
+    @torch.no_grad()
+    def unpack(self, flat: torch.Tensor, tensors) -> None:
+        parts = flat.view(self.n, self.per_rank).split(self.sizes, dim=1)
+        for t, d, part in zip(tensors, self.dims, parts):
+            t.movedim(d, 0).copy_(part.reshape(t.movedim(d, 0).shape))
+
+
+def _all_reduce_mean(tensors, world: int) -> None:
+    """Replace each tensor by its mean over every rank, on flat f32
+    buckets."""
+    for group in _buckets([t.numel() for t in tensors]):
+        flat = torch.cat([tensors[i].float().reshape(-1) for i in group])
+        dist.all_reduce(flat)
+        flat /= world
+        for i, piece in zip(group, flat.split([tensors[i].numel()
+                                               for i in group])):
+            tensors[i].copy_(piece.view(tensors[i].shape))
+
+
+class _ReplicatedPlan:
+    """Replicated parameters on every rank of a (dp, fsdp) mesh; each rank
+    takes its rows of the batch, and the gradients are averaged over all
+    of them with explicit collectives on flat f32 buckets:
+
+    - flat: one all-reduce over every batch rank;
+    - hierarchical (``ici`` > 1): reduce-scatter over ``ici_axis`` (one
+      node: NVLink), all-reduce of that 1/ici shard over ``dp`` (across
+      nodes), all-gather over ``ici_axis``;
+    - ZeRO (``shard_update``, dp > 1, arXiv:2004.13336): the optimizer
+      holds only this rank's chunk of each parameter, so its state lives
+      sharded from step 0: the gradients are reduce-scattered over
+      ``dp`` and all-reduced over the other batch axis, AdamW updates the
+      chunk, and the updated chunks are all-gathered into the
+      parameters.  Combined with the hierarchical schedule the update
+      takes the intra-node shards directly: reduce-scatter over
+      ``ici_axis``, all-reduce over dp, update, all-gather over
+      ``ici_axis``.
+
+    A chunk is cut along the parameter's first dim divisible by the
+    group's size; a parameter with no such dim stays whole and is
+    all-reduced, as ``graft_spec`` leaves it replicated."""
+
+    def __init__(self, mesh, zero: bool, hier: bool, ici_axis: str):
+        sizes = _axis_sizes(mesh)
+        self.device = _mesh_device(mesh)
+        self.world = dist.get_world_size()
+        self.zero = zero
+        # The collectives' pair: the group the buckets are scattered
+        # over, and the group that then reduces the scattered shard.
+        if hier:
+            scatter, other = ici_axis, "dp"
+        else:
+            scatter, other = "dp", "fsdp"
+        self.scatter = (mesh.get_group(scatter), sizes[scatter])
+        self.other = (mesh.get_group(other), sizes[other])
+        self.split = zero or hier
+        self.layouts = []          # (indices, _RankMajor) per bucket
+        self.whole = []            # indices reduced whole
+        self.masters = {}          # index -> this rank's chunk (ZeRO)
+
+    def place(self, model):
+        return model
+
+    def optimizer(self, model, factory):
+        params = [p for p in model.parameters() if p.requires_grad]
+        group, n = self.scatter
+        dims = {i: _first_divisible_dim(p.shape, n)
+                for i, p in enumerate(params)} if self.split else {}
+        chunked = [i for i in range(len(params)) if dims.get(i) is not None]
+        self.whole = [i for i in range(len(params)) if i not in chunked]
+        self.layouts = [
+            (idx, _RankMajor([params[i].shape for i in idx],
+                             [dims[i] for i in idx], n))
+            for idx in (
+                [chunked[j] for j in b]
+                for b in _buckets([params[i].numel() for i in chunked]))]
+        if not self.zero:
+            return factory(params)
+        rank = dist.get_rank(group)
+        for idx, layout in self.layouts:
+            for i, d in zip(idx, layout.dims):
+                self.masters[i] = torch.nn.Parameter(
+                    _chunk(params[i].detach(), d, n, rank).clone(
+                        memory_format=torch.contiguous_format))
+        return factory([self.masters.get(i, p)
+                        for i, p in enumerate(params)])
+
+    def reduce(self, params) -> None:
+        """Gradients (each rank's mean over its rows) -> the mean over
+        every batch rank: in ``p.grad``, or in the masters' ``grad``
+        under ZeRO."""
+        group, n = self.scatter
+        other, n_other = self.other
+        if not self.split:
+            _all_reduce_mean([p.grad for p in params], self.world)
+            return
+        for idx, layout in self.layouts:
+            flat = layout.pack([params[i].grad for i in idx])
+            shard = flat.new_empty(layout.per_rank)
+            dist.reduce_scatter_tensor(shard, flat, group=group)
+            if n_other > 1:
+                dist.all_reduce(shard, group=other)
+            shard /= self.world
+            if self.zero:
+                for i, chunk in zip(idx, layout.chunks(shard)):
+                    self.masters[i].grad = chunk.to(params[i].dtype)
+                    params[i].grad = None
+            else:
+                dist.all_gather_into_tensor(flat, shard, group=group)
+                layout.unpack(flat, [params[i].grad for i in idx])
+        _all_reduce_mean([params[i].grad for i in self.whole], self.world)
+
+    def grad_norm(self, params) -> torch.Tensor:
+        if not self.zero:
+            return optax_global_norm([p.grad for p in params])
+        group, _ = self.scatter
+        split = optax_global_norm([m.grad for m in self.masters.values()])
+        split = split.square()
+        dist.all_reduce(split, group=group)
+        whole = [params[i].grad for i in self.whole]
+        if whole:
+            split = split + optax_global_norm(whole).square()
+        return split.sqrt()
+
+    @torch.no_grad()
+    def after_step(self, params) -> None:
+        """ZeRO: all-gather the updated chunks into the parameters."""
+        if not self.zero:
+            return
+        group, n = self.scatter
+        for idx, layout in self.layouts:
+            shard = torch.cat([self.masters[i].float().reshape(-1)
+                               for i in idx])
+            flat = shard.new_empty(n * layout.per_rank)
+            dist.all_gather_into_tensor(flat, shard, group=group)
+            layout.unpack(flat, [params[i] for i in idx])
+
+    def _chunk_layout(self, i):
+        for idx, layout in self.layouts:
+            if i in idx:
+                return layout, idx.index(i)
+        raise KeyError(i)
+
+    def state_dict(self, state) -> dict:
+        """The full state, as one device's optimizer over
+        ``model.parameters()`` would hold it: ZeRO chunks of the moments
+        are all-gathered (every rank takes part)."""
+        optim = state.optimizer.state_dict()
+        if self.zero:
+            group, n = self.scatter
+            for i, master in self.masters.items():
+                layout, k = self._chunk_layout(i)
+                d = layout.dims[k]
+                for key, value in optim["state"].get(i, {}).items():
+                    if torch.is_tensor(value) and \
+                            value.shape == master.shape:
+                        full = value.new_empty(
+                            (n * value.shape[0],) + tuple(value.shape[1:]))
+                        dist.all_gather_into_tensor(full, value.contiguous(),
+                                                    group=group)
+                        optim["state"][i][key] = full.movedim(0, d)
+        return {"model": state.model.state_dict(), "optimizer": optim}
+
+    @torch.no_grad()
+    def load_state_dict(self, state, payload: dict) -> None:
+        state.model.load_state_dict(payload["model"])
+        optim = payload["optimizer"]
+        if self.zero:
+            group, n = self.scatter
+            rank = dist.get_rank(group)
+            params = [p for p in state.model.parameters() if p.requires_grad]
+            optim = {"param_groups": optim["param_groups"],
+                     "state": dict(optim["state"])}
+            for i, master in self.masters.items():
+                layout, k = self._chunk_layout(i)
+                d = layout.dims[k]
+                master.copy_(_chunk(params[i], d, n, rank))
+                entry = dict(optim["state"].get(i, {}))
+                for key, value in entry.items():
+                    if torch.is_tensor(value) and value.dim() and \
+                            value.shape == params[i].shape:
+                        entry[key] = _chunk(value, d, n, rank).clone()
+                optim["state"][i] = entry
+        state.optimizer.load_state_dict(optim)
+
+
+class _ShardedPlan:
+    """Parameters sharded over ``fsdp`` with FSDP2 ``fully_shard``: one
+    unit per block (each child of the model's ``nn.ModuleList``s) and the
+    root.  FSDP2 shards every parameter of a unit on dim 0 (the JAX spec
+    names dim 1 for some; numerics do not depend on it) and reduces the
+    gradients inside the backward: with dp > 1 over the 2-D (dp, fsdp)
+    mesh, replicated over dp (HSDP: reduce-scatter over fsdp, then
+    all-reduce of the shard over dp, which is the hierarchical
+    schedule).  With ``shard_update`` and dp > 1 the parameters and
+    optimizer state are sharded over every batch rank (dp x fsdp), the
+    JAX ZeRO plan's optimizer-state sharding."""
+
+    def __init__(self, mesh, zero: bool):
+        from torch.distributed.device_mesh import DeviceMesh
+        sizes = _axis_sizes(mesh)
+        self.device = _mesh_device(mesh)
+        self.world = dist.get_world_size()
+        if sizes["dp"] == 1:
+            self.mesh, self.norm_group = mesh["fsdp"], mesh.get_group("fsdp")
+        elif zero:
+            # Batch ranks are every rank here (the other axes are 1).
+            self.mesh = DeviceMesh(mesh.device_type,
+                                   list(range(self.world)))
+            self.norm_group = self.mesh.get_group()
+        else:
+            self.mesh = mesh["dp", "fsdp"]
+            self.norm_group = mesh.get_group("fsdp")
+
+    def place(self, model):
+        from torch.distributed.fsdp import fully_shard
+        for module in list(model.modules()):
+            if isinstance(module, torch.nn.ModuleList):
+                for block in module:
+                    fully_shard(block, mesh=self.mesh)
+        fully_shard(model, mesh=self.mesh)
+        return model
+
+    def optimizer(self, model, factory):
+        return factory(model.parameters())
+
+    def reduce(self, params) -> None:
+        """FSDP2 reduced the gradients in the backward."""
+
+    def grad_norm(self, params) -> torch.Tensor:
+        local = optax_global_norm([p.grad.to_local() for p in params])
+        ssq = local.square()
+        dist.all_reduce(ssq, group=self.norm_group)
+        return ssq.sqrt()
+
+    def after_step(self, params) -> None:
+        """FSDP2 all-gathers the shards in the next forward."""
+
+    def _options(self):
+        from torch.distributed.checkpoint.state_dict import StateDictOptions
+        return StateDictOptions(full_state_dict=True, cpu_offload=True)
+
+    def state_dict(self, state) -> dict:
+        """The full model and optimizer state on rank 0 (empty elsewhere;
+        every rank takes part): ``torch.distributed.checkpoint``'s
+        ``get_state_dict``, its optimizer state keyed by parameter
+        name."""
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+        model, optim = get_state_dict(state.model, state.optimizer,
+                                      options=self._options())
+        return {"model": model, "optimizer": optim}
+
+    def load_state_dict(self, state, payload: dict) -> None:
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, set_state_dict)
+        set_state_dict(state.model, state.optimizer,
+                       model_state_dict=payload["model"],
+                       optim_state_dict=payload["optimizer"],
+                       options=StateDictOptions(full_state_dict=True))
+
+
+def _mesh_plan(mesh, param_specs, shard_update, hierarchical_allreduce,
+               ici_axis):
+    sizes = _axis_sizes(mesh)
+    wider = {a: n for a, n in sizes.items()
+             if a not in ("dp", "fsdp") and n > 1}
+    if wider:
+        raise _multi_gpu(f"a mesh with {wider}")
+    zero = shard_update and sizes["dp"] > 1
+    if param_specs is not None and sizes["fsdp"] > 1 and any(
+            "fsdp" in spec for spec in param_specs.values()):
+        return _ShardedPlan(mesh, zero)
+    hier = hierarchical_allreduce and sizes.get(ici_axis, 1) > 1
+    return _ReplicatedPlan(mesh, zero, hier, ici_axis)
+
+
 def build_train_step(loss_fn: Callable, optimizer, mesh=None,
                      param_specs=None, remat: bool = False,
                      accum_steps: int = 1, shard_update: bool = False,
-                     hierarchical_allreduce: bool = False, goodput=None,
+                     hierarchical_allreduce: bool = False,
+                     ici_axis: str = "fsdp", goodput=None,
                      telemetry_registry=None,
                      sync_every: Optional[int] = None):
-    """Build (init_fn, step_fn) on one device.
+    """Build (init_fn, step_fn), on one device or over ``mesh``.
 
     - loss_fn(model, batch) -> scalar loss; batch is a tensor (or a tuple
-      of tensors) whose dim 0 is the batch.
+      of tensors) whose dim 0 is the batch: under a mesh, this rank's
+      rows of the global batch (``parallel.mesh.batch_rows``; the batch
+      is sharded over (dp, fsdp)).
     - optimizer: a factory over the parameters (:func:`adamw`).
+    - mesh: a ``parallel.mesh.create_mesh`` DeviceMesh; the metrics are
+      then those of the global batch (the loss mean and the gradients
+      are averaged over every batch rank).
+    - param_specs: ``models.llama.llama_param_specs``; with fsdp > 1 the
+      parameters are sharded over it (:class:`_ShardedPlan`), else
+      replicated (:class:`_ReplicatedPlan`).
+    - shard_update / hierarchical_allreduce / ici_axis: the ZeRO update
+      and the hierarchical gradient schedule (see the plans); a 1-sized
+      dp is the plain update and a 1-sized ``ici_axis`` the flat
+      schedule, as on one device (no mesh).
     - remat: run the loss under activation checkpointing.
     - accum_steps: >1 runs the batch as that many microbatches under one
       update, with the strided split of the JAX step (row r goes to
       microbatch r % accum_steps); loss and gradients are the mean over
-      microbatches, accumulated in f32.
+      microbatches, accumulated in f32 (in the parameters' type under
+      FSDP2).  Under a mesh the global batch must divide by
+      accum_steps x dp*fsdp, and gradients are reduced once, after the
+      last microbatch.
     - goodput / telemetry_registry: wrap step_fn in
       ``telemetry.goodput.instrument_step`` (sync every ``sync_every``).
 
-    init_fn(model) -> TrainState; step_fn(state, batch) -> (state,
-    metrics) with ``loss`` and ``grad_norm`` (of the gradients before the
-    update) as f32 device scalars, read by nobody unless asked."""
-    if mesh is not None or param_specs is not None:
-        raise _multi_gpu("sharded training (mesh=, param_specs=)")
-    if shard_update or hierarchical_allreduce:
-        raise _multi_gpu("shard_update / hierarchical_allreduce")
+    init_fn(model, init_weights=None) -> TrainState: under a mesh the
+    model is placed first (sharded by FSDP2; a model on the meta device
+    is then allocated on the mesh's device) and ``init_weights(model)``
+    fills it before the optimizer is made (``models.params.init_params_``
+    fills each rank's shard).  step_fn(state, batch) -> (state, metrics)
+    with ``loss`` and ``grad_norm`` (of the gradients before the update)
+    as f32 device scalars, read by nobody unless asked."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    plan = None
+    batch_shards = 1
+    if mesh is not None:
+        plan = _mesh_plan(mesh, param_specs, shard_update,
+                          hierarchical_allreduce, ici_axis)
+        batch_shards = plan.world
+    fsdp = isinstance(plan, _ShardedPlan)
     run_loss = loss_fn
     if remat:
         def run_loss(model, batch):
             return checkpoint(loss_fn, model, batch, use_reentrant=False)
 
-    def init_fn(model):
+    def init_fn(model, init_weights: Optional[Callable] = None):
+        if plan is not None:
+            model = plan.place(model)
+            if any(p.is_meta for p in model.parameters()):
+                model.to_empty(device=plan.device)
+        if init_weights is not None:
+            init_weights(model)
+        make = optimizer if plan is None else \
+            (lambda params: plan.optimizer(model, optimizer))
         return TrainState(step=0, model=model,
-                          optimizer=optimizer(model.parameters()))
+                          optimizer=make(model.parameters()), plan=plan)
 
     def split(batch, i):
         if isinstance(batch, (tuple, list)):
             return type(batch)(split(x, i) for x in batch)
         if batch.shape[0] % accum_steps:
-            raise ValueError(f"batch dim {batch.shape[0]} not divisible by "
-                             f"accum_steps {accum_steps}")
+            if plan is None:
+                raise ValueError(f"batch dim {batch.shape[0]} not divisible"
+                                 f" by accum_steps {accum_steps}")
+            raise ValueError(
+                f"batch dim {batch.shape[0] * batch_shards} not divisible by"
+                f" accum_steps {accum_steps} x batch shards {batch_shards}"
+                f" (dp*fsdp)")
         return batch[i::accum_steps]
 
     def grads_of(state, batch):
@@ -120,9 +520,21 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
             loss = run_loss(state.model, batch)
             loss.backward()
             return loss.detach().float(), params
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
+        if fsdp:
+            # FSDP2 accumulates the unsharded gradients itself and
+            # reduces once, in the last microbatch's backward.
+            for i in range(accum_steps):
+                state.model.set_requires_gradient_sync(
+                    i == accum_steps - 1)
+                loss = run_loss(state.model, split(batch, i))
+                loss.backward()
+                loss_sum += loss.detach().float()
+            for p in params:
+                p.grad /= accum_steps
+            return loss_sum / accum_steps, params
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         for i in range(accum_steps):
             loss = run_loss(state.model, split(batch, i))
             loss.backward()
@@ -137,8 +549,16 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
     def step_fn(state: TrainState, batch):
         state.optimizer.zero_grad(set_to_none=True)
         loss, params = grads_of(state, batch)
-        grad_norm = optax_global_norm([p.grad for p in params])
+        if plan is None:
+            grad_norm = optax_global_norm([p.grad for p in params])
+        else:
+            plan.reduce(params)
+            dist.all_reduce(loss)
+            loss /= plan.world
+            grad_norm = plan.grad_norm(params)
         state.optimizer.step()
+        if plan is not None:
+            plan.after_step(params)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
 
@@ -223,12 +643,21 @@ def _first_step_span(t0: float, metrics, step: int) -> None:
 
 
 class _NoticePoller:
-    """At most one stat of the notice file per step, none once seen."""
+    """At most one stat of the notice file per step, none once seen.
+
+    In a process group the save on a notice is collective, so every rank
+    must stop at the same step: :meth:`agreed` ORs the ranks' notices
+    with one all-reduce on a CPU (gloo) group, which does not wait for
+    the card."""
 
     def __init__(self, path: Optional[str]):
         self._path = path
         self._seen = False
         self.stats = 0
+        self._agree = dist.is_initialized() and dist.get_world_size() > 1
+        self._group = None                  # the default group: gloo
+        if self._agree and dist.get_backend() != "gloo":
+            self._group = dist.new_group(backend="gloo")
 
     def poll(self) -> bool:
         if self._seen:
@@ -237,6 +666,15 @@ class _NoticePoller:
             return False
         self.stats += 1
         self._seen = os.path.exists(self._path)
+        return self._seen
+
+    def agreed(self) -> bool:
+        seen = self.poll()
+        if not self._agree:
+            return seen
+        flag = torch.tensor([int(seen)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+        self._seen = bool(flag.item())
         return self._seen
 
 
@@ -251,9 +689,12 @@ def run_train_loop(state, step_fn, batches, checkpoint_manager=None,
 
     Each step: run it, let the checkpoint manager save on its schedule,
     then poll the preemption notice once (re-polling right after an
-    async write completes); one poll before the first step too.  On a
-    notice the loop checkpoints at once, drains the writer and raises
-    SystemExit(143), so the restarted job resumes from this step
+    async write completes); one poll before the first step too.  In a
+    process group the ranks agree on each poll (any rank's notice stops
+    all of them at the same step).  On a notice the loop checkpoints at
+    once (collectively: every rank takes part, rank 0 writes), drains
+    the writer and raises SystemExit(143), so the restarted job resumes
+    from this step
     (``exit_on_preemption=False`` returns instead).  ``prefetch`` batches
     are pulled ahead on a thread (utils.data.DevicePrefetcher; 0
     disables).  On every exit path the step function's open goodput
@@ -311,7 +752,7 @@ def run_train_loop(state, step_fn, batches, checkpoint_manager=None,
     if checkpoint_manager is not None:
         save_completed = checkpoint_manager.completed_since_last_poll
     try:
-        if poller.poll():
+        if poller.agreed():
             handle_preemption(saved_this_step=False)
             return state, step
         for batch in source:
@@ -331,7 +772,7 @@ def run_train_loop(state, step_fn, batches, checkpoint_manager=None,
                 saved = checkpoint_manager.maybe_save(state, step)
                 if save_completed():
                     poller.poll()
-            if poller.poll():
+            if poller.agreed():
                 handle_preemption(saved_this_step=saved)
                 return state, step
     finally:

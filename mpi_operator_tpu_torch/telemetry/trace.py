@@ -45,7 +45,7 @@ from typing import Iterable, List, Optional
 # (mpi_operator_tpu/api/constants.py), so a context stamped there
 # decodes in a torch worker.
 TRACE_CONTEXT_ANNOTATION = "trace.kubeflow.org/context"
-TRACE_CONTEXT_ENV = "MPI_OPERATOR_TRACE_CONTEXT"
+from ..api.constants import TRACE_CONTEXT_ENV  # noqa: E402,F401
 
 
 @dataclass(frozen=True)

@@ -17,9 +17,16 @@ properties carry over from the JAX module:
   dumped as a ``checkpoint-writer-error`` bundle, stored, and re-raised
   at the next save point or ``drain()``.
 
+In a process group a save is collective and rank 0 writes:
+``state_dict()`` gathers the full state (``parallel.train.TrainState``
+under a mesh: FSDP2 shards and ZeRO chunks), every rank calls it, and
+only rank 0 snapshots it to host memory and writes the one directory.
+Every rank restores from that directory (``load_state_dict`` places the
+full state back onto its shards), so the directory must be shared.
+Sharded, manifest-based checkpoints are ROADMAP.md queue 1 item 5.
+
 Saves and restores are ``checkpoint_save`` / ``checkpoint_restore``
-spans.  Not ported yet: multi-process writes (ROADMAP.md queue 1 item
-3).
+spans.
 """
 
 from __future__ import annotations
@@ -121,21 +128,32 @@ def _payload(state: Any):
     return state if isinstance(state, dict) else state.state_dict()
 
 
+def is_writer() -> bool:
+    """True on the process that writes checkpoints: rank 0 of the
+    process group, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, state: Any, step: int,
                     keep: int = 3) -> str:
     """Save ``state`` (an object with ``state_dict()``, or a state dict)
     at ``step``; atomic: the write lands in ``step_NNNNNNNN.tmp-w`` and is
-    renamed into place after the data and the ``_COMMITTED`` marker."""
-    os.makedirs(directory, exist_ok=True)
+    renamed into place after the data and the ``_COMMITTED`` marker.
+    In a process group every rank calls it and rank 0 writes."""
     path = _step_dir(directory, step)
     tmp = _tmp_dir(directory, step)
     with span("checkpoint_save", step=step), \
             _checkpoint_metrics()["save"].time():
+        payload = _payload(state)
+        if not is_writer():
+            return path
+        os.makedirs(directory, exist_ok=True)
         if os.path.isdir(tmp):
             # Crash leftover from a previous attempt at this exact step.
             shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_payload(state), os.path.join(tmp, STATE_FILE))
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
         with open(os.path.join(tmp, COMMIT_MARKER), "w") as f:
             f.write(f"step={step}\n")
         if os.path.isdir(path):
@@ -309,13 +327,16 @@ class CheckpointManager:
 
         def _snapshot():
             with self._metrics["snapshot"].time():
-                return _to_host(_payload(state))
+                payload = _payload(state)      # every rank takes part
+                return _to_host(payload) if is_writer() else None
 
         if self.goodput is not None:
             with self.goodput.checkpoint_save():
                 host_state = _snapshot()
         else:
             host_state = _snapshot()
+        if host_state is None:
+            return _step_dir(self.directory, step)
         self._metrics["async_saves"].inc()
         self._thread = threading.Thread(
             target=self._write, args=(host_state, step),

@@ -1,13 +1,13 @@
-"""Input pipeline helpers: counterpart of ``mpi_operator_tpu/utils/data.py``
-on one device.  The token file loader is ``native/dataloader.py``
-(``NativeTokenLoader``); ``global_batch_iterator`` is multi-process and
-waits for ROADMAP.md queue 1 item 3 (multi-GPU parallelism)."""
+"""Input pipeline helpers: counterpart of ``mpi_operator_tpu/utils/data.py``.
+The token file loader is ``native/dataloader.py`` (``NativeTokenLoader``,
+which splits the corpus by process); :func:`global_batch_iterator` feeds
+each process its own rows of the global batch."""
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +26,35 @@ def _to_device(item, device):
     if isinstance(item, (tuple, list)):
         return type(item)(_to_device(x, device) for x in item)
     return torch.as_tensor(item).to(device)
+
+
+def global_batch_iterator(local_batch_fn: Callable[[int], Sequence],
+                          mesh, device,
+                          steps: Optional[int] = None) -> Iterator:
+    """Yield this process's rows of each global batch, on ``device``.
+
+    - local_batch_fn(step) -> tuple of arrays: THIS process's share,
+      [global_batch / (dp*fsdp), ...].  Process p holds the rows
+      ``parallel.mesh.batch_rows`` names for its mesh coordinate, the
+      rows ``jax.make_array_from_process_local_data`` gives it, so no
+      host ever holds the global batch.
+    - mesh: the process's ``DeviceMesh`` (None: one process, a plain
+      copy); every process of one batch shard must feed the same rows.
+
+    Tuples of tensors come out, as the JAX iterator yields tuples of
+    global arrays."""
+    if mesh is not None:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        wider = {a: n for a, n in sizes.items()
+                 if a not in ("dp", "fsdp") and n > 1}
+        if wider:
+            raise NotImplementedError(
+                f"batches over a mesh with {wider}: ROADMAP.md queue 1 "
+                f"item 3 (multi-GPU parallelism)")
+    step = 0
+    while steps is None or step < steps:
+        yield tuple(_to_device(arr, device) for arr in local_batch_fn(step))
+        step += 1
 
 
 class DevicePrefetcher:

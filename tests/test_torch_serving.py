@@ -363,7 +363,8 @@ def test_out_of_slice_options_raise(weights):
 _PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                      (REPO / "mpi_operator_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "examples/llama_serve_torch.py",
-    "examples/llama_train_torch.py", "tools/torch_decode_profile.py"]
+    "examples/llama_train_torch.py", "examples/torch_pi.py",
+    "tools/torch_decode_profile.py"]
 
 
 def test_port_imports_no_jax_and_serves_the_example_demo():
@@ -390,7 +391,8 @@ def test_port_imports_no_jax_and_serves_the_example_demo():
             "    '--weight-dtype', 'int8', '--prefill-chunk', '2',\n"
             "    '--draft-strategy', 'self', '--draft-len', '3')\n"
             "run('examples/llama_train_torch.py', '--config', 'tiny',\n"
-            "    '--device', 'cpu', '--steps', '2', '--seq-len', '32')\n")
+            "    '--device', 'cpu', '--steps', '2', '--seq-len', '32')\n"
+            "run('examples/torch_pi.py', '1000', '--device', 'cpu')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
@@ -400,6 +402,7 @@ def test_port_imports_no_jax_and_serves_the_example_demo():
         assert len(json.loads(line[len("demo:"):])["tokens"][0]) == 8
     assert any(ln.startswith("tokens/sec: ") for ln in
                proc.stdout.splitlines()), proc.stdout
+    assert "workers=1 samples=1000 pi=" in proc.stdout
     banned = re.compile(r"^\s*(import|from)\s+"
                         r"(jax|flax|optax|orbax|mpi_operator_tpu)"
                         r"\b(?!_)|mpi_operator_tpu\.", re.M)

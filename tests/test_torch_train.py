@@ -14,6 +14,7 @@ checkpoints, the step instrumentation counters and the prefetcher.
 
 import importlib
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from mpi_operator_tpu_torch.models.params import (from_flax_params,
                                                   init_params,
                                                   load_flax_params)
 from mpi_operator_tpu_torch.ops import fused_xent as tfx
+from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
 from mpi_operator_tpu_torch.parallel import train as ttrain
 from mpi_operator_tpu_torch.telemetry.goodput import (GoodputTracker,
                                                       instrument_step)
@@ -215,10 +217,14 @@ def test_accum_steps_equals_the_full_batch_and_out_of_slice_raise():
                                    atol=STEP_TOL, rtol=STEP_TOL)
     with pytest.raises(ValueError, match="divisible"):
         _tiny_state(3)[1](_tiny_state(3)[0], tokens)
-    for kw in (dict(mesh=object()), dict(shard_update=True),
-               dict(hierarchical_allreduce=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            _tiny_state(**kw)
+    # One device is a 1-sized dp and ici axis: the plain step.
+    for kw in (dict(shard_update=True), dict(hierarchical_allreduce=True)):
+        assert _tiny_state(**kw)[0].plan is None
+    # A mesh axis that training does not shard yet raises.
+    mesh = types.SimpleNamespace(mesh_dim_names=AXIS_NAMES,
+                                 shape=(1, 1, 1, 1, 2, 1))
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        _tiny_state(mesh=mesh)
 
 
 def test_training_forward_shapes_and_remat_launch_count(monkeypatch):

@@ -12,8 +12,21 @@ steps on a fixed batch, then times ``steps`` steps: wall clock with a
 final synchronise, and device busy time from torch.profiler (the sum of
 kernel self times).  Prints the card line and one JSON object with the
 device time per step grouped by kernel family (flash kernels, bf16 and
-f32 matmuls, optimizer, the rest) and the top kernels.  Needs the card; imports
-nothing of JAX.
+f32 matmuls, optimizer, collectives, the rest) and the top kernels.
+Needs the card; imports nothing of JAX.
+
+Over several cards, one process per card with the operator's env
+(``JAX_COORDINATOR_ADDRESS``, ``JAX_PROCESS_ID``, ``JAX_NUM_PROCESSES``):
+
+    for r in 0 1 2 3; do JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 \
+        JAX_PROCESS_ID=$r JAX_NUM_PROCESSES=4 python3 \
+        tools/torch_train_profile.py --n-layers 32 --batch 1 & done; wait
+
+each process forms the NCCL group, shards the model over fsdp = the
+process count (``llama_param_specs``, built on the meta device, each
+rank filling its shard) and profiles its own steps; rank 0 prints.
+NCCL kernels run on their own stream beside the compute, so the
+families' sum can exceed the wall time.
 """
 
 import argparse
@@ -35,7 +48,8 @@ FAMILIES = (("flash_fwd", ("flash_fwd",)),
             ("flash_bwd", ("flash_bwd",)),
             ("f32_matmul", ("sgemm", "simt", "f32f32_f32f32")),
             ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
-            ("adamw", ("multi_tensor",)))
+            ("adamw", ("multi_tensor",)),
+            ("nccl", ("nccl",)))
 
 
 def family(name: str) -> str:
@@ -63,9 +77,14 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.bootstrap import initialize_from_env
     from mpi_operator_tpu_torch.models import llama
     from mpi_operator_tpu_torch.models.llama import next_token_loss
-    from mpi_operator_tpu_torch.models.params import init_params
+    from mpi_operator_tpu_torch.models.params import (init_params,
+                                                      init_params_)
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
     card = subprocess.run(
@@ -73,18 +92,29 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    initialize_from_env()
+    world = dist.get_world_size() if dist.is_initialized() else 1
     cfg = dataclasses.replace(getattr(llama, args.config)(),
                               n_layers=args.n_layers)
-    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        args.seed), device="cuda", dtype=cfg.param_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq_len),
                            device="cuda")
 
     def loss_fn(model, batch):
         return next_token_loss(model(batch), batch)
 
-    init, step = build_train_step(loss_fn, adamw(3e-4))
-    state = init(model)
+    if world > 1:
+        mesh = create_mesh(MeshConfig(dp=1, fsdp=world))
+        init, step = build_train_step(
+            loss_fn, adamw(3e-4), mesh=mesh,
+            param_specs=llama.llama_param_specs(cfg))
+        state = init(llama.LlamaModel(cfg, device="meta",
+                                      store_dtype=cfg.param_dtype),
+                     init_weights=lambda m: init_params_(m, gen))
+    else:
+        init, step = build_train_step(loss_fn, adamw(3e-4))
+        state = init(init_params(cfg, gen, device="cuda",
+                                 dtype=cfg.param_dtype))
     for _ in range(2):
         state, _ = step(state, tokens)
     torch.cuda.synchronize()
@@ -113,8 +143,13 @@ def main() -> int:
     top = sorted(((e.key, e.self_device_time_total / args.steps / 1e3,
                    e.count // args.steps) for e in kernels),
                  key=lambda k: -k[1])[:10]
+    if dist.is_initialized():
+        dist.barrier()
+        if dist.get_rank() != 0:
+            return 0
     print(json.dumps({
-        "card": card, "model": args.config, "n_layers": cfg.n_layers,
+        "card": card, "world": world, "model": args.config,
+        "n_layers": cfg.n_layers,
         "batch": args.batch, "seq_len": args.seq_len,
         "wall_ms_per_step": wall * 1e3,
         "device_busy_ms_per_step": device_ms,
