@@ -192,7 +192,40 @@ continued:
              whether the two runs' losses are bit-identical.  Checked:
              K1'/K2'/K3' launches == 4 x layers on each rank, finite
              losses, peak < 80 GB.
-8. profile   after every measured phase, the serving phase's concurrent
+9. tensor parallel  one process per card (4, 2 or 1), NCCL, each
+             forming its group from the operator's env.  First, in this
+             process on card 0, the one-card references: the 7B from
+             SEED, each serving prompt's prefill logits
+             (InferenceServer.prefill_logits) and, over each prompt and
+             its stream from phase 5, the one-card top-2 logit gap at
+             every position.  (a) llama2_7b, all 32 layers, bf16, drawn
+             as each rank's tp shard of the SEED weights, served at tp =
+             world through InferenceServer(mesh=) (8 slots, page 16, no
+             prefix cache; rank 0 on HTTP, the others in lock-step).
+             Checked: the prefill logits of every prompt against one
+             card, largest difference over largest |logit| <= 5e-2, and
+             a planted fault (rank 1 keeps its own partial of layer 0's
+             wo all-reduce) beyond it; each prompt alone, then all
+             concurrently with an SSE stream: concurrent == alone, the
+             streams equal phase 5's or first differ where the one-card
+             top-2 gap is below the measured logit error; on every rank
+             K4' launches == decode steps x 32 and peak < 80 GB.  (b)
+             with two cards or more, mixtral_8x7b at all 32 layers, tp =
+             world, the same run: concurrent == alone, K4' launches ==
+             steps x 32 on every rank, every expert routed, peak < 80
+             GB; at one card it prints that the model needs two.  (c)
+             with two cards or more: llama2_tiny f32, 3 AdamW steps at
+             tp = world (and at fsdp = 2 x tp = 2 at four cards) against
+             card 0 alone at 1e-5, and a planted fault (rank 1 keeps its
+             own input gradient at every copy-to-tp) that must fail;
+             then llama2_7b at full width, fsdp = 2 x tp = 2 with 32
+             layers (tp = 2 with 16 layers at two cards), 1 x 4096 tokens
+             a batch shard, 1 warm-up + 3 steps, twice: K1'-K3' launches
+             == 4 x layers on every rank, the two runs' losses
+             bit-identical, peak < 80 GB.  Printed: TTFT, inter-token
+             latency, tokens/s, peak per rank; ms a step, tokens/s a
+             card and train_mfu.
+10. profile  after every measured phase, the serving phase's concurrent
              prompts on a fresh server of the same shape, once to warm
              up and once under torch.profiler: K4''s device ms per
              decode step (its split and merge kernels) and its share of
@@ -352,6 +385,14 @@ PAGED_CASES = [
      [2048] * 8, False, False, None),
     ("f32_gqa", 4, 8, 2, 64, 16, 64, torch.float32, [1024, 700, 17, 1],
      False, False, None),
+    # The shard shapes of tensor-parallel serving (phase 9): a rank's
+    # query and KV heads of llama2_7b at tp 4, mixtral_8x7b at tp 4 and 2.
+    ("llama2_7b_tp4", 8, 8, 8, 128, 16, 256, torch.bfloat16, MIXED7, False,
+     True, None),
+    ("mixtral_tp4", 8, 8, 2, 128, 16, 256, torch.bfloat16, MIXED7, False,
+     True, None),
+    ("mixtral_tp2", 8, 16, 4, 128, 16, 256, torch.bfloat16, MIXED7, False,
+     True, None),
 ]
 
 
@@ -2361,6 +2402,548 @@ def distributed_phase(card: str):
     return {"world": world, "launches_rank0": stats[0]["launches"]}
 
 
+# -- phase 9: tensor parallel ---------------------------------------------------
+
+TP_LOGIT_LIMIT = 5e-2             # as phase 5c: the same bf16 products,
+                                  # summed in another order (see tp_phase)
+TP_DEADLINE_S = 900
+TP_STEPS = 4                      # one warm-up + 3 timed
+TP_DEVICE = "cuda"                # the ranks' device (a CPU dry run: "cpu")
+PR9_FSDP4 = "fsdp=4, 32 layers: 655-666 ms a step, 6,150-6,250 tokens/s a card"
+
+
+def tp_world() -> int:
+    """Ranks of phase 9: 4, 2 or 1 (tp must divide the heads)."""
+    cards = torch.cuda.device_count()
+    return 4 if cards >= 4 else (2 if cards >= 2 else 1)
+
+
+def serving_prompts(vocab: int):
+    """The serving phase's prompts (SERVE_PROMPT_LENS) and its 64-token
+    SSE prompt, from SEED."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in SERVE_PROMPT_LENS]
+    return prompts, rng.integers(1, vocab, 64).tolist()
+
+
+def tp_group():
+    """This process's NCCL group (initialize_from_env; at one card a
+    one-rank group, as the distributed phase forms it)."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.bootstrap import initialize_from_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_from_env(collective_timeout_seconds=600)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+    return dist.get_rank(), dist.get_world_size()
+
+
+def tp_mesh(**axes):
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    return create_mesh(MeshConfig(dp=1, **axes), TP_DEVICE)
+
+
+def tp_serve_run(server, prompts, stream_prompt, n_new):
+    """Rank 0 of a tp server: each prompt alone (one request at a time),
+    then all of them at once with the SSE stream.  Returns the streams
+    and the serving stats of the concurrent run."""
+    tm = server.telemetry
+    alone = [post(server.url + "/generate",
+                  {"tokens": [p], "max_new_tokens": n_new})["tokens"][0]
+             for p in prompts + [stream_prompt]]
+    t0 = time.perf_counter()
+    ttft0, itl0 = ((h.sum, h.count) for h in (tm["ttft_seconds"],
+                                               tm["token_latency_seconds"]))
+    fns = [lambda p=p: post(server.url + "/generate",
+                            {"tokens": [p], "max_new_tokens": n_new})
+           for p in prompts]
+    fns.append(lambda: read_sse(server.url + "/generate",
+                                {"tokens": [stream_prompt],
+                                 "max_new_tokens": n_new, "stream": True}))
+    results = run_concurrently(fns)
+    wall = time.perf_counter() - t0
+    events, _ = results[-1]
+    concurrent = [r["tokens"][0] for r in results[:-1]] + [
+        [e["token"] for e in events if "token" in e]]
+    ttft, itl = tm["ttft_seconds"], tm["token_latency_seconds"]
+    return {"alone": alone, "concurrent": concurrent,
+            "concurrent_wall_s": wall,
+            "output_tokens_per_s": sum(map(len, concurrent)) / wall,
+            "ttft_mean_s": (ttft.sum - ttft0[0]) / (ttft.count - ttft0[1]),
+            "inter_token_latency_mean_s":
+                (itl.sum - itl0[0]) / (itl.count - itl0[1])}
+
+
+def decode_timing(model, mirror=None, context: int = 128, steps: int = 20):
+    """Host and wall ms of one 8-slot decode step of ``model`` at
+    ``context`` cached tokens (a fresh batcher's ``decode_step`` after
+    ``fill_slots``; every rank of a tp group in lock-step), and under tp
+    the ms of one turn's exchange of host records (``mirror``)."""
+    from mpi_operator_tpu_torch.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(model, max_slots=8, page_size=16,
+                          prefix_cache=False, device=model.device,
+                          mirror=mirror)
+    b.fill_slots(context)
+    dev = model.device
+    args = (torch.zeros(8, dtype=torch.int32, device=dev),
+            torch.zeros(8, device=dev), torch.ones(8, device=dev),
+            [None] * 8, torch.zeros(8, dtype=torch.int32, device=dev))
+    out = {"context": context, "slots": 8}
+    with torch.inference_mode():
+        for _ in range(3):
+            b.decode_step(*args)
+        torch.cuda.synchronize()
+        host = 0.0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            b.decode_step(*args)
+            host += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        out["wall_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+        out["host_ms_per_step"] = host / steps * 1e3
+        if mirror is not None:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                mirror.exchange(0, {"stop": False, "new": [], "cancel": []})
+            out["exchange_ms"] = (time.perf_counter() - t0) / steps * 1e3
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve(world: int, rank: int, refs, moe: bool):
+    """One rank of phase 9 (a) (llama2_7b) or (b) (mixtral_8x7b): the
+    model built as this rank's tp shard from SEED, a tp server (8 slots,
+    page 16, no prefix cache), (a) the prefill logits of every prompt and
+    a planted fault, then rank 0 drives the serving run while the others
+    follow.  K4' launches and decode steps are counted on every rank
+    over the server's life."""
+    from mpi_operator_tpu_torch.models.llama import llama2_7b, mixtral_8x7b
+    from mpi_operator_tpu_torch.models.params import init_params
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.parallel.tensor import reduce_from_tp
+    from mpi_operator_tpu_torch.serving import InferenceServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mixtral_8x7b() if moe else llama2_7b()
+    mesh = tp_mesh(tp=world)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(SEED),
+                        device=TP_DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+    hits, hooks = [], []
+    if moe:
+        experts = torch.arange(cfg.n_experts, device=TP_DEVICE)
+
+        def count(module, inputs, output):
+            idx = module.last_routing[0]
+            hits.append((idx[..., None] == experts).sum((0, 1)))
+
+        hooks = [layer.feed_forward.register_forward_hook(count)
+                 for layer in model.layers]
+    server = InferenceServer(model, mesh=mesh, max_batch_slots=8,
+                             kv_page_size=16, kv_prefix_cache=False,
+                             device=TP_DEVICE, tp_timeout_s=600)
+    prompts, stream_prompt = refs["prompts"], refs["stream_prompt"]
+    if not moe:
+        out["logits"] = torch.stack([server.prefill_logits(p)
+                                     for p in prompts]).float().cpu()
+        if world > 1:
+            # Planted fault: rank 1 takes part in every wo all-reduce but
+            # keeps its own partial product.
+            def kept_own(attn):
+                def out(o):
+                    partial = attn.wo(o.reshape(o.shape[0], o.shape[1], -1))
+                    reduce_from_tp(partial, attn.tp)
+                    return partial
+                return out
+
+            attns = [layer.attention for layer in model.layers]
+            if rank == 1:
+                for attn in attns:
+                    attn._out = kept_own(attn)
+            out["fault_logits"] = server.prefill_logits(
+                prompts[3]).float().cpu()
+            if rank == 1:
+                for attn in attns:
+                    del attn._out
+    steps0 = server.telemetry["dispatches_total"].value
+    pa.LAUNCHES = 0
+    server.start()
+    try:
+        if server.is_leader:
+            out["run"] = tp_serve_run(server, prompts, stream_prompt,
+                                      SERVE_NEW_TOKENS)
+    finally:
+        if server.is_leader:
+            server.stop()
+        else:
+            server.join(timeout=TP_DEADLINE_S)
+            server.stop()
+    torch.cuda.synchronize()
+    out.update(launches=pa.LAUNCHES,
+               decode_steps=server.telemetry["dispatches_total"].value
+               - steps0, n_layers=cfg.n_layers,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if server.mirror is not None:
+        out["exchange_ms_per_turn"] = (server.mirror.seconds * 1e3
+                                       / server.mirror.turns)
+    for h in hooks:
+        h.remove()
+    if moe:
+        routed = torch.stack(hits).sum(0).double()
+        out["routed_share"] = (routed / routed.sum()).tolist()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not moe:
+        from mpi_operator_tpu_torch.serving.mirror import TickMirror
+        out["decode_timing"] = decode_timing(
+            model, TickMirror(model.tp) if world > 1 else None)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_parity_run(world: int, fsdp: int, fault: bool):
+    """Phase 9 (c) parity, one rank: llama2_tiny f32, DIST_PARITY_STEPS
+    AdamW steps at fsdp x tp = world from the one-card weights cut by
+    llama_param_specs; the full parameters after.  ``fault``: rank 1
+    takes part in every copy-to-tp all-reduce of the backward but keeps
+    its own input gradient."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from mpi_operator_tpu_torch.models.llama import (LlamaModel,
+                                                     llama_param_specs)
+    from mpi_operator_tpu_torch.models.params import (gather_state_dict,
+                                                      shard_state_dict)
+    from mpi_operator_tpu_torch.parallel import tensor as tpm
+    from mpi_operator_tpu_torch.parallel.mesh import batch_rows
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    cfg, weights, tokens = dist_parity_inputs(world)
+    mesh = tp_mesh(fsdp=fsdp, tp=world // fsdp)
+    model = LlamaModel(cfg, device=TP_DEVICE, store_dtype=torch.float32,
+                       mesh=mesh)
+    model.load_state_dict(shard_state_dict(weights, cfg, model.tp))
+    init, step = build_train_step(dist_loss, adamw(DIST_LR), mesh=mesh,
+                                  param_specs=llama_param_specs(cfg))
+    state = init(model)
+    rows = tokens[batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                             len(tokens))].to(TP_DEVICE)
+    real = tpm._CopyToTP.backward
+    if fault and dist.get_rank() == 1:
+        def kept_own(ctx, grad):
+            real(ctx, grad)
+            return grad, None
+        tpm._CopyToTP.backward = staticmethod(kept_own)
+    try:
+        metrics = []
+        for _ in range(DIST_PARITY_STEPS):
+            state, m = step(state, rows)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    finally:
+        tpm._CopyToTP.backward = real
+    local = {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+             for n, p in state.model.named_parameters()}
+    params = {n: t.cpu() for n, t in gather_state_dict(
+        local, cfg, state.model.tp).items()}
+    return metrics, params
+
+
+def tp_full_width_run(world: int):
+    """Phase 9 (c) full width, one rank: llama2_7b with all 32 layers at
+    fsdp = 2 x tp = 2 (world 4), or 16 layers at tp = 2 (world 2); built
+    on the meta device, each rank drawing its shard; 1 x 4096 tokens a
+    batch shard, f32 parameters and AdamW state, bf16 compute."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.params import init_params_
+    from mpi_operator_tpu_torch.ops import attention as fa
+    from mpi_operator_tpu_torch.parallel.mesh import batch_rows
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    fsdp = 2 if world >= 4 else 1
+    cfg = dataclasses.replace(llama.llama2_7b(),
+                              n_layers=32 if world >= 4 else 16)
+    seq = cfg.max_seq_len
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = tp_mesh(fsdp=fsdp, tp=world // fsdp)
+    init, step = build_train_step(dist_loss, adamw(3e-4), mesh=mesh,
+                                  param_specs=llama.llama_param_specs(cfg))
+    gen = torch.Generator(device=TP_DEVICE).manual_seed(SEED)
+    state = init(llama.LlamaModel(cfg, device="meta",
+                                  store_dtype=cfg.param_dtype, mesh=mesh),
+                 init_weights=lambda m: init_params_(m, gen))
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (fsdp, seq))
+    rows = torch.as_tensor(tokens[batch_rows(
+        tuple(mesh.shape), mesh.get_coordinate(), fsdp)], device=TP_DEVICE)
+    for kernel in fa.LAUNCHES:
+        fa.LAUNCHES[kernel] = 0
+    losses, stamps = [], []
+    dist.barrier()
+    for _ in range(TP_STEPS):
+        state, metrics = step(state, rows)
+        losses.append(metrics["loss"].item())
+        stamps.append(time.perf_counter())
+    launches = dict(fa.LAUNCHES)
+    step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    matmul_params = cfg.n_layers * (
+        2 * cfg.dim * cfg.n_heads * cfg.head_dim
+        + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
+        + 3 * cfg.dim * cfg.ffn_dim) + cfg.dim * cfg.vocab_size
+    flops = fsdp * (6 * seq * matmul_params
+                    + 12 * cfg.n_layers * seq ** 2 * cfg.dim / 2)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    return {"n_layers": cfg.n_layers, "fsdp": fsdp, "tp": world // fsdp,
+            "tokens_per_batch_shard": seq, "losses": losses,
+            "step_ms": step_s * 1e3,
+            "each_step_ms": [(b - a) * 1e3 for a, b in zip(stamps,
+                                                          stamps[1:])],
+            "tokens_per_s_per_card": fsdp * seq / step_s / world,
+            "train_mfu": flops / step_s / (world * PEAK_OPS[torch.bfloat16]),
+            "alloc_retries": torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0),
+            "peak_bytes": peak, "launches": launches}
+
+
+def tp_rank(out_dir: str) -> int:
+    """A child of phase 9: (a) always; (b) and (c) with two cards or
+    more."""
+    import torch.distributed as dist
+
+    rank, world = tp_group()
+    refs = torch.load(os.path.join(out_dir, "tp_refs.pt"))
+    result = {"rank": rank, "world": world, "card":
+              torch.cuda.current_device(), "backend": dist.get_backend()}
+    tensors = {}
+    serve = tp_serve(world, rank, refs, moe=False)
+    tensors.update(logits=serve.pop("logits"),
+                   fault_logits=serve.pop("fault_logits", None))
+    result["serve"] = serve
+    if world >= 2:
+        result["moe"] = tp_serve(world, rank, refs, moe=True)
+        runs = {"tp": tp_parity_run(world, 1, fault=False),
+                "tp_fault": tp_parity_run(world, 1, fault=True)}
+        if world >= 4:
+            runs["fsdp_tp"] = tp_parity_run(world, 2, fault=False)
+        result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
+        tensors["parity"] = {k: v[1] for k, v in runs.items()}
+        result["full_width"] = [tp_full_width_run(world) for _ in range(2)]
+    if rank == 0:
+        torch.save(tensors, os.path.join(out_dir, "tp_tensors.pt"))
+    with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_references(out_dir: str, serve):
+    """One-card references on card 0, in this process: the 7B from SEED,
+    each serving prompt's prefill logits (as the tp ranks take them), and
+    over each prompt and its phase-5 stream the one-card top-2 logit gap
+    at every stream position, relative to the largest |logit|."""
+    from mpi_operator_tpu_torch.models.llama import init_cache
+    from mpi_operator_tpu_torch.serving import ContinuousBatcher
+
+    model = serving_model()
+    prompts, stream_prompt = serving_prompts(model.config.vocab_size)
+    if prompts != serve["prompts"]:
+        raise SystemExit("tensor parallel: the serving prompts moved")
+    batcher = ContinuousBatcher(model, max_slots=1, page_size=16,
+                                prefix_cache=False, device="cuda")
+    with torch.inference_mode():
+        logits = torch.stack([batcher.prefill_logits(p)
+                              for p in prompts]).float().cpu()
+        gaps = []
+        for p, stream in zip(prompts + [stream_prompt], serve["alone"]):
+            seq = p + stream[:-1]
+            cache = init_cache(model.config, 1, "cuda", max_len=len(seq))
+            out = model(torch.tensor([seq], device="cuda"), cache=cache,
+                        decode=True)[0, len(p) - 1:].float()
+            top2 = out.topk(2, dim=-1).values
+            gaps.append(((top2[:, 0] - top2[:, 1])
+                         / out.abs().amax(-1)).cpu().tolist())
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = decode_timing(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save({"prompts": prompts, "stream_prompt": stream_prompt,
+                "logits": logits, "gaps": gaps, "alone": serve["alone"]},
+               os.path.join(out_dir, "tp_refs.pt"))
+    return logits, gaps, timing
+
+
+def logit_err(got, want) -> float:
+    """Largest difference over largest |logit|, per prompt, the worst."""
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+
+
+def stream_verdict(got, want, gaps, limit):
+    """None when the streams agree or first differ where the one-card
+    top-2 gap is below ``limit`` (a bf16 near-tie); else the position."""
+    for pos, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return None if gaps[pos] < limit else pos
+    return None if len(got) == len(want) else len(got)
+
+
+def tp_phase(card: str, serve):
+    """Phase 9: one process per card (tp_world), NCCL.  (a) llama2_7b
+    served at tp = world, all 32 layers; (b) mixtral_8x7b served at all
+    32 layers, tp = world (two cards or more); (c) training parity at
+    tp = world (and fsdp = 2 x tp = 2) against card 0 alone with a
+    planted fault, and the 7B at full width, twice."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = tp_world()
+    print(f"tensor parallel: world {world} (tp = {world}, one process per "
+          f"card); {card}", flush=True)
+    ref_logits, gaps, one_card_timing = tp_references(out_dir, serve)
+    run_ranks([sys.executable, os.path.abspath(__file__), "tp-rank",
+               out_dir], world, "tensor parallel", TP_DEADLINE_S, out_dir)
+    ranks = [json.load(open(os.path.join(out_dir, f"tp_rank{r}.json")))
+             for r in range(world)]
+    tensors = torch.load(os.path.join(out_dir, "tp_tensors.pt"))
+    backend = "nccl" if TP_DEVICE == "cuda" else "gloo"
+    if any(r["world"] != world or (world > 1 and r["backend"] != backend)
+           or r["card"] != r["rank"] for r in ranks):
+        raise SystemExit(f"tensor parallel: ranks formed {ranks}")
+
+    # (a) llama2_7b.
+    err = logit_err(tensors["logits"], ref_logits)
+    if not err <= TP_LOGIT_LIMIT:
+        raise SystemExit(f"tensor parallel (a): prefill logits differ from "
+                         f"one card by {err} of the largest logit (limit "
+                         f"{TP_LOGIT_LIMIT})")
+    fault = None
+    if world > 1:
+        fault = logit_err(tensors["fault_logits"][None], ref_logits[3:4])
+        if not fault > TP_LOGIT_LIMIT:
+            raise SystemExit(f"tensor parallel (a): a planted fault (rank "
+                             f"1 keeps its own wo partials) gives {fault}, "
+                             f"within {TP_LOGIT_LIMIT}")
+    run = ranks[0]["serve"]["run"]
+    if run["concurrent"] != run["alone"]:
+        raise SystemExit("tensor parallel (a): concurrent != alone")
+    moved = {i: stream_verdict(got, want, gaps[i], err) for i, (got, want)
+             in enumerate(zip(run["alone"], serve["alone"]))}
+    if any(v is not None for v in moved.values()):
+        raise SystemExit(f"tensor parallel (a): streams differ from the "
+                         f"serving phase's beyond a near-tie: {moved}")
+    differs = sum(a != b for a, b in zip(run["alone"], serve["alone"]))
+    for label, key, layers in (("(a)", "serve", 32), ("(b)", "moe", 32)):
+        if key not in ranks[0]:
+            continue
+        for r in ranks:
+            s = r[key]
+            if s["launches"] != s["decode_steps"] * layers or \
+                    s["launches"] == 0 or not s["peak_bytes"] < 80e9:
+                raise SystemExit(f"tensor parallel {label} rank {r['rank']}:"
+                                 f" K4' launches {s['launches']}, decode "
+                                 f"steps {s['decode_steps']} x {layers}, "
+                                 f"peak {s['peak_bytes']}")
+    keys = ("ttft_mean_s", "inter_token_latency_mean_s",
+            "output_tokens_per_s", "concurrent_wall_s")
+    print("tensor parallel (a) llama2_7b: " + json.dumps({
+        "card": card, "world": world, "tp": world, "n_layers": 32,
+        "slots": 8, "page_size": 16, "logit_err": err,
+        "logit_limit": TP_LOGIT_LIMIT, "planted_fault_logit_err": fault,
+        "streams_differing_from_phase5_at_near_ties": differs,
+        **{k: run[k] for k in keys},
+        "one_card_inter_token_latency_mean_s": serve["itl_mean_s"],
+        "one_card_decode_timing": one_card_timing,
+        "per_rank": [{k: r["serve"].get(k) for k in (
+            "launches", "decode_steps", "peak_bytes", "weight_bytes",
+            "init_s", "exchange_ms_per_turn", "decode_timing")}
+            for r in ranks]}), flush=True)
+    result = {"world": world, "launches_rank0": ranks[0]["serve"]["launches"]}
+    if world < 2:
+        print("tensor parallel (b) mixtral_8x7b, (c) training: need two "
+              "cards (93.4 GB of bf16 Mixtral weights do not fit one 80 GB "
+              "card); this machine shows one", flush=True)
+        return result
+
+    # (b) mixtral_8x7b at 32 layers.
+    moe = ranks[0]["moe"]
+    if moe["run"]["concurrent"] != moe["run"]["alone"]:
+        raise SystemExit("tensor parallel (b): concurrent != alone")
+    if min(moe["routed_share"]) <= 0:
+        raise SystemExit(f"tensor parallel (b): an expert routed nothing: "
+                         f"{moe['routed_share']}")
+    print("tensor parallel (b) mixtral_8x7b: " + json.dumps({
+        "card": card, "world": world, "tp": world, "n_layers": 32,
+        **{k: moe["run"][k] for k in keys},
+        "pr7_16_layer_one_card_inter_token_latency_s": 0.0692,
+        "routed_share_per_expert": moe["routed_share"],
+        "per_rank": [{k: r["moe"].get(k) for k in (
+            "launches", "decode_steps", "peak_bytes", "weight_bytes",
+            "init_s", "exchange_ms_per_turn")} for r in ranks]}),
+        flush=True)
+    result["moe_launches_rank0"] = moe["launches"]
+
+    # (c) training.
+    ref_metrics, ref_params, smallest = dist_parity_reference(world)
+    verdict = {name: [f for r in ranks for f in dist_parity_failures(
+        r["parity_metrics"][name], params, ref_metrics, ref_params,
+        smallest)] for name, params in tensors["parity"].items()}
+    if any(v for k, v in verdict.items() if k != "tp_fault") or \
+            not verdict["tp_fault"]:
+        raise SystemExit(f"tensor parallel (c) parity: {verdict}")
+    print(f"tensor parallel (c) parity: llama2_tiny f32, "
+          f"{DIST_PARITY_STEPS} AdamW steps, "
+          f"{' and '.join(k for k in verdict if k != 'tp_fault')} == card 0 "
+          f"alone at {DIST_STEP_TOL}; planted fault caught "
+          f"({verdict['tp_fault'][:2]})", flush=True)
+    stats = []
+    for r in ranks:
+        first, again = r["full_width"]
+        want = TP_STEPS * first["n_layers"]
+        if any(n != want for n in first["launches"].values()) or \
+                not all(np.isfinite(first["losses"])) or \
+                not first["peak_bytes"] < 80e9 or \
+                again["losses"] != first["losses"]:
+            raise SystemExit(f"tensor parallel (c) rank {r['rank']}: "
+                             f"{first} / repeat {again['losses']}")
+        stats.append({**first, "rank": r["rank"],
+                      "losses_repeat": again["losses"],
+                      "repeat_step_ms": again["step_ms"]})
+    print(f"tensor parallel (c) llama2_7b full width, fsdp="
+          f"{stats[0]['fsdp']} x tp={stats[0]['tp']}, {stats[0]['n_layers']}"
+          f" layers: " + json.dumps({"card": card, "world": world,
+                                     "pr9": PR9_FSDP4, "ranks": stats}),
+          flush=True)
+    result["train_launches_rank0"] = stats[0]["launches"]
+    return result
+
+
 def build_phase() -> None:
     """Both kernel sources, each by its own nvcc, started together."""
     from mpi_operator_tpu_torch.ops import _build
@@ -2503,6 +3086,8 @@ FLASH_REPLACES = {
 def main() -> int:
     if sys.argv[1:2] == ["distributed-rank"]:
         return distributed_rank(sys.argv[2])
+    if sys.argv[1:2] == ["tp-rank"]:
+        return tp_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs the card",
               file=sys.stderr)
@@ -2557,6 +3142,7 @@ def main() -> int:
     moe_flash_launches, moe_losses = training_phase(card, "mixtral_8x7b")
     training_repeat_phase(card, moe_losses, "mixtral_8x7b")
     distributed = distributed_phase(card)
+    tp = tp_phase(card, serve)
     k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]
@@ -2577,7 +3163,11 @@ def main() -> int:
             "int8_weights": int8["paged_attention_launches"],
             "disagg_decode": disagg["launches"],
             "disagg_decode_int8_pool": disagg["int8_launches"],
-            "moe_serving": moe_serve["launches"]},
+            "moe_serving": moe_serve["launches"],
+            # Phase 9, rank 0 (every rank's count is checked there);
+            # the MoE run needs two cards.
+            "tp_serving_rank0": tp["launches_rank0"],
+            "tp_moe_serving_rank0": tp.get("moe_launches_rank0")},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],
@@ -2603,6 +3193,8 @@ def main() -> int:
              "train_example_mixtral_tiny_data": moe_example_launches,
              "moe_training": moe_flash_launches,
              "fsdp_training_rank0": distributed["launches_rank0"]}
+    if "train_launches_rank0" in tp:       # two cards or more
+        other["tp_training_rank0"] = tp["train_launches_rank0"]
     entries = [entry] + [flash_entry(name, flash, flash_launches, other)
                          for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)

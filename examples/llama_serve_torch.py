@@ -32,6 +32,11 @@ loaded from a HuggingFace Llama, Mistral or Mixtral checkpoint
       "transfer": {"url": "http://127.0.0.1:8081", "have": []}}'
     curl -s localhost:8081/generate -d '{"tokens": [[1,2,3,...]]}'
 
+    # tensor parallel over 4 cards, one process per card, each given the
+    # operator's env (JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID,
+    # JAX_NUM_PROCESSES); rank 0 serves HTTP, the others follow it:
+    python examples/llama_serve_torch.py --config 7b --slots 8 --tp 4
+
     # then:
     curl -s localhost:8080/generate -d \
       '{"tokens": [[1,2,3]], "max_new_tokens": 16, "eos_token_id": 2}'
@@ -48,7 +53,7 @@ import urllib.request
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-CONFIGS = ("tiny", "7b", "llama3-8b", "mixtral-tiny")
+CONFIGS = ("tiny", "7b", "llama3-8b", "mixtral-tiny", "mixtral-8x7b")
 
 
 def load_hf(path: str, dev):
@@ -72,21 +77,26 @@ def load_hf(path: str, dev):
     return model.eval()
 
 
-def build_model(config_name: str, device, seed: int, hf: str = ""):
+def build_model(config_name: str, device, seed: int, hf: str = "",
+                mesh=None):
+    """The model, or under ``mesh`` this rank's tensor-parallel shard of
+    it (an HF checkpoint is loaded whole and cut by the server)."""
     import torch
 
     from mpi_operator_tpu_torch import resolve_device
     from mpi_operator_tpu_torch.models.llama import (llama2_7b, llama2_tiny,
-                                                     llama3_8b, mixtral_tiny)
+                                                     llama3_8b, mixtral_8x7b,
+                                                     mixtral_tiny)
     from mpi_operator_tpu_torch.models.params import init_params
 
     dev = resolve_device(device)
     if hf:
         return load_hf(hf, dev)
     cfg = {"tiny": llama2_tiny, "7b": llama2_7b, "llama3-8b": llama3_8b,
-           "mixtral-tiny": mixtral_tiny}[config_name]()
+           "mixtral-tiny": mixtral_tiny,
+           "mixtral-8x7b": mixtral_8x7b}[config_name]()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_params(cfg, gen, device=dev)
+    return init_params(cfg, gen, device=dev, mesh=mesh)
 
 
 def main() -> int:
@@ -125,6 +135,10 @@ def main() -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: one process per card, "
+                         "started with the operator's env; rank 0 serves "
+                         "HTTP")
     ap.add_argument("--demo", action="store_true",
                     help="send one demo request, print it, and exit")
     args = ap.parse_args()
@@ -135,7 +149,23 @@ def main() -> int:
         raise SystemExit(
             "--kv-cache-dtype needs continuous batching (--slots > 0); "
             "the single-flight path uses the dense cache")
-    model = build_model(args.config, args.device, args.seed, args.hf)
+    mesh = None
+    if args.tp > 1:
+        import torch.distributed as dist
+
+        from mpi_operator_tpu_torch import resolve_device
+        from mpi_operator_tpu_torch.bootstrap import initialize_from_env
+        from mpi_operator_tpu_torch.parallel.mesh import (MeshConfig,
+                                                          create_mesh)
+        initialize_from_env(device=args.device)
+        if not dist.is_initialized() or dist.get_world_size() != args.tp:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} processes "
+                             f"started with the operator's env "
+                             f"(JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, "
+                             f"JAX_NUM_PROCESSES)")
+        mesh = create_mesh(MeshConfig(dp=1, tp=args.tp),
+                           resolve_device(args.device).type)
+    model = build_model(args.config, args.device, args.seed, args.hf, mesh)
     if args.weight_dtype == "int8":
         # Quantize here and drop the full-precision model, so only the
         # int8 weights stay resident.
@@ -151,7 +181,12 @@ def main() -> int:
         role=args.role, model_name=args.hf or args.config,
         draft_model=draft, draft_strategy=strategy,
         draft_len=args.draft_len, kv_prefill_chunk=args.prefill_chunk,
-        device=model.device).start()
+        device=model.device, mesh=mesh).start()
+    if not server.is_leader:
+        # A tensor-parallel follower: serves until rank 0 stops.
+        server.join()
+        server.stop()
+        return 0
     print(f"serving on {server.url}  (config={args.hf or args.config}, "
           f"device={model.device}, role={args.role}, "
           f"slots={args.slots}, page={page}, "

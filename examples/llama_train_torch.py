@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Llama training with the PyTorch port: the counterpart of
-examples/llama_train.py, on one device or over a (dp, fsdp) mesh of
+examples/llama_train.py, on one device or over a (dp, fsdp, tp) mesh of
 processes.
 
     python examples/llama_train_torch.py --config tiny --device cpu --steps 2
@@ -14,17 +14,18 @@ processes.
 Under the operator (or by hand, with JAX_COORDINATOR_ADDRESS,
 JAX_PROCESS_ID and JAX_NUM_PROCESSES set per process) the processes form
 a group (NCCL on the cards, gloo with ``--device cpu``) and train over
-the mesh --dp x --fsdp (dp -1: every remaining process; --num-slices
-puts dp across slices), with the parameters sharded over fsdp through
-``llama_param_specs``; each rank builds the model on the meta device
-and fills only its shard.  ``--batch`` is the rows of one batch shard:
-the global batch is batch x dp x fsdp.  Rank 0 prints the ``mesh dp=...``
+the mesh --dp x --fsdp x --tp (dp -1: every remaining process;
+--num-slices puts dp across slices), with the parameters sharded over
+fsdp and cut over tp (Megatron) through ``llama_param_specs``; each rank
+builds the model on the meta device and fills only its shard.
+``--batch`` is the rows of one batch shard: the global batch is batch x
+dp x fsdp (the tp ranks of a shard share its rows).  Rank 0 prints the ``mesh dp=...``
 line and ``tokens/sec: N loss=L`` (global tokens, after a warm-up
 step).  ``--data`` streams each process's rows from a flat int32 token
 file (``native.write_token_file``) through the native loader, which
 splits the corpus by process; without it every step trains on one fixed
-random batch.  --tp/--sp/--pp/--ep above 1 wait for ROADMAP.md queue 1
-item 3 (multi-GPU parallelism).
+random batch.  --sp/--pp/--ep above 1 wait for ROADMAP.md queue 1 item
+3 (multi-GPU parallelism).
 """
 
 import argparse
@@ -70,7 +71,7 @@ def main() -> int:
                              " path (gloo between processes)")
     args = parser.parse_args()
 
-    wider = {a: getattr(args, a) for a in ("tp", "sp", "pp", "ep")
+    wider = {a: getattr(args, a) for a in ("sp", "pp", "ep")
              if getattr(args, a) != 1}
     if wider:
         raise SystemExit(f"mesh flags {wider} need sharded training over "
@@ -107,7 +108,7 @@ def main() -> int:
     grouped = dist.is_initialized()
     rank = dist.get_rank() if grouped else 0
     world = dist.get_world_size() if grouped else 1
-    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp)
+    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp, tp=args.tp)
     shape = dict(zip(AXIS_NAMES, mesh_cfg.resolve(world)))
     shards = shape["dp"] * shape["fsdp"]
     mesh = None
@@ -127,21 +128,23 @@ def main() -> int:
         init_weights = None
     else:
         # Placed (sharded) before it is filled: no rank holds it whole.
-        model = LlamaModel(cfg, device="meta", store_dtype=cfg.param_dtype)
+        model = LlamaModel(cfg, device="meta", store_dtype=cfg.param_dtype,
+                           mesh=mesh)
 
         def init_weights(model):
             init_params_(model, gen)
 
     if args.fused_xent:
-        # A chunk that does not divide the vocab falls back to one
-        # full-width chunk (correct, just unfused).
-        chunk = args.xent_chunk if cfg.vocab_size % args.xent_chunk == 0 \
-            else cfg.vocab_size
+        # A chunk that does not divide the (rank's) vocab falls back to
+        # one full-width chunk (correct, just unfused).
+        vocab = cfg.vocab_size // shape["tp"]
+        chunk = args.xent_chunk if vocab % args.xent_chunk == 0 else vocab
 
         def loss_fn(model, batch):
             hidden = model(batch, return_hidden=True)
             kernel = model.output.weight.to(cfg.dtype).t()
-            return fused_next_token_loss(hidden, kernel, batch, chunk=chunk)
+            return fused_next_token_loss(hidden, kernel, batch, chunk=chunk,
+                                         tp=model.tp)
     else:
         def loss_fn(model, batch):
             return next_token_loss(model(batch), batch)

@@ -90,8 +90,9 @@ def local_device(env: ProcessEnv, device=None) -> torch.device:
     return torch.device("cuda", index)
 
 
-def initialize_from_env(timeout_seconds: float = 120.0,
-                        device=None) -> Optional[ProcessEnv]:
+def initialize_from_env(timeout_seconds: float = 120.0, device=None,
+                        collective_timeout_seconds: Optional[float] = None
+                        ) -> Optional[ProcessEnv]:
     """Form the default process group from the injected env (no-op
     outside an MPIJob or for a single process, as the JAX version).
 
@@ -105,7 +106,9 @@ def initialize_from_env(timeout_seconds: float = 120.0,
 
     The store is made here rather than by ``init_method="tcp://..."``,
     which would give the group's collectives the connect deadline as
-    their timeout too."""
+    their timeout too; ``collective_timeout_seconds`` sets theirs (default:
+    torch's), after which a collective that a peer never joined fails
+    (NCCL's watchdog ends the process) instead of waiting on."""
     env = process_env()
     if env is None or env.num_processes <= 1:
         return env
@@ -135,10 +138,13 @@ def initialize_from_env(timeout_seconds: float = 120.0,
                 store = dist.TCPStore(
                     host, int(port), env.num_processes,
                     is_master=env.is_coordinator, timeout=remaining)
+                extra = {} if collective_timeout_seconds is None else {
+                    "timeout": datetime.timedelta(
+                        seconds=collective_timeout_seconds)}
                 dist.init_process_group(
                     "nccl" if dev.type == "cuda" else "gloo", store=store,
                     rank=env.process_id, world_size=env.num_processes,
-                    device_id=dev if dev.type == "cuda" else None)
+                    device_id=dev if dev.type == "cuda" else None, **extra)
                 return env
             except Exception as exc:  # coordinator not up yet
                 last_err = exc

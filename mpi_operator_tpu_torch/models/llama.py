@@ -38,6 +38,18 @@ JAX ``losses`` collection) is its attribute ``load_balancing`` after a
 forward (``model.layers[i].feed_forward.load_balancing``); the training
 loss does not include it, as the JAX example drops that collection.
 Weight-only int8 with MoE raises, as in the JAX package.
+
+Tensor parallelism (``LlamaModel(mesh=)``, a ``parallel.mesh`` mesh with
+``tp`` > 1): each rank holds the ``torch.chunk`` of every dimension that
+``llama_param_specs`` puts on 'tp' (Megatron: ``wq``/``wk``/``wv``/
+``w1``/``w3`` and the MoE ``w1``/``w3`` by output, ``wo``/``w2`` by
+input, the embedding and the head by vocabulary; norms and the router
+replicated).  Chunk r of ``wq`` holds query heads [r*H/tp, (r+1)*H/tp),
+which under GQA read KV heads [r*KH/tp, ...): chunk r of ``wk``/``wv``.
+So attention, its KV cache (KH/tp heads a rank) and K4' run on the
+rank's heads alone; a row-parallel product ends in one all-reduce (in
+f32, ``parallel/tensor.py``), the embedding sums the rank that owns each
+token's row, and the logits are gathered whole on every rank.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ from ..device import resolve_device
 from ..ops.attention import attention
 from ..ops.moe import MoEMLP
 from ..ops.paged_attention import paged_decode_attention
+from ..parallel.tensor import (TensorParallel, copy_to_tp, gather_from_tp,
+                               reduce_from_tp, refuse_axes)
 
 
 @dataclass(frozen=True)
@@ -291,29 +305,37 @@ def _decode_attention(q, k_cache, v_cache, positions, gqa_repeat: int,
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, store_dtype):
+    """Attention over this rank's heads: ``n_heads`` query and
+    ``kv_heads`` KV heads of the config, divided by tp."""
+
+    def __init__(self, cfg: LlamaConfig, store_dtype,
+                 tp: TensorParallel = TensorParallel()):
         super().__init__()
         self.config = cfg
+        self.tp = tp
+        self.n_heads = cfg.n_heads // tp.size
+        self.kv_heads = cfg.kv_heads // tp.size
         hd = cfg.head_dim
-        self.wq = _linear(cfg, cfg.dim, cfg.n_heads * hd, store_dtype)
-        self.wk = _linear(cfg, cfg.dim, cfg.kv_heads * hd, store_dtype)
-        self.wv = _linear(cfg, cfg.dim, cfg.kv_heads * hd, store_dtype)
-        self.wo = _linear(cfg, cfg.n_heads * hd, cfg.dim, store_dtype)
+        self.wq = _linear(cfg, cfg.dim, self.n_heads * hd, store_dtype)
+        self.wk = _linear(cfg, cfg.dim, self.kv_heads * hd, store_dtype)
+        self.wv = _linear(cfg, cfg.dim, self.kv_heads * hd, store_dtype)
+        self.wo = _linear(cfg, self.n_heads * hd, cfg.dim, store_dtype)
 
     def forward(self, x, cache: Optional[dict], positions=None):
         """x [B, S, dim].  With ``cache`` (this layer's cache dict,
         updated in place; dense or paged by its layout): the decode
         path.  Without: the training forward at ``positions`` [S]."""
+        x = copy_to_tp(x, self.tp)
         if cache is None:
-            return self._train(x, positions)
+            return self._out(self._train(x, positions))
         cfg = self.config
         b, s, _ = x.shape
-        hd, kvh = cfg.head_dim, cfg.kv_heads
+        hd, kvh = cfg.head_dim, self.kv_heads
         idx = cache["cache_index"]
         # Per-row positions: each row decodes at its own cache index.
         positions = idx[:, None].long() + torch.arange(s, device=x.device)
 
-        q = self.wq(x).view(b, s, cfg.n_heads, hd)
+        q = self.wq(x).view(b, s, self.n_heads, hd)
         k = self.wk(x).view(b, s, kvh, hd)
         v = self.wv(x).view(b, s, kvh, hd)
         q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
@@ -333,30 +355,35 @@ class LlamaAttention(nn.Module):
             cv.index_put_((rows, cols), v.to(cv.dtype))
             cache["cache_index"] = idx + s
             out = _decode_attention(q, ck, cv, positions,
-                                    cfg.n_heads // kvh,
+                                    self.n_heads // kvh,
                                     window=cfg.sliding_window)
-        return self.wo(out.reshape(b, s, cfg.n_heads * hd))
+        return self._out(out)
+
+    def _out(self, out):
+        """``wo`` over this rank's heads [B, S, H/tp, D]; under tp the
+        partial products of the ranks are summed (row-parallel)."""
+        b, s = out.shape[:2]
+        return reduce_from_tp(self.wo(out.reshape(b, s, -1)), self.tp)
 
     def _train(self, x, positions):
         cfg = self.config
         b, s, _ = x.shape
-        hd, kvh = cfg.head_dim, cfg.kv_heads
-        q = _rope(self.wq(x).view(b, s, cfg.n_heads, hd), positions,
+        hd, kvh, nh = cfg.head_dim, self.kv_heads, self.n_heads
+        q = _rope(self.wq(x).view(b, s, nh, hd), positions,
                   cfg.rope_theta, cfg.rope_scaling)
         k = _rope(self.wk(x).view(b, s, kvh, hd), positions, cfg.rope_theta,
                   cfg.rope_scaling)
         v = self.wv(x).view(b, s, kvh, hd)
-        if kvh != cfg.n_heads:               # GQA: repeat KV groups
-            k = k.repeat_interleave(cfg.n_heads // kvh, dim=2)
-            v = v.repeat_interleave(cfg.n_heads // kvh, dim=2)
-        out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                        window=cfg.sliding_window)
-        return self.wo(out.reshape(b, s, cfg.n_heads * hd))
+        if kvh != nh:                        # GQA: repeat KV groups
+            k = k.repeat_interleave(nh // kvh, dim=2)
+            v = v.repeat_interleave(nh // kvh, dim=2)
+        return attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                         mesh=self.tp.mesh, window=cfg.sliding_window)
 
     def _paged(self, cache, q, k, v, positions):
         cfg = self.config
         b, s = q.shape[:2]
-        hd, kvh = cfg.head_dim, cfg.kv_heads
+        hd, kvh = cfg.head_dim, self.kv_heads
         pool_k, pool_v = cache["pool_key"], cache["pool_value"]
         table = cache["block_table"]
         page, maxb = pool_k.shape[1], table.shape[1]
@@ -404,25 +431,34 @@ class LlamaAttention(nn.Module):
             v_all = dequantize_kv(v_all, cache["pool_value_scale"][
                 tbl].reshape(b, span, kvh)).to(cfg.dtype)
         return _decode_attention(q, k_all, v_all, positions,
-                                 cfg.n_heads // kvh,
+                                 self.n_heads // kvh,
                                  window=cfg.sliding_window)
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, store_dtype):
+    """SwiGLU over this rank's ffn_dim/tp hidden units: ``w1``/``w3``
+    column-parallel, ``w2`` row-parallel."""
+
+    def __init__(self, cfg: LlamaConfig, store_dtype,
+                 tp: TensorParallel = TensorParallel()):
         super().__init__()
-        self.w1 = _linear(cfg, cfg.dim, cfg.ffn_dim, store_dtype)
-        self.w3 = _linear(cfg, cfg.dim, cfg.ffn_dim, store_dtype)
-        self.w2 = _linear(cfg, cfg.ffn_dim, cfg.dim, store_dtype)
+        self.tp = tp
+        hidden = cfg.ffn_dim // tp.size
+        self.w1 = _linear(cfg, cfg.dim, hidden, store_dtype)
+        self.w3 = _linear(cfg, cfg.dim, hidden, store_dtype)
+        self.w2 = _linear(cfg, hidden, cfg.dim, store_dtype)
 
     def forward(self, x):
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        x = copy_to_tp(x, self.tp)
+        return reduce_from_tp(self.w2(F.silu(self.w1(x)) * self.w3(x)),
+                              self.tp)
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, store_dtype):
+    def __init__(self, cfg: LlamaConfig, store_dtype,
+                 tp: TensorParallel = TensorParallel()):
         super().__init__()
-        self.attention = LlamaAttention(cfg, store_dtype)
+        self.attention = LlamaAttention(cfg, store_dtype, tp)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps,
                                       cfg.param_dtype, None)
         self.moe = cfg.n_experts > 1
@@ -430,9 +466,9 @@ class LlamaBlock(nn.Module):
             self.feed_forward = MoEMLP(
                 cfg.dim, cfg.ffn_dim, cfg.n_experts, top_k=cfg.top_k,
                 dtype=cfg.dtype, store_dtype=store_dtype,
-                param_dtype=cfg.param_dtype)
+                param_dtype=cfg.param_dtype, mesh=tp.mesh)
         else:
-            self.feed_forward = LlamaMLP(cfg, store_dtype)
+            self.feed_forward = LlamaMLP(cfg, store_dtype, tp)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, None)
 
     def forward(self, x, cache: Optional[dict], positions=None):
@@ -456,9 +492,17 @@ class LlamaModel(nn.Module):
     the model through ``models.params`` (``init_params``,
     ``load_flax_params``).  ``store_dtype`` is the storage type of the
     matmul weights and the embedding (default ``config.dtype``; training
-    passes ``config.param_dtype``)."""
+    passes ``config.param_dtype``).
 
-    def __init__(self, config: LlamaConfig, device=None, store_dtype=None):
+    ``mesh`` (a ``parallel.mesh.create_mesh`` mesh): the model holds this
+    rank's tensor-parallel shards over its 'tp' axis (see the module
+    docstring; every rank of the tp group runs every forward together).
+    Its 'dp' and 'fsdp' axes are the training step's; 'sp', 'ep' and
+    'pp' above 1 raise.  A KV-head count that tp does not divide raises
+    ValueError: KV-head replication is not ported."""
+
+    def __init__(self, config: LlamaConfig, device=None, store_dtype=None,
+                 mesh=None):
         super().__init__()
         # "meta" allocates nothing: sharded training places the model
         # first and fills each rank's shard (models/params.py).
@@ -466,15 +510,20 @@ class LlamaModel(nn.Module):
             resolve_device(device)
         store = store_dtype or config.dtype
         self.config = config
+        if mesh is not None:
+            refuse_axes(mesh, "LlamaModel")
+        self.tp = tp = TensorParallel.of(mesh)
+        _check_tp(config, tp.size)
         with torch.device("meta"):
-            self.tok_embeddings = nn.Embedding(config.vocab_size, config.dim,
-                                               dtype=store)
+            self.tok_embeddings = nn.Embedding(config.vocab_size // tp.size,
+                                               config.dim, dtype=store)
             self.layers = nn.ModuleList(
-                LlamaBlock(config, store) for _ in range(config.n_layers))
+                LlamaBlock(config, store, tp)
+                for _ in range(config.n_layers))
             self.norm = RMSNorm(config.dim, config.norm_eps,
                                 config.param_dtype, None)
-            self.output = _linear(config, config.dim, config.vocab_size,
-                                  store)
+            self.output = _linear(config, config.dim,
+                                  config.vocab_size // tp.size, store)
         self.to_empty(device=dev)
         with torch.no_grad():
             for module in self.modules():
@@ -485,6 +534,25 @@ class LlamaModel(nn.Module):
     def device(self) -> torch.device:
         return self.output.weight.device
 
+    @property
+    def mesh(self):
+        return self.tp.mesh
+
+    def _embed(self, tokens):
+        """Token rows of the embedding.  Under tp each rank looks up the
+        tokens of its own vocabulary range and zeroes the rest; exactly
+        one rank holds each row, so the all-reduce adds only zeros to it
+        (exact)."""
+        w = self.tok_embeddings.weight.to(self.config.dtype)
+        tp = self.tp
+        if tp.size == 1:
+            return F.embedding(tokens, w)
+        local = tokens.long() - tp.rank * w.shape[0]
+        mine = (local >= 0) & (local < w.shape[0])
+        rows = F.embedding(local.clamp(0, w.shape[0] - 1), w)
+        return reduce_from_tp(torch.where(mine[..., None], rows,
+                                          torch.zeros_like(rows)), tp)
+
     def forward(self, tokens, cache: Optional[dict] = None,
                 decode: bool = False, return_hidden: bool = False):
         """``return_hidden`` returns the normed pre-head hidden states
@@ -494,7 +562,7 @@ class LlamaModel(nn.Module):
         cfg = self.config
         # The table is cast to dtype before the lookup, as flax's
         # promote_dtype does.
-        x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
+        x = self._embed(tokens)
         if decode:
             if cache is None:
                 raise ValueError("decode=True needs a KV cache (init_cache)")
@@ -514,7 +582,23 @@ class LlamaModel(nn.Module):
         x = self.norm(x)
         if return_hidden:
             return x
-        return self.output(x)
+        # Under tp: this rank's vocabulary columns, gathered whole.
+        return gather_from_tp(self.output(copy_to_tp(x, self.tp)), self.tp)
+
+
+def _check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Every dimension llama_param_specs puts on 'tp' divides by it."""
+    if tp == 1:
+        return
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} not divisible by tp={tp}: "
+            f"replicating KV heads over tp is not ported yet (ROADMAP.md "
+            f"queue 1 item 3)")
+    for what, n in (("n_heads", cfg.n_heads), ("ffn_dim", cfg.ffn_dim),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{what} {n} not divisible by tp={tp}")
 
 
 def llama_param_specs(config: LlamaConfig) -> dict:
@@ -528,9 +612,10 @@ def llama_param_specs(config: LlamaConfig) -> dict:
     expert stacks theirs.  An int8 weight's ``.scale`` [out] follows the
     weight's output dim.
 
-    ``parallel/train.build_train_step`` takes the 'fsdp' entries (and
-    grafts 'dp' for its ZeRO update); 'tp' and 'ep' wait for ROADMAP.md
-    queue 1 item 3."""
+    ``LlamaModel(mesh=)`` cuts the 'tp' dims (``models/params.py`` cuts
+    and joins full tensors by them), ``parallel/train.build_train_step``
+    shards the 'fsdp' entries (and grafts 'dp' for its ZeRO update);
+    'ep' waits for ROADMAP.md queue 1 item 3."""
     def linear(name, out_axis, in_axis):
         specs = {f"{name}.weight": (out_axis, in_axis)}
         if config.weight_dtype == "int8":
@@ -577,12 +662,14 @@ def next_token_loss(logits, tokens):
 # -- cache helpers ---------------------------------------------------------
 
 def init_cache(config: LlamaConfig, batch: int, device,
-               max_len: Optional[int] = None) -> dict:
+               max_len: Optional[int] = None, tp: int = 1) -> dict:
     """A zeroed KV cache for ``batch`` rows: paged when
     ``config.page_size > 0`` (block tables all scratch), else dense with
-    ``max_len`` positions per row (default ``config.max_seq_len``)."""
+    ``max_len`` positions per row (default ``config.max_seq_len``).
+    Under tensor parallelism (``tp`` ranks) it holds this rank's
+    kv_heads / tp heads."""
     device = torch.device(device)
-    hd, kvh = config.head_dim, config.kv_heads
+    hd, kvh = config.head_dim, config.kv_heads // tp
     layers = {}
     for i in range(config.n_layers):
         if config.page_size > 0:
@@ -731,12 +818,13 @@ def _prefill(model: LlamaModel, prompt, max_new_tokens: int):
         # Paged: install the canonical contiguous allocation so every
         # row owns its blocks.
         cache = _set_block_tables(
-            init_cache(cfg, b, model.device),
+            init_cache(cfg, b, model.device, tp=model.tp.size),
             canonical_block_table(b, cfg, model.device))
     else:
         # Dense: positions past prompt + budget are never written, so
         # the rows are sized to it rather than to max_seq_len.
-        cache = init_cache(cfg, b, model.device, max_len=s + max_new_tokens)
+        cache = init_cache(cfg, b, model.device, max_len=s + max_new_tokens,
+                           tp=model.tp.size)
     return model(prompt, cache=cache, decode=True), cache
 
 

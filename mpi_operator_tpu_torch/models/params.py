@@ -19,6 +19,14 @@ f32 scales, for a ``weight_dtype="int8"`` config.
 paged layout, another ``max_seq_len``) over the same tensors, without a
 copy; a self-draft for speculative decoding needs not even that: the
 batcher takes the target itself as ``draft_model``.
+
+Tensor parallelism: ``llama_param_specs`` names the dim of each tensor
+that 'tp' cuts.  ``shard_state_dict`` keeps a rank's ``torch.chunk`` of
+a full state dict on it, ``gather_state_dict`` joins every rank's
+chunks back (a collective), ``shard_model`` and the ``mesh=`` of
+``load_flax_params`` and ``init_params`` build a rank's shard, and
+``init_params_`` draws each tensor in full and keeps the rank's part, so
+random weights at a seed are the one-card weights cut up.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.moe import init_expert_stack_
-from .llama import LlamaConfig, LlamaModel
+from ..parallel.tensor import TensorParallel, tp_dim
+from .llama import LlamaConfig, LlamaModel, llama_param_specs
 
 _LINEARS = {"attention": ("wq", "wk", "wv", "wo"),
             "feed_forward": ("w1", "w2", "w3")}
@@ -98,26 +107,61 @@ def from_flax_params(tree, cfg: LlamaConfig,
     return sd
 
 
+def shard_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
+                     tp: TensorParallel) -> Dict[str, torch.Tensor]:
+    """This rank's part of a full state dict: each tensor's
+    ``torch.chunk`` on the dim ``llama_param_specs`` puts on 'tp' (an
+    int8 weight's ``.scale`` follows its output dim), the rest whole."""
+    specs = llama_param_specs(cfg)
+    return {k: tp.chunk(v, tp_dim(specs.get(k, ()))).contiguous()
+            for k, v in state.items()}
+
+
+def gather_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
+                      tp: TensorParallel) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_state_dict` (a collective over the tp
+    group: every rank calls it and gets the full tensors)."""
+    specs = llama_param_specs(cfg)
+    return {k: tp.gather(v, tp_dim(specs.get(k, ())))
+            for k, v in state.items()}
+
+
+def shard_model(model: LlamaModel, mesh) -> LlamaModel:
+    """This rank's tensor-parallel shard of a whole (one-card) model,
+    on its device, with its store dtype; the caller frees the whole
+    model."""
+    sharded = LlamaModel(model.config, device=model.device,
+                         store_dtype=model.tok_embeddings.weight.dtype,
+                         mesh=mesh)
+    sharded.load_state_dict(shard_state_dict(
+        model.state_dict(), model.config, sharded.tp))
+    return sharded.eval()
+
+
 def load_flax_params(tree, cfg: LlamaConfig, device=None,
-                     dtype: Optional[torch.dtype] = None) -> LlamaModel:
+                     dtype: Optional[torch.dtype] = None,
+                     mesh=None) -> LlamaModel:
     """A LlamaModel on ``device`` holding the JAX model's weights, its
     matmul weights and embedding stored in ``dtype`` (default
-    ``cfg.dtype``; ``cfg.param_dtype`` for training)."""
-    model = LlamaModel(cfg, device=device, store_dtype=dtype)
-    model.load_state_dict(from_flax_params(tree, cfg, dtype))
+    ``cfg.dtype``; ``cfg.param_dtype`` for training); under a ``mesh``
+    with tp > 1, this rank's tensor-parallel shard of them."""
+    model = LlamaModel(cfg, device=device, store_dtype=dtype, mesh=mesh)
+    model.load_state_dict(shard_state_dict(
+        from_flax_params(tree, cfg, dtype), cfg, model.tp))
     return model.eval()
 
 
 @torch.no_grad()
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None, dtype: Optional[torch.dtype] = None
-                ) -> LlamaModel:
+                device=None, dtype: Optional[torch.dtype] = None,
+                mesh=None) -> LlamaModel:
     """A seeded random LlamaModel built on ``device``: normal weights
     with std 1/sqrt(fan_in) (the embedding std 1), MoE expert stacks as
     flax's truncated ``lecun_normal`` draws them (``ops/moe.py``), norm
     scales 1, matmul weights and embedding stored in ``dtype`` (default
     ``cfg.dtype``).  The values are drawn in f32 on the generator's
-    device, which must be ``device``."""
+    device, which must be ``device``.  Under a ``mesh`` with tp > 1 the
+    model is this rank's shard of the one-card model at the seed."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
@@ -126,8 +170,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         from .quant import quantize_model
         return quantize_model(init_params(
             dataclasses.replace(cfg, weight_dtype="auto"), generator,
-            device=dev, dtype=dtype))
-    model = LlamaModel(cfg, device=dev, store_dtype=dtype)
+            device=dev, dtype=dtype, mesh=mesh))
+    model = LlamaModel(cfg, device=dev, store_dtype=dtype, mesh=mesh)
     return init_params_(model, generator).eval()
 
 
@@ -150,28 +194,38 @@ def _local_part(full: torch.Tensor, param) -> torch.Tensor:
 def init_params_(model: LlamaModel, generator: torch.Generator
                  ) -> LlamaModel:
     """Fill ``model``'s parameters in place with the draws of
-    :func:`init_params`, in its order.  A parameter sharded by FSDP2 (a
-    DTensor) receives only this rank's part: each draw is made in full
-    on the generator's device, one parameter at a time, and the rank
-    keeps its part, so no rank ever holds the whole model and every
+    :func:`init_params`, in its order.  A parameter that is a shard
+    (tensor-parallel over 'tp', and/or a DTensor of FSDP2) receives only
+    this rank's part: each draw is made in full on the generator's
+    device, one parameter at a time, and the rank keeps its part (the tp
+    chunk, then FSDP2's), so no rank ever holds the whole model and every
     rank's weights equal ``init_params``' for the seed."""
     from torch.distributed.tensor import DTensor
+    tp = model.tp
+    specs = llama_param_specs(model.config)
     for name, p in model.named_parameters():
-        sharded = isinstance(p, DTensor)
-        full = torch.empty(p.shape, dtype=p.dtype,
-                           device=generator.device) if sharded else p
+        fsdp = isinstance(p, DTensor)
+        d = tp_dim(specs[name]) if tp.size > 1 else None
+        shape = list(p.shape)
+        if d is not None:
+            shape[d] *= tp.size
+        full = p if not fsdp and d is None else torch.empty(
+            shape, dtype=p.dtype, device=generator.device)
         if name.endswith(".scale"):
             full.fill_(1.0)
         elif p.dim() == 3:               # an MoE expert stack [E, in, out]
             init_expert_stack_(full, generator)
         else:
             std = 1.0 if name == "tok_embeddings.weight" else \
-                1.0 / math.sqrt(p.shape[1])
-            full.copy_(torch.randn(p.shape, generator=generator,
+                1.0 / math.sqrt(shape[1])
+            full.copy_(torch.randn(shape, generator=generator,
                                    device=generator.device,
                                    dtype=torch.float32).mul_(std))
-        if sharded:
-            p.to_local().copy_(_local_part(full, p))
+        part = tp.chunk(full, d)
+        if fsdp:
+            p.to_local().copy_(_local_part(part, p))
+        elif d is not None:
+            p.copy_(part)
     return model
 
 

@@ -17,6 +17,12 @@ both exact in f32, so their f32 product, scaled and rounded once, is
 the JAX layer's output up to the order of the f32 sums.  The price is
 an f32 copy of the weight at each call (a fused int8 kernel would read
 the int8 weight once).
+
+Under tensor parallelism a rank quantizes its own shard.  A row of a
+column-parallel weight is whole on its rank; a row of a row-parallel one
+(``wo``, ``w2``: input dim on 'tp') is cut over the ranks, so its amax is
+the maximum over the tp group: every rank then holds the one-card int8
+values and scales of its part.
 """
 
 from __future__ import annotations
@@ -52,10 +58,15 @@ class QuantLinear(nn.Module):
         return (out * self.scale).to(self.compute_dtype)
 
 
-def _quantize_kernel(w):
-    """w [out, in] -> (int8 q [out, in], f32 scale [out])."""
+def _quantize_kernel(w, tp=None):
+    """w [out, in] -> (int8 q [out, in], f32 scale [out]); with ``tp``
+    (a ``TensorParallel``) the amax of each row is taken over the tp
+    group, for a weight whose input dim it cuts."""
     wf = w.float()
     amax = wf.abs().amax(dim=1)
+    if tp is not None and tp.size > 1:
+        import torch.distributed as dist
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=tp.group)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(wf / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
@@ -67,18 +78,24 @@ def _is_quant_weight(key: str) -> bool:
             and parts[-2] in _QUANT_LINEARS)
 
 
-def quantize_params(state_dict: Dict[str, torch.Tensor], config
-                    ) -> Dict[str, torch.Tensor]:
+def quantize_params(state_dict: Dict[str, torch.Tensor], config,
+                    tp=None) -> Dict[str, torch.Tensor]:
     """A full-precision LlamaModel state dict -> the weight_dtype='int8'
     model's: every matmul weight becomes ``<layer>.weight`` int8 and
-    ``<layer>.scale`` f32 [out]; embeddings and norms are kept."""
+    ``<layer>.scale`` f32 [out]; embeddings and norms are kept.  With
+    ``tp`` (a ``TensorParallel``), ``state_dict`` is this rank's shard
+    (a collective over the tp group)."""
     if config.n_experts > 1:
         raise NotImplementedError(
             "weight-only int8 does not cover MoE expert stacks yet")
+    from ..parallel.tensor import tp_dim
+    from .llama import llama_param_specs
+    specs = llama_param_specs(config)
     out = {}
     for key, value in state_dict.items():
         if _is_quant_weight(key):
-            q, s = _quantize_kernel(value)
+            q, s = _quantize_kernel(
+                value, tp if tp_dim(specs[key]) == 1 else None)
             out[key] = q
             out[key[:-len("weight")] + "scale"] = s
         else:
@@ -97,6 +114,8 @@ def quantize_model(model):
         return model
     qcfg = dataclasses.replace(model.config, weight_dtype="int8")
     qmodel = LlamaModel(qcfg, device=model.device,
-                        store_dtype=model.tok_embeddings.weight.dtype)
-    qmodel.load_state_dict(quantize_params(model.state_dict(), qcfg))
+                        store_dtype=model.tok_embeddings.weight.dtype,
+                        mesh=model.mesh)
+    qmodel.load_state_dict(quantize_params(model.state_dict(), qcfg,
+                                           model.tp))
     return qmodel.eval()

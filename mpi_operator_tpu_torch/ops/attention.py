@@ -39,12 +39,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
-def _multi_gpu(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 3 (multi-GPU "
-        f"parallelism)")
-
-
 # -- plain versions -----------------------------------------------------------
 
 def _scores(q, k, scale: float, causal: bool, window=None):
@@ -339,9 +333,23 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
     take the plain version; inputs the kernels cannot take raise
     (``flash_route``).  ``window`` (sliding-window attention, causal
     only) takes the plain version on every device: like the JAX package,
-    there is no banded kernel, and an explicit 'pallas' is refused."""
+    there is no banded kernel, and an explicit 'pallas' is refused.
+
+    ``mesh`` (a ``parallel.mesh`` mesh; the JAX version's shard_map with
+    the batch over (dp, fsdp) and the heads over tp): one process drives
+    one card, so q, k and v are already this rank's rows and its H/tp
+    heads, and the kernels run on them as they are.  The mesh is checked
+    (its axes; q, k and v holding the same heads); sp > 1 raises (ring
+    attention is ROADMAP.md queue 1 item 3)."""
     if mesh is not None:
-        raise _multi_gpu("attention over a device mesh (mesh=)")
+        from ..parallel.tensor import refuse_axes
+        refuse_axes(mesh, "attention", allowed=("dp", "fsdp", "tp", "ep",
+                                                "pp"))
+        if not q.shape[:3] == k.shape[:3] == v.shape[:3]:
+            raise ValueError(
+                f"attention(mesh=): q {tuple(q.shape)}, k {tuple(k.shape)} "
+                f"and v {tuple(v.shape)} must hold this rank's rows and "
+                f"heads alike [B/(dp*fsdp), S, H/tp, D] (GQA repeated)")
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', got "
                          f"{impl!r}")

@@ -1,5 +1,5 @@
 """Mixture-of-Experts SwiGLU layer: counterpart of
-``mpi_operator_tpu/ops/moe.py`` on one device.
+``mpi_operator_tpu/ops/moe.py``, on one device or tensor-parallel.
 
 GShard/Switch static dispatch, as the JAX layer computes it: the router
 picks each token's top-k experts, one-hot tensors place every kept
@@ -31,6 +31,16 @@ the last forward and still attached to its autograd graph
 (``last_routing``: the expert indices [T, K] and router probabilities
 [T, E]).  Training does not add it to the loss, as the JAX example drops
 that collection.
+
+Under tensor parallelism (``mesh=`` with tp > 1; the JAX specs w1/w3
+P("ep", "fsdp", "tp"), w2 P("ep", "tp", "fsdp")) each rank holds the
+chunk of every expert's hidden units F/tp: ``w1``/``w3`` [E, D, F/tp],
+``w2`` [E, F/tp, D].  The router stays replicated in f32, so every rank
+routes the same tokens to the same experts from the same input, and the
+combine is linear in the expert outputs: the ranks' f32 combines are
+summed by one all-reduce before the single rounding.  In training the
+gates enter the expert products through ``copy_to_tp``, so the router
+sees the whole gradient of its gates.  MoE over 'ep' raises.
 """
 
 from __future__ import annotations
@@ -41,11 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _multi_gpu(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 3 (multi-GPU "
-        f"parallelism, MoE over an 'ep' axis)")
+from ..parallel.tensor import (TensorParallel, copy_to_tp, reduce_from_tp,
+                               refuse_axes)
 
 
 class MoEMLP(nn.Module):
@@ -55,7 +62,9 @@ class MoEMLP(nn.Module):
     router is ``Dense(dtype=f32)`` on f32 inputs, kept f32 even where the
     matmul weights are bf16), and the expert stacks ``w1``/``w3``
     [E, D, F] and ``w2`` [E, F, D] in ``store_dtype``, cast to ``dtype``
-    at every use as flax casts its params."""
+    at every use as flax casts its params; F/tp hidden units of each
+    under a ``mesh`` with tp > 1.  A mesh with ep > 1 raises
+    NotImplementedError, an object that is not a mesh TypeError."""
 
     # Token-chunk size of drop-free dispatch (the JAX NO_DROP_CHUNK): the
     # [T, E, C] one-hots stay linear in T instead of [T, E, T].
@@ -67,7 +76,12 @@ class MoEMLP(nn.Module):
                  param_dtype=torch.float32, mesh=None, device=None):
         super().__init__()
         if mesh is not None:
-            raise _multi_gpu("MoEMLP over a mesh (mesh=)")
+            refuse_axes(mesh, "MoEMLP")
+        self.tp = tp = TensorParallel.of(mesh)
+        if ffn_dim % tp.size:
+            raise ValueError(f"ffn_dim {ffn_dim} not divisible by "
+                             f"tp={tp.size}")
+        ffn_dim //= tp.size
         store = store_dtype or dtype
         self.n_experts, self.top_k = n_experts, top_k
         self.capacity_factor = capacity_factor
@@ -109,6 +123,8 @@ class MoEMLP(nn.Module):
         self.last_routing = (idx, probs)
 
         w1, w3, w2 = (w.to(self.dtype) for w in (self.w1, self.w3, self.w2))
+        # The expert products run on this rank's hidden units.
+        xf, gate = copy_to_tp(xf, self.tp), copy_to_tp(gate, self.tp)
         chunk = self.NO_DROP_CHUNK
         if no_drop and tokens > chunk:
             # Pad to whole chunks; padded rows route somewhere and are
@@ -125,11 +141,13 @@ class MoEMLP(nn.Module):
             capacity = tokens if no_drop else max(
                 1, int(self.capacity_factor * tokens * k / self.n_experts))
             out = self._dispatch(xf, gate, idx, capacity, w1, w3, w2)
+        out = reduce_from_tp(out, self.tp).to(self.dtype)
         return out.reshape(b, s, d).to(x.dtype)
 
     def _dispatch(self, xf, gate, idx, capacity: int, w1, w3, w2):
         """GShard dispatch, expert products and combine for one block of
-        T tokens at ``capacity`` slots per expert -> [T, D] in dtype."""
+        T tokens at ``capacity`` slots per expert -> [T, D] in f32 (this
+        rank's part under tp), rounded by the caller."""
         t, k, e, dt = xf.shape[0], self.top_k, self.n_experts, self.dtype
         onehot = F.one_hot(idx, e)                               # [T, K, E]
         # Position of each assignment in its expert's buffer: a cumsum
@@ -158,7 +176,8 @@ class MoEMLP(nn.Module):
         # it is served), as one [T, E*C] product of gated one-hots would,
         # which sums its terms in the order of the kernel's tiles.
         picked = torch.einsum("tkec,ecd->tkd", sel, expert_out)  # [T, K, D]
-        return (gate.to(dt).float()[..., None] * picked.float()).sum(1).to(dt)
+        return (gate.to(dt).float()[..., None] * picked.float()).sum(1)
+
 
 def init_expert_stack_(w: torch.Tensor, generator: torch.Generator):
     """Fill an expert stack [E, fan_in, fan_out] as flax's

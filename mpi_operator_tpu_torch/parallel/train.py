@@ -9,9 +9,15 @@ of the weights and moments, not two).  JAX derives the step's
 collectives from sharding annotations; here the mesh plans name them:
 :class:`_ReplicatedPlan` (replicated parameters, gradients reduced on
 flat f32 buckets, optionally hierarchical and with a ZeRO update) and
-:class:`_ShardedPlan` (FSDP2 ``fully_shard`` over ``fsdp``).  Meshes
-with ``tp``, ``sp``, ``ep`` or ``pp`` above 1 wait for ROADMAP.md queue
-1 item 3.
+:class:`_ShardedPlan` (FSDP2 ``fully_shard`` over ``fsdp``).
+
+Either plan composes with tensor parallelism over ``tp``: the model is
+built tp-sharded (``LlamaModel(mesh=)``), the plans reduce gradients
+over the batch ranks (dp x fsdp) that share a tp index, the gradient
+norm sums a tp-sharded leaf's squares over the tp group and a replicated
+one once, and a checkpoint joins the tp shards into the one-device
+format (and cuts them again on restore).  Meshes with ``sp``, ``ep`` or
+``pp`` above 1 wait for ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -26,11 +32,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-
-def _multi_gpu(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 3 (multi-GPU "
-        f"parallelism)")
+from .tensor import TensorParallel, refuse_axes, tp_dim
 
 
 @dataclass
@@ -102,6 +104,67 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def _batch_ranks(mesh):
+    """Per tp index, the ranks that hold the batch shards (dp x fsdp)
+    beside it: a [tp, dp*fsdp] list of lists."""
+    tp = _axis_sizes(mesh)["tp"]
+    return mesh.mesh.reshape(-1, tp).T.tolist()
+
+
+def _batch_group(mesh):
+    """The group of this rank's batch ranks: the default group without
+    tp; otherwise one subgroup per tp index (made on every rank)."""
+    if _axis_sizes(mesh)["tp"] == 1:
+        return None
+    group, _ = dist.new_subgroups_by_enumeration(_batch_ranks(mesh))
+    return group
+
+
+def _ssq_split(tensors, sharded) -> torch.Tensor:
+    """[sum of squares over the tp-sharded tensors, over the others],
+    f32 [2]."""
+    parts = [torch.zeros((), dtype=torch.float32,
+                         device=tensors[0].device) for _ in range(2)]
+    for t, cut in zip(tensors, sharded):
+        parts[0 if cut else 1] = parts[0 if cut else 1] + \
+            torch.linalg.vector_norm(t, dtype=torch.float32).square()
+    return torch.stack(parts)
+
+
+def _tp_norm(ssq: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The global norm from :func:`_ssq_split`'s pair: the tp-sharded
+    squares summed over the tp group, the replicated ones once."""
+    cut = ssq[0:1].clone()
+    tp.all_reduce_(cut)
+    return (cut[0] + ssq[1]).sqrt()
+
+
+class _TPLayout:
+    """The 'tp' dim of each trainable parameter (by name and by index in
+    ``model.parameters()``), from the param specs."""
+
+    def __init__(self, model, specs, tp: TensorParallel):
+        self.tp = tp
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.dims = {n: (tp_dim(specs[n]) if tp.size > 1 else None)
+                     for n in self.names}
+        self.sharded = [self.dims[n] is not None for n in self.names]
+
+    def gather(self, name_or_index, value):
+        """The full tensor of a parameter-shaped tp chunk (collective)."""
+        name = name_or_index if isinstance(name_or_index, str) else \
+            self.names[name_or_index]
+        return self.tp.gather(value, self.dims.get(name))
+
+    def cut(self, name_or_index, value):
+        name = name_or_index if isinstance(name_or_index, str) else \
+            self.names[name_or_index]
+        d = self.dims.get(name)
+        return value if d is None else self.tp.chunk(value, d).clone()
+
+
 def _buckets(sizes, cap: int = BUCKET_ELEMENTS):
     """Consecutive index groups of ``sizes`` whose sums stay within
     ``cap`` (a larger single entry gets a group of its own)."""
@@ -164,15 +227,15 @@ class _RankMajor:
             t.movedim(d, 0).copy_(part.reshape(t.movedim(d, 0).shape))
 
 
-def _all_reduce_mean(tensors, world: int) -> None:
-    """Replace each tensor by its mean over every rank, on flat f32
-    buckets."""
-    for group in _buckets([t.numel() for t in tensors]):
-        flat = torch.cat([tensors[i].float().reshape(-1) for i in group])
-        dist.all_reduce(flat)
+def _all_reduce_mean(tensors, world: int, group=None) -> None:
+    """Replace each tensor by its mean over the ``world`` ranks of
+    ``group`` (default: every rank), on flat f32 buckets."""
+    for bucket in _buckets([t.numel() for t in tensors]):
+        flat = torch.cat([tensors[i].float().reshape(-1) for i in bucket])
+        dist.all_reduce(flat, group=group)
         flat /= world
-        for i, piece in zip(group, flat.split([tensors[i].numel()
-                                               for i in group])):
+        for i, piece in zip(bucket, flat.split([tensors[i].numel()
+                                                for i in bucket])):
             tensors[i].copy_(piece.view(tensors[i].shape))
 
 
@@ -199,10 +262,15 @@ class _ReplicatedPlan:
     group's size; a parameter with no such dim stays whole and is
     all-reduced, as ``graft_spec`` leaves it replicated."""
 
-    def __init__(self, mesh, zero: bool, hier: bool, ici_axis: str):
+    def __init__(self, mesh, zero: bool, hier: bool, ici_axis: str,
+                 specs=None):
         sizes = _axis_sizes(mesh)
         self.device = _mesh_device(mesh)
-        self.world = dist.get_world_size()
+        self.world = sizes["dp"] * sizes["fsdp"]       # batch ranks
+        self.batch_group = _batch_group(mesh)
+        self.tp = TensorParallel.of(mesh)
+        self.specs = specs
+        self.layout = None
         self.zero = zero
         # The collectives' pair: the group the buckets are scattered
         # over, and the group that then reduces the scattered shard.
@@ -222,6 +290,7 @@ class _ReplicatedPlan:
 
     def optimizer(self, model, factory):
         params = [p for p in model.parameters() if p.requires_grad]
+        self.layout = _TPLayout(model, self.specs, self.tp)
         group, n = self.scatter
         dims = {i: _first_divisible_dim(p.shape, n)
                 for i, p in enumerate(params)} if self.split else {}
@@ -251,7 +320,8 @@ class _ReplicatedPlan:
         group, n = self.scatter
         other, n_other = self.other
         if not self.split:
-            _all_reduce_mean([p.grad for p in params], self.world)
+            _all_reduce_mean([p.grad for p in params], self.world,
+                             self.batch_group)
             return
         for idx, layout in self.layouts:
             flat = layout.pack([params[i].grad for i in idx])
@@ -267,9 +337,12 @@ class _ReplicatedPlan:
             else:
                 dist.all_gather_into_tensor(flat, shard, group=group)
                 layout.unpack(flat, [params[i].grad for i in idx])
-        _all_reduce_mean([params[i].grad for i in self.whole], self.world)
+        _all_reduce_mean([params[i].grad for i in self.whole], self.world,
+                         self.batch_group)
 
     def grad_norm(self, params) -> torch.Tensor:
+        if self.tp.size > 1:
+            return self._tp_grad_norm(params)
         if not self.zero:
             return optax_global_norm([p.grad for p in params])
         group, _ = self.scatter
@@ -280,6 +353,19 @@ class _ReplicatedPlan:
         if whole:
             split = split + optax_global_norm(whole).square()
         return split.sqrt()
+
+    def _tp_grad_norm(self, params) -> torch.Tensor:
+        cut = self.layout.sharded
+        if not self.zero:
+            return _tp_norm(_ssq_split([p.grad for p in params], cut),
+                            self.tp)
+        split = _ssq_split([m.grad for m in self.masters.values()],
+                           [cut[i] for i in self.masters])
+        dist.all_reduce(split, group=self.scatter[0])
+        if self.whole:
+            split = split + _ssq_split([params[i].grad for i in self.whole],
+                                       [cut[i] for i in self.whole])
+        return _tp_norm(split, self.tp)
 
     @torch.no_grad()
     def after_step(self, params) -> None:
@@ -305,6 +391,9 @@ class _ReplicatedPlan:
         ``model.parameters()`` would hold it: ZeRO chunks of the moments
         are all-gathered (every rank takes part)."""
         optim = state.optimizer.state_dict()
+        # Its per-parameter entries are the optimizer's live dicts: the
+        # gathers below replace tensors in copies of them.
+        optim["state"] = {i: dict(e) for i, e in optim["state"].items()}
         if self.zero:
             group, n = self.scatter
             for i, master in self.masters.items():
@@ -318,12 +407,28 @@ class _ReplicatedPlan:
                         dist.all_gather_into_tensor(full, value.contiguous(),
                                                     group=group)
                         optim["state"][i][key] = full.movedim(0, d)
-        return {"model": state.model.state_dict(), "optimizer": optim}
+        model = state.model.state_dict()
+        if self.tp.size > 1:
+            lay = self.layout
+            model = {k: lay.gather(k, v) for k, v in model.items()}
+            for i, entry in optim["state"].items():
+                for key, value in entry.items():
+                    if torch.is_tensor(value) and value.dim():
+                        entry[key] = lay.gather(i, value)
+        return {"model": model, "optimizer": optim}
 
     @torch.no_grad()
     def load_state_dict(self, state, payload: dict) -> None:
-        state.model.load_state_dict(payload["model"])
-        optim = payload["optimizer"]
+        model, optim = payload["model"], payload["optimizer"]
+        if self.tp.size > 1:
+            lay = self.layout
+            model = {k: lay.cut(k, v) for k, v in model.items()}
+            optim = {"param_groups": optim["param_groups"],
+                     "state": {i: {key: (lay.cut(i, v) if torch.is_tensor(v)
+                                         and v.dim() else v)
+                                   for key, v in entry.items()}
+                               for i, entry in optim["state"].items()}}
+        state.model.load_state_dict(model)
         if self.zero:
             group, n = self.scatter
             rank = dist.get_rank(group)
@@ -355,17 +460,22 @@ class _ShardedPlan:
     optimizer state are sharded over every batch rank (dp x fsdp), the
     JAX ZeRO plan's optimizer-state sharding."""
 
-    def __init__(self, mesh, zero: bool):
+    def __init__(self, mesh, zero: bool, specs=None):
         from torch.distributed.device_mesh import DeviceMesh
         sizes = _axis_sizes(mesh)
         self.device = _mesh_device(mesh)
-        self.world = dist.get_world_size()
+        self.world = sizes["dp"] * sizes["fsdp"]       # batch ranks
+        self.batch_group = _batch_group(mesh)
+        self.tp = TensorParallel.of(mesh)
+        self.specs = specs
+        self.layout = None
         if sizes["dp"] == 1:
             self.mesh, self.norm_group = mesh["fsdp"], mesh.get_group("fsdp")
         elif zero:
-            # Batch ranks are every rank here (the other axes are 1).
-            self.mesh = DeviceMesh(mesh.device_type,
-                                   list(range(self.world)))
+            # Every batch rank of this tp index (all ranks without tp).
+            self.mesh = DeviceMesh(
+                mesh.device_type, _batch_ranks(mesh),
+                mesh_dim_names=("tp_index", "batch"))["batch"]
             self.norm_group = self.mesh.get_group()
         else:
             self.mesh = mesh["dp", "fsdp"]
@@ -381,12 +491,18 @@ class _ShardedPlan:
         return model
 
     def optimizer(self, model, factory):
+        self.layout = _TPLayout(model, self.specs, self.tp)
         return factory(model.parameters())
 
     def reduce(self, params) -> None:
         """FSDP2 reduced the gradients in the backward."""
 
     def grad_norm(self, params) -> torch.Tensor:
+        if self.tp.size > 1:
+            ssq = _ssq_split([p.grad.to_local() for p in params],
+                             self.layout.sharded)
+            dist.all_reduce(ssq, group=self.norm_group)
+            return _tp_norm(ssq, self.tp)
         local = optax_global_norm([p.grad.to_local() for p in params])
         ssq = local.square()
         dist.all_reduce(ssq, group=self.norm_group)
@@ -405,32 +521,72 @@ class _ShardedPlan:
         ``get_state_dict``, its optimizer state keyed by parameter
         name."""
         from torch.distributed.checkpoint.state_dict import get_state_dict
+        if self.tp.size > 1:
+            return self._tp_state_dict(state)
         model, optim = get_state_dict(state.model, state.optimizer,
                                       options=self._options())
+        return {"model": model, "optimizer": optim}
+
+    @torch.no_grad()
+    def _tp_state_dict(self, state) -> dict:
+        """get_state_dict's full form (optimizer state keyed by parameter
+        name), one tensor at a time: each FSDP2 shard made whole over
+        fsdp, then over tp, and kept (on the host) by rank 0 alone."""
+        from torch.distributed.tensor import DTensor
+
+        lay, keep = self.layout, dist.get_rank() == 0
+
+        def full(name, t):
+            t = t.full_tensor() if isinstance(t, DTensor) else t
+            t = lay.gather(name, t) if t.dim() else t
+            return t.detach().cpu() if keep else None
+
+        opt = state.optimizer
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        model = {n: full(n, p) for n, p in state.model.named_parameters()}
+        optim = {"state": {}, "param_groups": []}
+        for group in opt.param_groups:
+            optim["param_groups"].append(
+                {**{k: v for k, v in group.items() if k != "params"},
+                 "params": [names[id(p)] for p in group["params"]]})
+            for p in group["params"]:
+                optim["state"][names[id(p)]] = {
+                    k: full(names[id(p)], v) if torch.is_tensor(v) else v
+                    for k, v in opt.state.get(p, {}).items()}
+        if not keep:
+            return {}
         return {"model": model, "optimizer": optim}
 
     def load_state_dict(self, state, payload: dict) -> None:
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions, set_state_dict)
+        model, optim = payload["model"], payload["optimizer"]
+        if self.tp.size > 1:
+            lay = self.layout
+            model = {k: lay.cut(k, v) for k, v in model.items()}
+            optim = {"param_groups": optim["param_groups"],
+                     "state": {n: {k: (lay.cut(n, v) if torch.is_tensor(v)
+                                       and v.dim() else v)
+                                   for k, v in entry.items()}
+                               for n, entry in optim["state"].items()}}
         set_state_dict(state.model, state.optimizer,
-                       model_state_dict=payload["model"],
-                       optim_state_dict=payload["optimizer"],
+                       model_state_dict=model, optim_state_dict=optim,
                        options=StateDictOptions(full_state_dict=True))
 
 
 def _mesh_plan(mesh, param_specs, shard_update, hierarchical_allreduce,
                ici_axis):
-    sizes = _axis_sizes(mesh)
-    wider = {a: n for a, n in sizes.items()
-             if a not in ("dp", "fsdp") and n > 1}
-    if wider:
-        raise _multi_gpu(f"a mesh with {wider}")
+    sizes = refuse_axes(mesh, "build_train_step")
+    if sizes["tp"] > 1 and param_specs is None:
+        raise ValueError("tensor parallelism (tp > 1) needs param_specs "
+                         "(models.llama.llama_param_specs): they name the "
+                         "dims the model's shards cut")
     zero = shard_update and sizes["dp"] > 1
     if param_specs is not None and sizes["fsdp"] > 1 and any(
             "fsdp" in spec for spec in param_specs.values()):
-        return _ShardedPlan(mesh, zero)
+        return _ShardedPlan(mesh, zero, param_specs)
     hier = hierarchical_allreduce and sizes.get(ici_axis, 1) > 1
-    return _ReplicatedPlan(mesh, zero, hier, ici_axis)
+    return _ReplicatedPlan(mesh, zero, hier, ici_axis, param_specs)
 
 
 def build_train_step(loss_fn: Callable, optimizer, mesh=None,
@@ -452,7 +608,9 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
       are averaged over every batch rank).
     - param_specs: ``models.llama.llama_param_specs``; with fsdp > 1 the
       parameters are sharded over it (:class:`_ShardedPlan`), else
-      replicated (:class:`_ReplicatedPlan`).
+      replicated (:class:`_ReplicatedPlan`).  With tp > 1 (needs
+      param_specs) the model must be built on the same mesh
+      (``LlamaModel(mesh=)``: its tp shards).
     - shard_update / hierarchical_allreduce / ici_axis: the ZeRO update
       and the hierarchical gradient schedule (see the plans); a 1-sized
       dp is the plain update and a 1-sized ``ici_axis`` the flat
@@ -491,6 +649,11 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
 
     def init_fn(model, init_weights: Optional[Callable] = None):
         if plan is not None:
+            held = getattr(getattr(model, "tp", None), "size", 1)
+            if held != plan.tp.size:
+                raise ValueError(
+                    f"the model holds tp={held} shards, the mesh has "
+                    f"tp={plan.tp.size}: build it with LlamaModel(mesh=)")
             model = plan.place(model)
             if any(p.is_meta for p in model.parameters()):
                 model.to_empty(device=plan.device)
@@ -553,7 +716,8 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
             grad_norm = optax_global_norm([p.grad for p in params])
         else:
             plan.reduce(params)
-            dist.all_reduce(loss)
+            # The tp ranks of a batch shard computed the same loss.
+            dist.all_reduce(loss, group=plan.batch_group)
             loss /= plan.world
             grad_norm = plan.grad_norm(params)
         state.optimizer.step()

@@ -58,6 +58,18 @@ against their chain digests, as cached blocks.  A request that carries
 a causal-trace context emits its ``serve_queue_wait`` and ``prefill``
 spans at its first token, and a fatal scheduler error leaves a
 ``batcher-fatal`` flight bundle behind.
+
+Tensor-parallel serving (``mirror``: a ``serving/mirror.TickMirror``,
+the model a tp shard): every rank of the tp group runs this batcher over
+its shard of the model and of the KV pool, and each scheduler turn
+starts with one exchange of host records: rank 0's queue drained into
+the turn's admissions, its cancellations and stop, every rank's health.
+Every branch of the loop then reads only agreed state (``_cancelled``,
+the admission queue of the turn), so every rank runs the same prefills,
+installs, retirements and decode steps.  The followers take no requests
+of their own; a slot-local admission error is fatal under tp (it may
+have happened on one rank only), and KV-page export and import are
+refused (a page would hold only this rank's heads).
 """
 
 from __future__ import annotations
@@ -191,6 +203,10 @@ class _Request:
     trace_ctx: Optional[object] = None
     submitted_wall: float = 0.0
     admitted_at: float = 0.0
+    # Tensor-parallel serving: rank 0's id of the request and the agreed
+    # cancellation, the one every rank's loop reads.
+    rid: int = -1
+    cancel_agreed: bool = False
 
     def emit(self, token: int) -> None:
         if self.metrics is not None:
@@ -252,12 +268,25 @@ class ContinuousBatcher:
                  draft_len: int = 4, prompt_lookup_ngram: int = 3,
                  prefill_chunk: int = 0, pipelined: bool = True,
                  telemetry_registry: Optional[Registry] = None,
-                 device=None):
+                 device=None, mirror=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, batcher on "
                              f"{self.device}")
         cfg = model.config
+        self._mirror = mirror
+        self._tp = model.tp.size
+        if self._tp > 1 and mirror is None:
+            raise ValueError("a tensor-parallel model needs the tick "
+                             "mirror of its group (InferenceServer(mesh=))")
+        if draft_model is not None and draft_model.tp.size != self._tp:
+            raise ValueError(f"draft model holds tp={draft_model.tp.size} "
+                             f"shards, the target tp={self._tp}")
+        # Tensor-parallel serving: requests agreed for admission, and
+        # every agreed request not finished yet, by id.
+        self._admit: deque = deque()
+        self._live: dict = {}
+        self._next_rid = 0
         if cfg.page_size > 0:
             # Prefill runs on the dense layout and the batcher derives the
             # paged layout itself: pass page_size= to this constructor.
@@ -326,7 +355,8 @@ class ContinuousBatcher:
         else:
             decode_cfg = cfg
         with torch.inference_mode():
-            cache = init_cache(decode_cfg, max_slots, self.device)
+            cache = init_cache(decode_cfg, max_slots, self.device,
+                               tp=self._tp)
             if page_size > 0:
                 # One block table shared by every layer, edited in place
                 # (the model only reads it).
@@ -367,7 +397,8 @@ class ContinuousBatcher:
             # The draft's own per-slot dense cache (the target itself may
             # be the draft: same tensors, this second cache).
             with torch.inference_mode():
-                self._draft_cache = init_cache(dcfg, max_slots, self.device)
+                self._draft_cache = init_cache(dcfg, max_slots, self.device,
+                                               tp=self._tp)
             # slot -> highest committed position whose K/V the draft cache
             # holds; a slot that advanced through plain ticks past it is
             # re-prefilled when speculation resumes.
@@ -429,7 +460,7 @@ class ContinuousBatcher:
         (row cache, first token [1])."""
         prompt = self._tensor([tokens], torch.int32)
         row_cache = init_cache(self.model.config, 1, self.device,
-                               max_len=len(tokens))
+                               max_len=len(tokens), tp=self._tp)
         logits = self.model(prompt, cache=row_cache, decode=True)
         temp, top_p, gen, top_k = sample_args
         return row_cache, select_rows(logits[:, -1], temp, top_p, [gen],
@@ -626,6 +657,7 @@ class ContinuousBatcher:
             raise ValueError(
                 "export_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
+        self._refuse_pages_under_tp("export")
         by_digest: dict = {}
         for _ in range(8):
             try:
@@ -687,6 +719,7 @@ class ContinuousBatcher:
             raise ValueError(
                 "import_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
+        self._refuse_pages_under_tp("import")
         if self._stop.is_set():
             raise self._shutdown_error()
         result = {"imported": 0, "deduped": 0, "rejected": 0}
@@ -699,6 +732,13 @@ class ContinuousBatcher:
         if self._stop.is_set() and self.fatal_error is not None:
             raise self._shutdown_error()
         return result
+
+    def _refuse_pages_under_tp(self, what: str) -> None:
+        if self._mirror is not None:
+            raise NotImplementedError(
+                f"KV-page {what} under tensor parallelism is not ported "
+                f"yet (a page holds only this rank's heads): ROADMAP.md "
+                f"queue 1 item 3")
 
     def _drain_kv_imports(self) -> None:
         """Scheduler thread: install every queued import.  Pages arrive
@@ -909,7 +949,7 @@ class ContinuousBatcher:
         """Prefill the committed stream through the draft model (batch-1
         dense) into the draft's slot row."""
         row_cache = init_cache(self._draft_model.config, 1, self.device,
-                               max_len=len(tokens))
+                               max_len=len(tokens), tp=self._tp)
         self._draft_model(self._tensor([tokens], torch.int32),
                           cache=row_cache, decode=True)
         self._copy_dense_row(self._draft_cache, slot, row_cache)
@@ -996,7 +1036,7 @@ class ContinuousBatcher:
         carry_tok: List[int] = []
         for i in active:
             req = slots[i]
-            if req.cancelled.is_set():
+            if self._cancelled(req):
                 req.done.set()
                 slots[i] = None
                 self._retire_slot(i)
@@ -1013,6 +1053,7 @@ class ContinuousBatcher:
                         take = pos + 1
                         break
             self.spec_stats["accepted_drafts"] += min(j, take)
+            self._tally(emit[:take])
             for tok in emit[:take]:
                 req.emit(int(tok))
             if self._draft_model is not None:
@@ -1051,6 +1092,10 @@ class ContinuousBatcher:
     def _enqueue(self, tokens, max_new_tokens, temperature, top_p, seed,
                  on_token=None, stop_tokens=(), top_k=0,
                  trace_ctx=None) -> _Request:
+        if self._mirror is not None and not self._mirror.leader:
+            raise RuntimeError(
+                f"tensor-parallel rank {self._mirror.tp.rank} takes no "
+                f"requests: rank 0 of the group admits them")
         headroom = self._headroom(float(temperature))
         if len(tokens) + max_new_tokens + headroom > self._max_seq_len:
             raise ValueError(
@@ -1103,6 +1148,26 @@ class ContinuousBatcher:
         if req.error is not None:
             raise req.error
         return req.output
+
+    def submit_many(self, rows: List[List[int]], max_new_tokens: int,
+                    timeout: float = 300.0, temperature: float = 0.0,
+                    top_p: float = 1.0, seed: Optional[int] = None,
+                    stop_tokens=(), top_k: int = 0,
+                    trace_ctx=None) -> List[List[int]]:
+        """Several prompts at once, each in a slot of its own (queued
+        together, admitted in order); their outputs in order."""
+        if max_new_tokens <= 0:
+            return [[] for _ in rows]
+        reqs = [self._enqueue(r, max_new_tokens, temperature, top_p, seed,
+                              stop_tokens=stop_tokens, top_k=top_k,
+                              trace_ctx=trace_ctx) for r in rows]
+        deadline = time.monotonic() + timeout
+        for req in reqs:
+            if not req.done.wait(max(0.0, deadline - time.monotonic())):
+                raise TimeoutError("generation timed out")
+            if req.error is not None:
+                raise req.error
+        return [req.output for req in reqs]
 
     def submit_iter(self, tokens: List[int], max_new_tokens: int,
                     timeout: float = 300.0, temperature: float = 0.0,
@@ -1189,9 +1254,80 @@ class ContinuousBatcher:
         return self
 
     def stop(self) -> None:
+        """Stop the scheduler.  A tensor-parallel follower's loop ends at
+        the turn rank 0 stops (or a fault stops) the group: this only
+        waits for it."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Wait for the scheduler loop to end; raise its fatal error."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+        if self.fatal_error is not None:
+            raise self._shutdown_error()
+
+    # -- tensor-parallel lock-step -----------------------------------------
+    def _cancelled(self, req: _Request) -> bool:
+        """Whether the loop drops ``req`` now: its own flag, or under tp
+        the cancellation rank 0 broadcast (the same on every rank)."""
+        if self._mirror is not None:
+            return req.cancel_agreed
+        return req.cancelled.is_set()
+
+    def _tally(self, tokens) -> None:
+        if self._mirror is not None:
+            self._mirror.tally(tokens)
+
+    def _next_request(self) -> _Request:
+        if self._mirror is not None:
+            if not self._admit:
+                raise queue.Empty
+            return self._admit.popleft()
+        return self._queue.get_nowait()
+
+    def _queue_depth(self) -> int:
+        return self._queue.qsize() + len(self._admit)
+
+    def _mirror_turn(self) -> bool:
+        """Start a tp scheduler turn: the exchange of records
+        (``TickMirror.exchange``), then rank 0's decisions applied on
+        every rank.  Returns False when the group stops."""
+        m = self._mirror
+        decisions = None
+        if m.leader:
+            new = []
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                req.rid, self._next_rid = self._next_rid, self._next_rid + 1
+                new.append((req.rid, req.tokens, req.max_new_tokens,
+                            req.temperature, req.top_p, req.top_k,
+                            req.seed, sorted(req.stop_tokens)))
+                self._live[req.rid] = req
+                self._admit.append(req)
+            decisions = {
+                "stop": self._stop.is_set(), "new": new,
+                "cancel": [rid for rid, r in self._live.items()
+                           if r.cancelled.is_set() and not r.cancel_agreed]}
+        lead = m.exchange(self.ticks_dispatched, decisions)
+        if not m.leader:
+            for rid, tokens, n, temp, top_p, top_k, seed, stop in \
+                    lead["new"]:
+                req = _Request(list(tokens), n, temperature=temp,
+                               top_p=top_p, top_k=top_k, seed=seed,
+                               stop_tokens=frozenset(stop), rid=rid)
+                self._live[rid] = req
+                self._admit.append(req)
+        for rid in lead["cancel"]:
+            if rid in self._live:
+                self._live[rid].cancel_agreed = True
+        self._live = {rid: r for rid, r in self._live.items()
+                      if not r.done.is_set()}
+        return not lead["stop"]
 
     # -- scheduler loop ----------------------------------------------------
     def _tick_fatal(self, exc: BaseException, phase: str) -> None:
@@ -1282,9 +1418,10 @@ class ContinuousBatcher:
             # Counted here, not at launch: a dropped overrun step emits
             # nothing.
             self.spec_stats["plain_ticks"] += 1
+            self._tally(out_np[live])
             for i in live:
                 req = snap[i]
-                if req.cancelled.is_set():
+                if self._cancelled(req):
                     req.done.set()
                     slots[i] = None
                     self._retire_slot(i)
@@ -1295,7 +1432,18 @@ class ContinuousBatcher:
                     slots[i] = None
                     self._retire_slot(i)
 
-        while not self._stop.is_set():
+        mirror = self._mirror
+        while mirror is not None or not self._stop.is_set():
+            if mirror is not None:
+                # Tensor parallel: the turn starts from rank 0's
+                # decisions, the same on every rank.
+                try:
+                    if not self._mirror_turn():
+                        break
+                except Exception as exc:
+                    self._tick_fatal(exc, "tp-exchange")
+                    mirror = None      # the exchange itself failed
+                    break
             # Transferred KV pages install before this turn's admissions,
             # so a /generate that raced its own page push still hits the
             # prefix cache.
@@ -1330,7 +1478,7 @@ class ContinuousBatcher:
                 if slots[i] is not None:
                     continue
                 if deferred is not None:
-                    if deferred.cancelled.is_set():
+                    if self._cancelled(deferred):
                         deferred.done.set()
                         deferred = None
                         continue
@@ -1341,10 +1489,10 @@ class ContinuousBatcher:
                     req, deferred = deferred, None
                 else:
                     try:
-                        req = self._queue.get_nowait()
+                        req = self._next_request()
                     except queue.Empty:
                         break
-                if req.cancelled.is_set():
+                if self._cancelled(req):
                     req.done.set()
                     continue
                 if self.page_size > 0 and not self._alloc_blocks(
@@ -1388,6 +1536,7 @@ class ContinuousBatcher:
                     if self.page_size > 0:
                         self._register_blocks(i, req.tokens)
                     first_i = int(first[0])
+                    self._tally((first_i,))
                     req.emit(first_i)
                     if req.finished:
                         req.done.set()
@@ -1406,13 +1555,18 @@ class ContinuousBatcher:
                     # slot's dense row or private blocks (nothing is
                     # donated, unlike the JAX batcher), and a sticky
                     # device error resurfaces at the next launch, which
-                    # is fatal there.
+                    # is fatal there.  Under tp it may have struck one
+                    # rank only: fatal to the group.
                     req.error = exc
                     req.done.set()
                     self._retire_slot(i)
+                    if mirror is not None:
+                        self._tick_fatal(exc, "admission")
+                        break
 
-            if self._stop.is_set():
-                break  # external stop: drain
+            if self._stop.is_set() and (mirror is None
+                                        or self.fatal_error is not None):
+                break  # external stop (under tp: a fault): drain
 
             if wave_idx:
                 # One scatter for the wave's first tokens (landing on the
@@ -1430,14 +1584,16 @@ class ContinuousBatcher:
                     break
 
             active_count = sum(1 for s in slots if s is not None)
-            tm["queue_depth"].set(self._queue.qsize())
+            tm["queue_depth"].set(self._queue_depth())
             tm["active_slots"].set(active_count)
             if active_count:
                 tm["batch_size"].observe(active_count)
 
             if not active_count:
-                if not admitted and pending is None:
-                    # Idle: wait for work without dequeuing.
+                if not admitted and pending is None and (
+                        mirror is None or mirror.leader):
+                    # Idle: wait for work without dequeuing (a tp
+                    # follower waits in the next exchange instead).
                     self._queue.wait_nonempty(0.05)
                 continue
 
@@ -1463,8 +1619,17 @@ class ContinuousBatcher:
                     self._tick_fatal(exc, "dispatch")
                     break
 
+        if mirror is not None and self.fatal_error is not None:
+            # This rank's own fault: the others stop at their next
+            # exchange.
+            mirror.tell_fatal(self.ticks_dispatched, self.fatal_error)
         # Drain on shutdown: submit() rejects once _stop is set, so this
         # converges; pending and in-flight requests fail loudly.
+        self._stop.set()
+        while self._admit:
+            req = self._admit.popleft()
+            req.error = self._shutdown_error()
+            req.done.set()
         if deferred is not None:
             deferred.error = self._shutdown_error()
             deferred.done.set()

@@ -36,7 +36,17 @@ is off, go through ``generate()`` on the dense cache, or through
 The card is a serial resource behind one device lock shared with the
 batcher.  ``role`` ("unified", "prefill" or "decode") only changes what
 the replica advertises at /fleet-state: either role serves either verb.
-Not ported yet: tensor-parallel serving (``mesh=`` raises).
+
+Tensor-parallel serving (``mesh=``: a ``parallel.mesh`` mesh whose only
+axis above 1 is ``tp``, one process per card, every rank constructing
+the server): the model is this rank's tp shard (a whole model is cut
+here, by ``llama_param_specs``, as the JAX server places its params),
+the paged pool holds this rank's KV heads, and K4' runs on them.  Every
+rank runs the continuous batcher in lock-step (``serving/mirror.py``);
+rank 0 alone binds the HTTP front end and takes requests, the others
+serve until rank 0 stops (``join()``).  It needs the batcher (multi-row
+requests are served row by row through it); disaggregated roles, KV-page
+export/import and dp/fsdp in a serving mesh are not ported.
 """
 
 from __future__ import annotations
@@ -261,7 +271,7 @@ class InferenceServer:
                  pipelined: bool = True,
                  telemetry_registry: Optional[Registry] = None,
                  role: str = "unified", model_name: str = "",
-                 device=None):
+                 device=None, tp_timeout_s: float = 120.0):
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'unified', 'prefill' or 'decode', "
@@ -273,10 +283,19 @@ class InferenceServer:
                 f"role={role!r} (disaggregated serving) requires a "
                 f"paged KV cache (kv_page_size > 0); unpaged replicas "
                 f"can only serve unified")
+        tp = None
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet: "
-                "ROADMAP.md queue 1 item 3 (multi-GPU)")
+            from ..parallel.tensor import TensorParallel, refuse_axes
+            refuse_axes(mesh, "InferenceServer", allowed=("tp",))
+            tp = TensorParallel.of(mesh)
+            if role != "unified":
+                raise NotImplementedError(
+                    f"role={role!r} under tensor parallelism is not ported "
+                    f"yet (a KV page would hold only this rank's heads): "
+                    f"ROADMAP.md queue 1 item 3")
+            if max_batch_slots <= 0:
+                raise ValueError("tensor-parallel serving runs through the "
+                                 "continuous batcher (max_batch_slots > 0)")
         if weight_dtype not in ("auto", "int8"):
             raise ValueError(f"weight_dtype must be 'auto' or 'int8', "
                              f"got {weight_dtype!r}")
@@ -303,6 +322,13 @@ class InferenceServer:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, server on "
                              f"{self.device}")
+        if tp is not None and model.tp.size != tp.size:
+            if model.tp.size != 1:
+                raise ValueError(f"model holds tp={model.tp.size} shards, "
+                                 f"the mesh has tp={tp.size}")
+            # The caller's whole model stays theirs to drop.
+            from ..models.params import shard_model
+            model = shard_model(model, mesh)
         if weight_dtype == "int8" and model.config.weight_dtype != "int8":
             # Weight-only int8: quantize the matmul weights up front
             # (models/quant.py).  The caller must drop its own reference
@@ -328,6 +354,10 @@ class InferenceServer:
         # are in the ring a /debug-bundle freezes.
         flight.default_recorder()
         self._batcher = None
+        self.mirror = None
+        if tp is not None and tp.size > 1:
+            from .mirror import TickMirror
+            self.mirror = TickMirror(tp, timeout_s=tp_timeout_s)
         if max_batch_slots > 0:
             from .batcher import ContinuousBatcher
             self._batcher = ContinuousBatcher(
@@ -338,11 +368,20 @@ class InferenceServer:
                 draft_len=draft_len, prompt_lookup_ngram=prompt_lookup_ngram,
                 prefill_chunk=kv_prefill_chunk, pipelined=pipelined,
                 telemetry_registry=self.telemetry_registry,
-                device=self.device)
-        self._http = ThreadingHTTPServer((host, port), _Handler)
-        self._http.inference = self  # type: ignore[attr-defined]
-        self.port = self._http.server_address[1]
+                device=self.device, mirror=self.mirror)
+        self._http = None
+        self.port = None
+        if self.is_leader:
+            self._http = ThreadingHTTPServer((host, port), _Handler)
+            self._http.inference = self  # type: ignore[attr-defined]
+            self.port = self._http.server_address[1]
         self._thread: Optional[threading.Thread] = None
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank takes requests: always, but for the ranks
+        past 0 of a tensor-parallel group."""
+        return self.mirror is None or self.mirror.leader
 
     # -- inference ---------------------------------------------------------
     def generate(self, tokens, max_new_tokens: int = 16,
@@ -372,6 +411,17 @@ class InferenceServer:
                 rows[0], max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, stop_tokens=stop_tokens,
                 top_k=top_k, trace_ctx=trace_ctx)]
+        if self.mirror is not None:
+            # Tensor parallel: every forward must run on every rank, so
+            # the rows go through the batcher, each in its own slot, and
+            # come back in generate()'s shape (rows past their stop
+            # token repeat it up to the longest).
+            outs = self._batcher.submit_many(
+                rows, max_new_tokens, temperature=temperature, top_p=top_p,
+                seed=seed, stop_tokens=stop_tokens, top_k=top_k,
+                trace_ctx=trace_ctx)
+            width = max(len(o) for o in outs)
+            return [o + o[-1:] * (width - len(o)) for o in outs]
         # Right-pad to a rectangle; each row decodes from its own end.
         lengths = [len(r) for r in rows]
         width = max(lengths)
@@ -512,6 +562,13 @@ class InferenceServer:
             "free_blocks": b.free_blocks(),
         }
 
+    def prefill_logits(self, tokens):
+        """A prompt's last-position logits [V] as admission prefills it
+        (``ContinuousBatcher.prefill_logits``; paged cache, before
+        ``start()``).  Under tp every rank calls it with the same tokens
+        (the forward is collective) and gets the whole logits."""
+        return self._batcher.prefill_logits(tokens)
+
     def batcher_stats(self) -> dict:
         """Copies of the batcher's counters: ``spec`` (speculation
         rounds, plain ticks, drafted and accepted tokens) and ``prefix``
@@ -527,14 +584,28 @@ class InferenceServer:
     def start(self) -> "InferenceServer":
         if self._batcher is not None:
             self._batcher.start()
-        self._thread = threading.Thread(target=self._http.serve_forever,
-                                        daemon=True, name="inference")
-        self._thread.start()
+        if self._http is not None:
+            self._thread = threading.Thread(
+                target=self._http.serve_forever, daemon=True,
+                name="inference")
+            self._thread.start()
         return self
 
+    def join(self, timeout: Optional[float] = None) -> None:
+        """A tensor-parallel follower serves until rank 0 stops the group:
+        wait for that (or ``timeout`` seconds); raise the error that
+        stopped it, if one did."""
+        if self._batcher is not None:
+            self._batcher.join(timeout)
+
     def stop(self) -> None:
+        """Stop serving.  On rank 0 of a tensor-parallel group this stops
+        every rank (at their next turn); on the others it waits for
+        that."""
         if self._batcher is not None:
             self._batcher.stop()
+        if self._http is None:
+            return
         if self._thread is not None:
             self._http.shutdown()
             self._thread.join(timeout=5)
@@ -547,4 +618,7 @@ class InferenceServer:
 
     @property
     def url(self) -> str:
+        if self._http is None:
+            raise RuntimeError(f"tensor-parallel rank {self.mirror.tp.rank} "
+                               f"serves no HTTP: rank 0 does")
         return f"http://127.0.0.1:{self.port}"

@@ -39,18 +39,15 @@ def global_batch_iterator(local_batch_fn: Callable[[int], Sequence],
       rows ``jax.make_array_from_process_local_data`` gives it, so no
       host ever holds the global batch.
     - mesh: the process's ``DeviceMesh`` (None: one process, a plain
-      copy); every process of one batch shard must feed the same rows.
+      copy); every process of one batch shard must feed the same rows:
+      ranks that differ only on 'tp' hold the same rows
+      (``parallel.mesh.batch_rows``).  'sp', 'ep' and 'pp' above 1 raise.
 
     Tuples of tensors come out, as the JAX iterator yields tuples of
     global arrays."""
     if mesh is not None:
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        wider = {a: n for a, n in sizes.items()
-                 if a not in ("dp", "fsdp") and n > 1}
-        if wider:
-            raise NotImplementedError(
-                f"batches over a mesh with {wider}: ROADMAP.md queue 1 "
-                f"item 3 (multi-GPU parallelism)")
+        from ..parallel.tensor import refuse_axes
+        refuse_axes(mesh, "global_batch_iterator")
     step = 0
     while steps is None or step < steps:
         yield tuple(_to_device(arr, device) for arr in local_batch_fn(step))

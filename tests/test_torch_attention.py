@@ -14,6 +14,7 @@ imports jax but not flax, so it also runs on a machine without flax.
 
 import importlib
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -134,7 +135,14 @@ def test_dispatcher_layout_window_and_refusals():
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        atol=F32_TOL, rtol=F32_TOL)
     assert ta.LAUNCHES == before
+    # Under a mesh each rank holds its heads (tp is ported:
+    # tests/test_torch_tensor_parallel.py); sp (ring attention) still
+    # raises, and anything but a DeviceMesh is refused.
+    from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        ta.attention(*_t(q, k, v), mesh=types.SimpleNamespace(
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 1, 1, 2)))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ta.attention(*_t(q, k, v), mesh=object())
     with pytest.raises(ValueError, match="causal"):
         ta.attention(*_t(q, k, v), causal=False, window=7)

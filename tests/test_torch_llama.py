@@ -6,6 +6,8 @@ f32 atol/rtol 1e-4 (dense prefill and a paged decode step), greedy token
 streams must be byte-identical (dense and paged caches).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from mpi_operator_tpu_torch.models.params import (from_flax_params,
                                                   init_params,
                                                   load_flax_params)
 from mpi_operator_tpu_torch.ops.moe import MoEMLP
+from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
 
 LOGIT_TOL = 1e-4
 ROPE_SCALING = dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
@@ -264,14 +267,19 @@ def test_out_of_slice_paths_raise():
                      device="cpu")
     # The training forward (no cache) is ported: logits [B, S, V].
     assert tm(torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
-    # MoE is ported (tests/test_torch_mixtral.py); int8 weights with MoE
-    # and an MoE layer over a mesh still raise.
+    # MoE is ported (tests/test_torch_mixtral.py), over tp too
+    # (tests/test_torch_tensor_parallel.py); int8 weights with MoE and
+    # an MoE layer over an 'ep' axis still raise, and a mesh must be a
+    # DeviceMesh.
     assert tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")(
         torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.LlamaModel(tl.llama2_tiny(n_experts=4, weight_dtype="int8"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh with ep=2"):
+        MoEMLP(128, 256, 4, mesh=types.SimpleNamespace(
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 2, 1, 1)))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MoEMLP(128, 256, 4, mesh=object())
     # Weight-only int8 is ported (tests/test_torch_quant.py): the matmul
     # layers hold int8 weights.

@@ -12,6 +12,8 @@ equal to ``generate`` (the port of
 AdamW steps against the JAX step (loss and grad_norm at 1e-5).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from mpi_operator_tpu_torch.models.params import (from_flax_params,
                                                   load_flax_params,
                                                   share_weights)
 from mpi_operator_tpu_torch.ops.moe import MoEMLP
+from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
 from mpi_operator_tpu_torch.parallel import train as ttrain
 from mpi_operator_tpu_torch.serving.batcher import ContinuousBatcher
 
@@ -220,5 +223,7 @@ def test_share_weights_and_init_params_of_an_moe_model():
 def test_int8_and_mesh_still_raise_for_moe():
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.mixtral_tiny(weight_dtype="int8")
+    # tp is ported (tests/test_torch_tensor_parallel.py); 'ep' is not.
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        MoEMLP(8, 16, 4, mesh=object())
+        MoEMLP(8, 16, 4, mesh=types.SimpleNamespace(
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 2, 1, 1)))

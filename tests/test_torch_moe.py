@@ -9,6 +9,8 @@ at a capacity that overflows, drop-free over more than one chunk of
 value against the one the JAX layer sows.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from mpi_operator_tpu.ops import moe as jmoe
 from mpi_operator_tpu_torch.ops import moe as tmoe
+from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -174,7 +177,11 @@ def test_expert_stack_init_is_truncated_lecun_normal():
 
 
 def test_mesh_raises_and_load_balancing_before_forward():
+    # Over 'ep' MoE is not ported; anything but a DeviceMesh is refused.
     with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tmoe.MoEMLP(DIM, FFN, E, mesh=types.SimpleNamespace(
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 2, 1, 1)))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmoe.MoEMLP(DIM, FFN, E, mesh=object())
     assert tmoe.MoEMLP(DIM, FFN, E, device="cpu").load_balancing is None
 

@@ -220,11 +220,13 @@ def test_accum_steps_equals_the_full_batch_and_out_of_slice_raise():
     # One device is a 1-sized dp and ici axis: the plain step.
     for kw in (dict(shard_update=True), dict(hierarchical_allreduce=True)):
         assert _tiny_state(**kw)[0].plan is None
-    # A mesh axis that training does not shard yet raises.
-    mesh = types.SimpleNamespace(mesh_dim_names=AXIS_NAMES,
-                                 shape=(1, 1, 1, 1, 2, 1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        _tiny_state(mesh=mesh)
+    # A mesh axis that training does not shard yet raises: sp, ep and
+    # pp (tp is ported: tests/test_torch_tensor_parallel.py).
+    for shape in ((1, 1, 1, 1, 1, 2), (1, 1, 1, 2, 1, 1),
+                  (1, 1, 2, 1, 1, 1)):
+        mesh = types.SimpleNamespace(mesh_dim_names=AXIS_NAMES, shape=shape)
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+            _tiny_state(mesh=mesh)
 
 
 def test_training_forward_shapes_and_remat_launch_count(monkeypatch):
