@@ -24,9 +24,12 @@ continued:
              table entry pointing at another block) must exceed the
              limit; each case prints its split plan, share of its bound
              and host us (median of 7 runs of 200 calls).  K1'-K3'
-             (flash attention forward, dQ, dK/dV) at the training shape (2 x 32 heads x 4096 x 128,
-             bf16, causal) and non-causal, S = 4095, D = 64, f32 and
-             flash_attention_with_lse with an lse cotangent: per
+             (flash attention forward, dQ, dK/dV) at the training
+             shape (2 x 32 heads x 4096 x 128, bf16, causal) and
+             non-causal, S = 4095, D = 64, f32, phase 11's ring chunk
+             (1 x 32 x 8192 x 128, non-causal: a chunk behind the
+             diagonal) and flash_attention_with_lse with an lse
+             cotangent, causal and not: per
              (batch, head), the largest error over the largest |plain
              value| is at most 2e-2 forward and 5e-2 for gradients in
              bf16, 2e-5 and 5e-4 in f32; a planted fault (key block 0 of
@@ -225,6 +228,36 @@ continued:
              bit-identical, peak < 80 GB.  Printed: TTFT, inter-token
              latency, tokens/s, peak per rank; ms a step, tokens/s a
              card and train_mfu.
+11. sequence / expert parallel  one process per card (4 or 2; at one
+             card it prints that it needs two), NCCL.  (a) llama2_tiny
+             f32, 3 AdamW steps at sp = world through ring attention on
+             K1'-K3' (ring_impl="flash"; at four cards also fsdp = 2 x
+             sp = 2) and mixtral_tiny at ep = 2 (dp the rest; at four
+             cards also fsdp = 2 x ep = 2), against card 0 alone at
+             1e-5; each run again with a planted fault that must fail
+             (sp: rank 1's RoPE positions not offset; ep: rank 1 keeps
+             its own partial combine); reshard_train_state grown from
+             card 0 to two ranks and shrunk back at step 2 of 4: within
+             1e-5 of the straight run on two ranks, each moved state
+             bit-equal to the state before its move.  (b) llama2_7b at
+             full width, all 32 layers at fsdp = 2 x sp = 2 (8 layers
+             at sp = 2 on two cards), 1 x 16384 tokens a batch shard
+             (8192 a rank), bf16 compute, the ring on the flash kernels,
+             1 warm-up + 3 steps, twice; then the ring's forward and
+             backward at the layer's shape, and one K/V rotation, timed
+             by CUDA events.  (c) mixtral_8x7b at full width, 8 of 32
+             layers at fsdp = 2 x ep = 2 (4 layers at ep = 2 on two
+             cards), 1 x 4096 tokens a batch shard, the same steps.
+             Both under activation checkpointing (without it a rank ran
+             out of memory in each).  Checked: on sp rank r, K1'-K3'
+             each launch steps x layers x (r + 1) times (the causal
+             ring; K1' twice that: remat runs each forward again), in
+             (c) steps x layers (K1' twice that); finite losses,
+             bit-identical over the two runs; peak < 80 GB on every
+             rank; every expert
+             routed.  Printed per rank: ms a step, tokens/s a card,
+             train_mfu (the formula of training, over the global
+             tokens), peak, the ring's ms a layer and share of the step.
 10. profile  after every measured phase, the serving phase's concurrent
              prompts on a fresh server of the same shape, once to warm
              up and once under torch.profiler: K4''s device ms per
@@ -238,6 +271,7 @@ Before the last line it prints the card line and one
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -1593,28 +1627,29 @@ def flash_case(fa, gen, name, b, h, s, d, dtype, causal, timed=False):
     return result
 
 
-def flash_lse_case(fa, gen):
+def flash_lse_case(fa, gen, causal: bool = True):
     """flash_attention_with_lse with an lse cotangent (dlse folded into
-    delta) against autograd through the plain version."""
+    delta) against autograd through the plain version; causal (the
+    diagonal chunk of a ring) or not (the chunks behind it)."""
     dev = torch.device("cuda")
     q, k, v, g = (torch.randn(1, 8, 1024, 128, generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(4))
     gl = torch.randn(1, 8, 1024, generator=gen, device=dev)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out, lse = fa.flash_attention_with_lse(*leaves, None, True)
+    out, lse = fa.flash_attention_with_lse(*leaves, None, causal)
     ((out * g.float()).sum() + (lse * gl).sum()).backward()
     plain = [x.clone().float().requires_grad_() for x in (q, k, v)]
-    pout, plse = fa._plain_forward(*plain, 128 ** -0.5, True)
+    pout, plse = fa._plain_forward(*plain, 128 ** -0.5, causal)
     ((pout * g.float()).sum() + (plse * gl).sum()).backward()
     errs = [bh_rel_err(out, pout)] + [bh_rel_err(a.grad, b.grad)
                                       for a, b in zip(leaves, plain)]
     limits = [FLASH_LIMITS[torch.bfloat16][0]] + \
         [FLASH_LIMITS[torch.bfloat16][1]] * 3
+    name = "with_lse_dlse" + ("" if causal else "_non_causal")
     if not all(e <= t for e, t in zip(errs, limits)):
-        raise SystemExit(f"flash_attention_with_lse with dlse: errors "
-                         f"{errs} exceed {limits}")
-    print(f"kernel flash[with_lse_dlse]: out/dq/dk/dv rel err {errs}",
-          flush=True)
+        raise SystemExit(f"flash_attention_with_lse with dlse (causal="
+                         f"{causal}): errors {errs} exceed {limits}")
+    print(f"kernel flash[{name}]: out/dq/dk/dv rel err {errs}", flush=True)
     return errs
 
 
@@ -1630,9 +1665,12 @@ def flash_phase():
         ("ragged_4095", 1, 32, 4095, 128, bf16, True, False),
         ("head_dim_64", 1, 32, 4096, 64, bf16, True, False),
         ("f32", 1, 8, 1024, 64, f32, True, False),
+        # A chunk behind the diagonal in phase 11's ring: S/sp = 8192.
+        ("ring_chunk_8192", 1, 32, 8192, 128, bf16, False, False),
     ]
     results = {c[0]: flash_case(fa, gen, *c) for c in cases}
     results["with_lse_dlse"] = flash_lse_case(fa, gen)
+    results["with_lse_dlse_non_causal"] = flash_lse_case(fa, gen, False)
     return results
 
 
@@ -1942,15 +1980,7 @@ def training_phase(card: str, name: str = "llama2_7b"):
     warm_s = stamps[0] - t0
     step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
     n_tokens = batch * seq
-    moe = cfg.n_experts > 1
-    ffn_params = ((cfg.top_k if moe else 1) * 3 * cfg.dim * cfg.ffn_dim
-                  + (cfg.dim * cfg.n_experts if moe else 0))
-    matmul_params = cfg.n_layers * (
-        2 * cfg.dim * cfg.n_heads * cfg.head_dim
-        + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
-        + ffn_params) + cfg.dim * cfg.vocab_size
-    flops = (6 * n_tokens * matmul_params
-             + 12 * cfg.n_layers * batch * seq ** 2 * cfg.dim / 2)
+    flops = train_flops(cfg, batch, seq)
     stats = {
         "card": card, "model": name, "n_layers": cfg.n_layers,
         "reduced": f"n_layers {cfg.n_layers} of 32", "batch": batch,
@@ -2113,12 +2143,13 @@ def dist_loss(model, batch):
     return next_token_loss(model(batch), batch)
 
 
-def dist_parity_inputs(world: int):
-    """llama2_tiny f32 weights from SEED and a global batch of 2 rows
-    per card, the same in every process."""
-    from mpi_operator_tpu_torch.models.llama import llama2_tiny
+def dist_parity_inputs(world: int, preset: str = "llama2_tiny"):
+    """A tiny model's f32 weights from SEED (llama2_tiny, or
+    mixtral_tiny) and a global batch of 2 rows per card, the same in
+    every process."""
+    from mpi_operator_tpu_torch.models import llama
     from mpi_operator_tpu_torch.models.params import init_params
-    cfg = llama2_tiny()
+    cfg = getattr(llama, preset)()
     weights = init_params(cfg, torch.Generator().manual_seed(SEED),
                           device="cpu", dtype=torch.float32).state_dict()
     tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
@@ -2227,12 +2258,7 @@ def dist_full_width_run(world: int):
     # cudaMalloc retries after freeing the cache (each one syncs the
     # card): what a step near the memory limit pays.
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    matmul_params = cfg.n_layers * (
-        2 * cfg.dim * cfg.n_heads * cfg.head_dim
-        + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
-        + 3 * cfg.dim * cfg.ffn_dim) + cfg.dim * cfg.vocab_size
-    flops = 6 * seq * matmul_params + 12 * cfg.n_layers * seq ** 2 \
-        * cfg.dim / 2
+    flops = train_flops(cfg, 1, seq)
     del state
     return {"n_layers": cfg.n_layers, "fsdp": world, "tokens_per_rank": seq,
             "local_params": local_params, "init_s": init_s,
@@ -2302,14 +2328,14 @@ def dist_parity_failures(metrics, params, ref_metrics, ref_params,
     return bad
 
 
-def dist_parity_reference(world: int):
+def dist_parity_reference(world: int, preset: str = "llama2_tiny"):
     """The same steps in this process on card 0, on the whole global
     batch: metrics, parameters and the smallest |gradient| per
     element."""
     from mpi_operator_tpu_torch.models.llama import LlamaModel
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
-    cfg, weights, tokens = dist_parity_inputs(world)
+    cfg, weights, tokens = dist_parity_inputs(world, preset)
     model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
     model.load_state_dict(weights)
     init, step = build_train_step(dist_loss, adamw(DIST_LR))
@@ -2709,12 +2735,7 @@ def tp_full_width_run(world: int):
         stamps.append(time.perf_counter())
     launches = dict(fa.LAUNCHES)
     step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
-    matmul_params = cfg.n_layers * (
-        2 * cfg.dim * cfg.n_heads * cfg.head_dim
-        + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
-        + 3 * cfg.dim * cfg.ffn_dim) + cfg.dim * cfg.vocab_size
-    flops = fsdp * (6 * seq * matmul_params
-                    + 12 * cfg.n_layers * seq ** 2 * cfg.dim / 2)
+    flops = fsdp * train_flops(cfg, 1, seq)
     peak = torch.cuda.max_memory_allocated()
     del state
     return {"n_layers": cfg.n_layers, "fsdp": fsdp, "tp": world // fsdp,
@@ -2944,6 +2965,501 @@ def tp_phase(card: str, serve):
     return result
 
 
+# -- phase 11: sequence and expert parallel ----------------------------------
+
+SP_DEADLINE_S = 900
+SP_STEPS = 4                      # one warm-up + 3 timed
+SP_RESHARD_AT = 2                 # the move, at step 2 of SP_RESHARD_STEPS
+SP_RESHARD_STEPS = 4
+SP_RING_ITERS = 5
+
+
+def sp_world() -> int:
+    """Ranks of phase 11: 4 or 2 (one card runs none)."""
+    cards = torch.cuda.device_count()
+    return 4 if cards >= 4 else (2 if cards >= 2 else 1)
+
+
+def sp_full_configs(world: int):
+    """(b) the 7B round the ring and (c) Mixtral over ep: preset, layers
+    of 32, mesh axes, tokens of the one row of a batch shard, activation
+    checkpointing.  Both run under activation checkpointing (without it
+    a rank ran out of its 80 GB in each: PERF.md, PR 11), so f32
+    weights, gradients and AdamW moments (16 B a parameter) set the
+    depth.  Four cards: the 7B whole, 108 GB (54 a rank at fsdp = 2;
+    35.1 GB peak a rank measured at 16 layers, so about 62 at 32), and
+    Mixtral at 8 layers, which holds 0.75 B parameters a layer on each
+    ep rank (E/2 experts): 6.2 B with the embeddings, 50 GB a rank at
+    fsdp = 2 (52.9 GB peak measured at 6 layers, so about 65 at 8).  Two
+    cards, without fsdp: the 7B at 8 layers (34 GB of state) and Mixtral
+    at 4 (52 GB)."""
+    four = world >= 4
+    return ({"preset": "llama2_7b", "layers": 32 if four else 8,
+             "mesh": dict(fsdp=2, sp=2) if four else dict(sp=2),
+             "seq": 16384, "remat": True},
+            {"preset": "mixtral_8x7b", "layers": 8 if four else 4,
+             "mesh": dict(fsdp=2, ep=2) if four else dict(ep=2),
+             "seq": 4096, "remat": True})
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """The flops of one training step (PERF.md section 2): 6 per token
+    and matmul parameter that does useful work (for MoE attention, the
+    top-k of the experts, the router and the head) and the causal
+    attention products over the whole sequence."""
+    moe = cfg.n_experts > 1
+    ffn_params = ((cfg.top_k if moe else 1) * 3 * cfg.dim * cfg.ffn_dim
+                  + (cfg.dim * cfg.n_experts if moe else 0))
+    matmul_params = cfg.n_layers * (
+        2 * cfg.dim * cfg.n_heads * cfg.head_dim
+        + 2 * cfg.dim * cfg.kv_heads * cfg.head_dim
+        + ffn_params) + cfg.dim * cfg.vocab_size
+    return (6 * batch * seq * matmul_params
+            + 12 * cfg.n_layers * batch * seq ** 2 * cfg.dim / 2)
+
+
+def sp_group():
+    """This process's group for phase 11 (NCCL on its card)."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.bootstrap import initialize_from_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_from_env(collective_timeout_seconds=600)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def sp_mesh(**axes):
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    return create_mesh(MeshConfig(**{"dp": -1, **axes}), "cuda")
+
+
+def sp_loss(model, batch):
+    from mpi_operator_tpu_torch.models.llama import next_token_loss
+    return next_token_loss(model(batch), batch, sp=model.sp)
+
+
+def sp_local_batch(mesh, tokens):
+    from mpi_operator_tpu_torch.parallel.mesh import batch_rows, seq_cols
+    shape, coord = tuple(mesh.shape), mesh.get_coordinate()
+    rows = tokens[batch_rows(shape, coord, len(tokens))]
+    return rows[:, seq_cols(shape, coord, rows.shape[1])].to("cuda")
+
+
+def sp_parity_run(world: int, kind: str, fault: bool):
+    """Phase 11 (a), one rank: DIST_PARITY_STEPS AdamW steps of a tiny
+    f32 model from the one-card weights (cut by llama_param_specs) on
+    ``kind``'s mesh; the full parameters after.  Kinds: "sp" (sp =
+    world, the ring on the flash kernels), "fsdp_sp" (fsdp = 2 x sp =
+    2), "ep" (mixtral_tiny, ep = 2, dp the rest), "fsdp_ep" (fsdp = 2 x
+    ep = 2).  ``fault``: under sp, rank 1's RoPE positions are not
+    offset (its columns rotated as if they began the sequence); under
+    ep, rank 1 takes part in the all-reduce of the MoE combine but keeps
+    its own partial."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.params import (gather_state_dict,
+                                                      shard_state_dict)
+    from mpi_operator_tpu_torch.parallel import tensor as tpm
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    moe = kind.endswith("ep")
+    cfg, weights, tokens = dist_parity_inputs(
+        world, "mixtral_tiny" if moe else "llama2_tiny")
+    if not moe:
+        cfg = dataclasses.replace(cfg, ring_impl="flash")
+    axes = {"sp": dict(sp=world), "fsdp_sp": dict(fsdp=2, sp=2),
+            "ep": dict(ep=2), "fsdp_ep": dict(fsdp=2, ep=2)}[kind]
+    mesh = sp_mesh(**axes)
+    model = llama.LlamaModel(cfg, device="cuda",
+                             store_dtype=torch.float32, mesh=mesh)
+    model.load_state_dict(shard_state_dict(weights, cfg, model.tp,
+                                           model.ep))
+    init, step = build_train_step(sp_loss, adamw(DIST_LR), mesh=mesh,
+                                  param_specs=llama.llama_param_specs(cfg))
+    state = init(model)
+    rows = sp_local_batch(mesh, tokens)
+    real_rope, real_reduce = llama._rope, tpm._ReduceFromTP.forward
+    if fault and dist.get_rank() == 1:
+        if moe:
+            def kept_own(ctx, x, tp):
+                real_reduce(ctx, x, tp)
+                return x.clone()
+            tpm._ReduceFromTP.forward = staticmethod(kept_own)
+        else:
+            def local_positions(x, positions, *args):
+                return real_rope(x, positions - positions[0], *args)
+            llama._rope = local_positions
+    try:
+        metrics = []
+        for _ in range(DIST_PARITY_STEPS):
+            state, m = step(state, rows)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    finally:
+        llama._rope, tpm._ReduceFromTP.forward = real_rope, real_reduce
+    local = {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+             for n, p in state.model.named_parameters()}
+    params = {n: t.cpu() for n, t in gather_state_dict(
+        local, cfg, state.model.tp, state.model.ep).items()}
+    return metrics, params
+
+
+def sp_reshard_run(world: int):
+    """Phase 11 (a), the live re-shard: llama2_tiny f32 with the ZeRO
+    update, SP_RESHARD_STEPS steps straight on two ranks (dp = 2), grown
+    from card 0 alone to two ranks before step SP_RESHARD_AT, and shrunk
+    from two ranks to card 0; every rank of the group takes part in each
+    move.  Returns, on rank 0: the three runs' final parameters and
+    whether each moved state_dict equals the one before its move, bit
+    for bit."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models.llama import LlamaModel
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from mpi_operator_tpu_torch.parallel.train import (adamw,
+                                                       build_train_step,
+                                                       reshard_train_state)
+
+    cfg, weights, tokens = dist_parity_inputs(2)
+    one = create_mesh(MeshConfig(dp=1), "cuda", ranks=[0])
+    two = create_mesh(MeshConfig(dp=2), "cuda", ranks=[0, 1])
+
+    def begin(mesh):
+        if mesh.get_coordinate() is None:
+            return None, None
+        init, step = build_train_step(dist_loss, adamw(DIST_LR), mesh=mesh,
+                                      shard_update=True)
+        model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
+        model.load_state_dict(weights)
+        return init(model), step
+
+    def run(meshes):
+        state, step = begin(meshes[0])
+        mesh, equal = meshes[0], None
+        for i in range(SP_RESHARD_STEPS):
+            if i == SP_RESHARD_AT and len(meshes) > 1:
+                before = state.state_dict() if state is not None else None
+                mesh = meshes[1]
+                state = reshard_train_state(state, mesh, shard_update=True)
+                after = state.state_dict() if state is not None else None
+                if dist.get_rank() == 0:
+                    equal = state.step == SP_RESHARD_AT and \
+                        state_dicts_equal(before, after)
+                if state is not None:
+                    _, step = build_train_step(dist_loss, adamw(DIST_LR),
+                                               mesh=mesh, shard_update=True)
+            if state is not None:
+                state, _ = step(state, sp_local_batch(mesh, tokens))
+        params = None
+        if state is not None and dist.get_rank() == 0:
+            params = {n: p.detach().cpu() for n, p in
+                      state.model.named_parameters()}
+        return params, equal
+
+    out = {name: run(meshes) for name, meshes in (
+        ("straight", [two]), ("grow", [one, two]), ("shrink", [two, one]))}
+    return out if dist.get_rank() == 0 else None
+
+
+def state_dicts_equal(a, b) -> bool:
+    """Two state dicts (nested dicts and lists of tensors and values)
+    hold the same keys, values and tensor bits."""
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return torch.is_tensor(a) and torch.is_tensor(b) and \
+            a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            state_dicts_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(
+            state_dicts_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def ring_timing(mesh, cfg, seq_local: int):
+    """Device ms of one ring attention forward and backward at the
+    layer's shape (1 x S/sp x H x D, bf16, the flash route) on this
+    rank's sp group, and of one rotation of its K/V chunk alone; CUDA
+    events over SP_RING_ITERS runs after one warm-up."""
+    from mpi_operator_tpu_torch.ops.ring_attention import ring_attention
+    from mpi_operator_tpu_torch.parallel.tensor import (SequenceParallel,
+                                                        ring_shift)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (1, seq_local, cfg.n_heads, cfg.head_dim)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    sp = SequenceParallel.of(mesh)
+    kv = [k.detach().transpose(1, 2).contiguous(),
+          v.detach().transpose(1, 2).contiguous()]
+
+    def ring():
+        out = ring_attention(*leaves, mesh, impl="flash")
+        torch.autograd.backward(out, g)
+
+    def rotate():
+        ring_shift(kv, sp)
+
+    times = {}
+    for name, fn in (("ring_fwd_bwd_ms", ring), ("kv_rotation_ms", rotate)):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SP_RING_ITERS):
+            fn()
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end) / SP_RING_ITERS
+    return times
+
+
+def sp_full_width_run(world: int, spec: dict, mesh):
+    """Phase 11 (b) or (c), one rank: ``spec``'s model at full width, cut
+    to its layers, on ``mesh`` (``spec``'s axes), f32 parameters and AdamW state, bf16
+    compute, built on the meta device with each rank drawing its shard;
+    one row of ``spec['seq']`` tokens a batch shard; SP_STEPS steps.  The
+    flash kernels' launches are counted over the steps, and for MoE the
+    routed share of each expert over every layer's last forward."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.params import init_params_
+    from mpi_operator_tpu_torch.ops import attention as fa
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    cfg = dataclasses.replace(getattr(llama, spec["preset"])(),
+                              n_layers=spec["layers"], ring_impl="flash",
+                              max_seq_len=spec["seq"], remat=spec["remat"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init, step = build_train_step(sp_loss, adamw(3e-4), mesh=mesh,
+                                  param_specs=llama.llama_param_specs(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    state = init(llama.LlamaModel(cfg, device="meta",
+                                  store_dtype=cfg.param_dtype, mesh=mesh),
+                 init_weights=lambda m: init_params_(m, gen))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    shards = sizes["dp"] * sizes["fsdp"]
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (shards, spec["seq"])))
+    rows = sp_local_batch(mesh, tokens)
+    for kernel in fa.LAUNCHES:
+        fa.LAUNCHES[kernel] = 0
+    losses, stamps = [], []
+    dist.barrier()
+    init_s = time.perf_counter() - t0
+    for _ in range(SP_STEPS):
+        state, metrics = step(state, rows)
+        losses.append(metrics["loss"].item())     # waits for the step
+        stamps.append(time.perf_counter())
+    launches = dict(fa.LAUNCHES)
+    step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    out = {"preset": spec["preset"], "n_layers": cfg.n_layers,
+           "mesh": sizes, "tokens_per_batch_shard": spec["seq"],
+           "tokens_per_rank": rows.numel(), "init_s": init_s,
+           "losses": losses, "step_ms": step_s * 1e3,
+           "each_step_ms": [(b - a) * 1e3 for a, b in zip(stamps,
+                                                          stamps[1:])],
+           "tokens_per_s_per_card": shards * spec["seq"] / step_s / world,
+           "train_mfu": shards * train_flops(cfg, 1, spec["seq"]) / step_s
+           / (world * PEAK_OPS[torch.bfloat16]),
+           "launches": launches, "sp_rank": state.model.sp.rank,
+           "ep_rank": state.model.ep.rank, "remat": cfg.remat}
+    if cfg.n_experts > 1:
+        experts = torch.arange(cfg.n_experts, device=rows.device)
+        hits = sum((layer.feed_forward.last_routing[0][..., None]
+                    == experts).sum((0, 1)) for layer in state.model.layers)
+        out["routed_share"] = (hits / hits.sum()).tolist()
+    out["alloc_retries"] = torch.cuda.memory_stats().get(
+        "num_alloc_retries", 0)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, metrics
+    gc.collect()
+    if cfg.n_experts <= 1:
+        torch.cuda.empty_cache()
+        out.update(ring_timing(mesh, cfg, rows.shape[1]))
+        out["ring_share_of_step"] = \
+            cfg.n_layers * out["ring_fwd_bwd_ms"] / out["step_ms"]
+    return out
+
+
+def sp_rank(out_dir: str, part: str) -> int:
+    """A child of phase 11: ``part`` "parity" runs (a), parity, planted
+    faults and the re-shard; "full" runs (b) and (c), twice each, in
+    processes of their own (the many groups of (a) hold NCCL buffers on
+    every card)."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    # Every thread's stack lands in the rank's log before its deadline.
+    faulthandler.dump_traceback_later(SP_DEADLINE_S - 30, exit=False)
+    rank, world = sp_group()
+    result = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "card": torch.cuda.current_device()}
+
+    def done(what):
+        print(f"sp rank {rank}: {what} done", flush=True)
+
+    if part == "parity":
+        kinds = ["sp", "ep"] + (["fsdp_sp", "fsdp_ep"] if world >= 4
+                                else [])
+        runs = {}
+        for kind in kinds:
+            runs[kind] = sp_parity_run(world, kind, fault=False)
+            runs[kind + "_fault"] = sp_parity_run(world, kind, fault=True)
+            done(kind)
+        result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
+        reshard = sp_reshard_run(world)
+        done("reshard")
+        if rank == 0:
+            torch.save({"parity": {k: v[1] for k, v in runs.items()},
+                        "reshard": reshard},
+                       os.path.join(out_dir, "sp_tensors.pt"))
+    path = os.path.join(out_dir, f"sp_{part}_rank{rank}.json")
+    if part != "parity":
+        result["full_width"] = {}
+        for spec in sp_full_configs(world):
+            mesh = sp_mesh(**spec["mesh"])
+            result["full_width"][spec["preset"]] = [
+                sp_full_width_run(world, spec, mesh) for _ in range(2)]
+            done(spec["preset"])
+            with open(path, "w") as f:         # what is done so far
+                json.dump(result, f)
+    with open(path, "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    # No destroy_process_group: these ranks hold sub-meshes over part of
+    # the group and point-to-point communicators, whose shutdown is not
+    # needed to end the process.
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def sp_phase(card: str):
+    """Phase 11: one process per card (4 or 2), NCCL.  (a) parity of
+    llama2_tiny over sp (the ring on K1'-K3') and mixtral_tiny over ep
+    against card 0 alone, each with a planted fault, and the live
+    re-shard grown and shrunk; (b) llama2_7b at full width round the
+    ring; (c) mixtral_8x7b at full width over ep."""
+    import tempfile
+    world = sp_world()
+    if world < 2:
+        print("sequence/expert parallel: phase 11 needs two cards; this "
+              "machine shows one", flush=True)
+        return {}
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-sp-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sequence/expert parallel: world {world} (one process per "
+          f"card); {card}", flush=True)
+    refs = {preset: dist_parity_reference(world, preset)
+            for preset in ("llama2_tiny", "mixtral_tiny")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for part in ("parity", "full"):
+        run_ranks([sys.executable, os.path.abspath(__file__), "sp-rank",
+                   out_dir, part], world, f"sequence/expert parallel "
+                  f"({part})", SP_DEADLINE_S, out_dir)
+    return sp_verdict(card, world, out_dir, refs)
+
+
+def sp_verdict(card: str, world: int, out_dir: str, refs):
+    """Phase 11's checks and printed results, from the ranks' files in
+    ``out_dir`` and the one-card references."""
+    ranks = []
+    for r in range(world):
+        parts = [json.load(open(os.path.join(out_dir,
+                                             f"sp_{part}_rank{r}.json")))
+                 for part in ("parity", "full")]
+        if parts[0]["card"] != parts[1]["card"]:
+            raise SystemExit(f"sequence/expert parallel: rank {r} on cards "
+                             f"{parts[0]['card']} and {parts[1]['card']}")
+        ranks.append({**parts[0], **parts[1]})
+    tensors = torch.load(os.path.join(out_dir, "sp_tensors.pt"))
+    if any(r["world"] != world or r["backend"] != "nccl"
+           or r["card"] != r["rank"] for r in ranks):
+        raise SystemExit(f"sequence/expert parallel: ranks formed {ranks}")
+
+    # (a) parity, faults, the re-shard.
+    verdict = {}
+    for name, params in tensors["parity"].items():
+        ref_metrics, ref_params, smallest = refs[
+            "mixtral_tiny" if "ep" in name else "llama2_tiny"]
+        verdict[name] = [f for r in ranks for f in dist_parity_failures(
+            r["parity_metrics"][name], params, ref_metrics, ref_params,
+            smallest)]
+    if any(v for k, v in verdict.items() if not k.endswith("_fault")) or \
+            not all(v for k, v in verdict.items() if k.endswith("_fault")):
+        raise SystemExit(f"sequence/expert parallel (a) parity: {verdict}")
+    reshard = tensors["reshard"]
+    straight = reshard["straight"][0]
+    moved = {}
+    for name in ("grow", "shrink"):
+        params, equal = reshard[name]
+        err = max(((params[n] - p).abs() / (1 + p.abs())).max().item()
+                  for n, p in straight.items())
+        moved[name] = {"max_rel_err_vs_straight": err, "moved_bit_equal":
+                       equal}
+        if not (err <= DIST_STEP_TOL and equal):
+            raise SystemExit(f"sequence/expert parallel (a) reshard {name}:"
+                             f" {moved[name]}")
+    print("sequence/expert parallel (a) parity: " + json.dumps({
+        "card": card, "world": world,
+        "held_at": DIST_STEP_TOL, "steps": DIST_PARITY_STEPS,
+        "runs": [k for k in verdict if not k.endswith("_fault")],
+        "planted_faults_caught": {k: v[:2] for k, v in verdict.items()
+                                  if k.endswith("_fault")},
+        "reshard_at_step": f"{SP_RESHARD_AT} of {SP_RESHARD_STEPS}",
+        "reshard": moved}), flush=True)
+
+    # (b) and (c).
+    result = {"world": world}
+    for spec in sp_full_configs(world):
+        stats = []
+        for r in ranks:
+            first, again = r["full_width"][spec["preset"]]
+            moe = spec["preset"].startswith("mixtral")
+            per_layer = 1 if moe else first["sp_rank"] + 1
+            want = {"flash_fwd": SP_STEPS * first["n_layers"] * per_layer
+                    * (2 if first["remat"] else 1),
+                    "flash_bwd_dq": SP_STEPS * first["n_layers"] * per_layer,
+                    "flash_bwd_dkv": SP_STEPS * first["n_layers"]
+                    * per_layer}
+            if first["launches"] != want or \
+                    not all(np.isfinite(first["losses"])) or \
+                    not first["peak_bytes"] < 80e9 or \
+                    again["losses"] != first["losses"] or \
+                    (moe and min(first["routed_share"]) <= 0):
+                raise SystemExit(
+                    f"sequence/expert parallel {spec['preset']} rank "
+                    f"{r['rank']}: launches {first['launches']} (want "
+                    f"{want}), {first} / repeat {again['losses']}")
+            stats.append({**first, "rank": r["rank"],
+                          "launches_want": want,
+                          "losses_repeat": again["losses"],
+                          "repeat_step_ms": again["step_ms"]})
+        label = "(c)" if spec["preset"].startswith("mixtral") else "(b)"
+        print(f"sequence/expert parallel {label} {spec['preset']} full "
+              f"width, {spec['layers']} of 32 layers, "
+              f"{' x '.join(f'{a}={n}' for a, n in spec['mesh'].items())}, "
+              f"1 x {spec['seq']} tokens a batch shard: "
+              + json.dumps({"card": card, "world": world,
+                            "remat": spec["remat"], "ranks": stats}),
+              flush=True)
+        result[spec["preset"]] = {f"rank{s['rank']}": s["launches"]
+                                  for s in stats}
+    return result
+
+
 def build_phase() -> None:
     """Both kernel sources, each by its own nvcc, started together."""
     from mpi_operator_tpu_torch.ops import _build
@@ -3052,6 +3568,8 @@ def flash_entry(name, flash, launches, other_launches):
                            if isinstance(r, dict)),
         "max_rel_err": rel,
         "with_lse_dlse_rel_err": flash["with_lse_dlse"],
+        "with_lse_dlse_non_causal_rel_err":
+            flash["with_lse_dlse_non_causal"],
         "planted_fault_rel_err": main_case["planted_fault_rel_err"][name],
         "ms": main_case["ms"][name],
         "host_us": main_case["host_us"][name],
@@ -3088,6 +3606,8 @@ def main() -> int:
         return distributed_rank(sys.argv[2])
     if sys.argv[1:2] == ["tp-rank"]:
         return tp_rank(sys.argv[2])
+    if sys.argv[1:2] == ["sp-rank"]:
+        return sp_rank(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs the card",
               file=sys.stderr)
@@ -3143,6 +3663,7 @@ def main() -> int:
     training_repeat_phase(card, moe_losses, "mixtral_8x7b")
     distributed = distributed_phase(card)
     tp = tp_phase(card, serve)
+    sp = sp_phase(card)
     k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]
@@ -3195,6 +3716,12 @@ def main() -> int:
              "fsdp_training_rank0": distributed["launches_rank0"]}
     if "train_launches_rank0" in tp:       # two cards or more
         other["tp_training_rank0"] = tp["train_launches_rank0"]
+    # Phase 11 (two cards or more): the ring's launches on every sp rank,
+    # the MoE run's on rank 0.
+    for rank, counts in sp.get("llama2_7b", {}).items():
+        other[f"sp_training_{rank}"] = counts
+    if "mixtral_8x7b" in sp:
+        other["ep_training_rank0"] = sp["mixtral_8x7b"]["rank0"]
     entries = [entry] + [flash_entry(name, flash, flash_launches, other)
                          for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)

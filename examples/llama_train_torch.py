@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Llama training with the PyTorch port: the counterpart of
-examples/llama_train.py, on one device or over a (dp, fsdp, tp) mesh of
-processes.
+examples/llama_train.py, on one device or over a (dp, fsdp, ep, tp, sp)
+mesh of processes.
 
     python examples/llama_train_torch.py --config tiny --device cpu --steps 2
     python examples/llama_train_torch.py --config 7b --n-layers 8 --batch 2 \\
@@ -14,18 +14,21 @@ processes.
 Under the operator (or by hand, with JAX_COORDINATOR_ADDRESS,
 JAX_PROCESS_ID and JAX_NUM_PROCESSES set per process) the processes form
 a group (NCCL on the cards, gloo with ``--device cpu``) and train over
-the mesh --dp x --fsdp x --tp (dp -1: every remaining process;
---num-slices puts dp across slices), with the parameters sharded over
-fsdp and cut over tp (Megatron) through ``llama_param_specs``; each rank
-builds the model on the meta device and fills only its shard.
+the mesh --dp x --fsdp x --ep x --tp x --sp (dp -1: every remaining
+process; --num-slices puts dp across slices), with the parameters
+sharded over fsdp, cut over tp (Megatron) and the MoE experts over ep
+through ``llama_param_specs``; each rank builds the model on the meta
+device and fills only its shard.  Under --sp each rank holds its
+--seq-len / sp token columns and attention runs round the ring (K1'-K3'
+on every chunk on the card, their plain versions on the CPU).
 ``--batch`` is the rows of one batch shard: the global batch is batch x
-dp x fsdp (the tp ranks of a shard share its rows).  Rank 0 prints the ``mesh dp=...``
-line and ``tokens/sec: N loss=L`` (global tokens, after a warm-up
-step).  ``--data`` streams each process's rows from a flat int32 token
-file (``native.write_token_file``) through the native loader, which
-splits the corpus by process; without it every step trains on one fixed
-random batch.  --sp/--pp/--ep above 1 wait for ROADMAP.md queue 1 item
-3 (multi-GPU parallelism).
+dp x fsdp (the ep, tp and sp ranks of a shard share its rows).  Rank 0
+prints the ``mesh dp=...`` line and ``tokens/sec: N loss=L`` (global
+tokens, after a warm-up step).  ``--data`` streams each batch shard's
+rows from a flat int32 token file (``native.write_token_file``) through
+the native loader, which splits the corpus by batch shard; without it
+every step trains on one fixed random batch.  --pp above 1 waits for
+ROADMAP.md queue 1 item 3.4 (pipeline parallelism).
 """
 
 import argparse
@@ -71,12 +74,9 @@ def main() -> int:
                              " path (gloo between processes)")
     args = parser.parse_args()
 
-    wider = {a: getattr(args, a) for a in ("sp", "pp", "ep")
-             if getattr(args, a) != 1}
-    if wider:
-        raise SystemExit(f"mesh flags {wider} need sharded training over "
-                         f"those axes, not ported yet: ROADMAP.md queue 1 "
-                         f"item 3")
+    if args.pp != 1:
+        raise SystemExit(f"--pp {args.pp} needs pipeline parallelism, not "
+                         f"ported yet: ROADMAP.md queue 1 item 3.4")
 
     import numpy as np
     import torch
@@ -97,7 +97,8 @@ def main() -> int:
     from mpi_operator_tpu_torch.ops.fused_xent import fused_next_token_loss
     from mpi_operator_tpu_torch.parallel.mesh import (AXIS_NAMES, MeshConfig,
                                                       batch_rows,
-                                                      create_multislice_mesh)
+                                                      create_multislice_mesh,
+                                                      seq_cols)
     from mpi_operator_tpu_torch.parallel.train import (adamw,
                                                        build_train_step)
     from mpi_operator_tpu_torch.utils.data import (DevicePrefetcher,
@@ -108,7 +109,8 @@ def main() -> int:
     grouped = dist.is_initialized()
     rank = dist.get_rank() if grouped else 0
     world = dist.get_world_size() if grouped else 1
-    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp, tp=args.tp)
+    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp, ep=args.ep, tp=args.tp,
+                          sp=args.sp)
     shape = dict(zip(AXIS_NAMES, mesh_cfg.resolve(world)))
     shards = shape["dp"] * shape["fsdp"]
     mesh = None
@@ -118,7 +120,8 @@ def main() -> int:
         mesh = create_multislice_mesh(mesh_cfg, num_slices, device.type)
     cfg = {"7b": llama2_7b, "tiny": llama2_tiny,
            "mixtral-tiny": mixtral_tiny,
-           "mixtral-8x7b": mixtral_8x7b}[args.config](remat=args.remat)
+           "mixtral-8x7b": mixtral_8x7b}[args.config](
+               remat=args.remat, ring_impl="flash")
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     seq = args.seq_len or cfg.max_seq_len
@@ -144,10 +147,10 @@ def main() -> int:
             hidden = model(batch, return_hidden=True)
             kernel = model.output.weight.to(cfg.dtype).t()
             return fused_next_token_loss(hidden, kernel, batch, chunk=chunk,
-                                         tp=model.tp)
+                                         tp=model.tp, sp=model.sp)
     else:
         def loss_fn(model, batch):
-            return next_token_loss(model(batch), batch)
+            return next_token_loss(model(batch), batch, sp=model.sp)
 
     mgr = None
     if args.checkpoint_dir:
@@ -161,12 +164,19 @@ def main() -> int:
     state = init_fn(model, init_weights)
     loader = prefetch = None
     if args.data:
-        # Each process streams its own part of the corpus (the loader
-        # splits it by process) and feeds its own rows; the batches are
+        # Each batch shard streams its own part of the corpus (the
+        # loader splits it by shard: the ranks of one shard read the same
+        # rows) and each rank feeds its block of them; the batches are
         # copied to the device on the prefetch thread.  Both are closed
         # in the finally below.
+        shard = 0
+        if mesh is not None:
+            shard = batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                               shards).start
         loader = dataloader.NativeTokenLoader(args.data, seq_len=seq,
-                                              batch=args.batch)
+                                              batch=args.batch,
+                                              process_id=shard,
+                                              num_processes=shards)
         prefetch = DevicePrefetcher(global_batch_iterator(
             lambda step: (loader.next_batch(),), mesh, device))
 
@@ -176,8 +186,10 @@ def main() -> int:
         tokens = np.random.default_rng(0).integers(
             0, cfg.vocab_size, (args.batch * shards, seq))
         if mesh is not None:
-            tokens = tokens[batch_rows(tuple(mesh.shape),
-                                       mesh.get_coordinate(), len(tokens))]
+            coord = mesh.get_coordinate()
+            tokens = tokens[batch_rows(tuple(mesh.shape), coord,
+                                       len(tokens))]
+            tokens = tokens[:, seq_cols(tuple(mesh.shape), coord, seq)]
         tokens = torch.as_tensor(tokens, device=device)
 
         def next_tokens():

@@ -50,6 +50,15 @@ So attention, its KV cache (KH/tp heads a rank) and K4' run on the
 rank's heads alone; a row-parallel product ends in one all-reduce (in
 f32, ``parallel/tensor.py``), the embedding sums the rank that owns each
 token's row, and the logits are gathered whole on every rank.
+
+Sequence parallelism (``sp`` > 1 in the mesh; the training forward): each
+rank holds token columns [i*S/sp, (i+1)*S/sp) (``parallel.mesh.seq_cols``)
+at the global RoPE positions ``i*S/sp + arange(S/sp)``, attention runs
+through ``ops/ring_attention.py`` with ``config.ring_impl``, and
+:func:`next_token_loss` takes the next rank's first token as the target
+of the rank's last column.  Expert parallelism (``ep`` > 1): each MoE
+layer holds its experts' share (``ops/moe.py``); the rest of the model
+is replicated over ep.
 """
 
 from __future__ import annotations
@@ -68,8 +77,10 @@ from ..device import resolve_device
 from ..ops.attention import attention
 from ..ops.moe import MoEMLP
 from ..ops.paged_attention import paged_decode_attention
-from ..parallel.tensor import (TensorParallel, copy_to_tp, gather_from_tp,
-                               reduce_from_tp, refuse_axes)
+from ..ops.ring_attention import ring_attention
+from ..parallel.tensor import (ExpertParallel, SequenceParallel,
+                               TensorParallel, copy_to_tp, gather_from_tp,
+                               reduce_from_tp, refuse_axes, ring_shift)
 
 
 @dataclass(frozen=True)
@@ -309,10 +320,11 @@ class LlamaAttention(nn.Module):
     ``kv_heads`` KV heads of the config, divided by tp."""
 
     def __init__(self, cfg: LlamaConfig, store_dtype,
-                 tp: TensorParallel = TensorParallel()):
+                 tp: TensorParallel = TensorParallel(),
+                 sp: SequenceParallel = SequenceParallel()):
         super().__init__()
         self.config = cfg
-        self.tp = tp
+        self.tp, self.sp = tp, sp
         self.n_heads = cfg.n_heads // tp.size
         self.kv_heads = cfg.kv_heads // tp.size
         hd = cfg.head_dim
@@ -377,6 +389,13 @@ class LlamaAttention(nn.Module):
         if kvh != nh:                        # GQA: repeat KV groups
             k = k.repeat_interleave(nh // kvh, dim=2)
             v = v.repeat_interleave(nh // kvh, dim=2)
+        if self.sp.size > 1:
+            if cfg.sliding_window is not None:
+                raise NotImplementedError(
+                    "sliding_window + sequence-parallel ring attention is "
+                    "not supported; run SWA models with sp=1")
+            return ring_attention(q, k, v, self.sp.mesh, causal=True,
+                                  impl=cfg.ring_impl)
         return attention(q, k, v, causal=True, impl=cfg.attention_impl,
                          mesh=self.tp.mesh, window=cfg.sliding_window)
 
@@ -456,9 +475,10 @@ class LlamaMLP(nn.Module):
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, store_dtype,
-                 tp: TensorParallel = TensorParallel()):
+                 tp: TensorParallel = TensorParallel(),
+                 sp: SequenceParallel = SequenceParallel()):
         super().__init__()
-        self.attention = LlamaAttention(cfg, store_dtype, tp)
+        self.attention = LlamaAttention(cfg, store_dtype, tp, sp)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps,
                                       cfg.param_dtype, None)
         self.moe = cfg.n_experts > 1
@@ -497,9 +517,12 @@ class LlamaModel(nn.Module):
     ``mesh`` (a ``parallel.mesh.create_mesh`` mesh): the model holds this
     rank's tensor-parallel shards over its 'tp' axis (see the module
     docstring; every rank of the tp group runs every forward together).
-    Its 'dp' and 'fsdp' axes are the training step's; 'sp', 'ep' and
-    'pp' above 1 raise.  A KV-head count that tp does not divide raises
-    ValueError: KV-head replication is not ported."""
+    Its 'dp' and 'fsdp' axes are the training step's; under 'sp' the
+    training forward takes this rank's token columns and runs ring
+    attention, under 'ep' each MoE layer holds its experts' share (see
+    the module docstring); 'pp' above 1 raises.  A KV-head count that tp
+    does not divide raises ValueError: KV-head replication is not
+    ported."""
 
     def __init__(self, config: LlamaConfig, device=None, store_dtype=None,
                  mesh=None):
@@ -513,12 +536,17 @@ class LlamaModel(nn.Module):
         if mesh is not None:
             refuse_axes(mesh, "LlamaModel")
         self.tp = tp = TensorParallel.of(mesh)
+        self.sp = sp = SequenceParallel.of(mesh)
+        self.ep = ExpertParallel.of(mesh)
         _check_tp(config, tp.size)
+        if config.n_experts > 1 and config.n_experts % self.ep.size:
+            raise ValueError(f"n_experts {config.n_experts} not divisible "
+                             f"by ep={self.ep.size}")
         with torch.device("meta"):
             self.tok_embeddings = nn.Embedding(config.vocab_size // tp.size,
                                                config.dim, dtype=store)
             self.layers = nn.ModuleList(
-                LlamaBlock(config, store, tp)
+                LlamaBlock(config, store, tp, sp)
                 for _ in range(config.n_layers))
             self.norm = RMSNorm(config.dim, config.norm_eps,
                                 config.param_dtype, None)
@@ -566,13 +594,20 @@ class LlamaModel(nn.Module):
         if decode:
             if cache is None:
                 raise ValueError("decode=True needs a KV cache (init_cache)")
+            if self.sp.size > 1:
+                raise NotImplementedError(
+                    "the decode path over a sequence-parallel mesh is not "
+                    "ported: ROADMAP.md queue 1 item 3 (serve with sp=1)")
             for i, layer in enumerate(self.layers):
                 x = layer(x, cache[f"layers_{i}"]["attention"])
         else:
             if cache is not None:
                 raise ValueError("the training forward (decode=False) takes "
                                  "no KV cache")
-            positions = torch.arange(tokens.shape[1], device=x.device)
+            # Global positions: sp rank i holds columns i*S/sp onward.
+            s_local = tokens.shape[1]
+            positions = self.sp.rank * s_local + torch.arange(
+                s_local, device=x.device)
             for layer in self.layers:
                 if cfg.remat:
                     x = checkpoint(layer, x, None, positions,
@@ -612,10 +647,9 @@ def llama_param_specs(config: LlamaConfig) -> dict:
     expert stacks theirs.  An int8 weight's ``.scale`` [out] follows the
     weight's output dim.
 
-    ``LlamaModel(mesh=)`` cuts the 'tp' dims (``models/params.py`` cuts
-    and joins full tensors by them), ``parallel/train.build_train_step``
-    shards the 'fsdp' entries (and grafts 'dp' for its ZeRO update);
-    'ep' waits for ROADMAP.md queue 1 item 3."""
+    ``LlamaModel(mesh=)`` cuts the 'tp' and 'ep' dims (``models/params.py``
+    cuts and joins full tensors by them), ``parallel/train.build_train_step``
+    shards the 'fsdp' entries (and grafts 'dp' for its ZeRO update)."""
     def linear(name, out_axis, in_axis):
         specs = {f"{name}.weight": (out_axis, in_axis)}
         if config.weight_dtype == "int8":
@@ -649,14 +683,38 @@ def llama_param_specs(config: LlamaConfig) -> dict:
     return specs
 
 
-def next_token_loss(logits, tokens):
+def next_targets(tokens, sp: Optional[SequenceParallel] = None):
+    """(targets [B, n], n): the next token of each of the first n columns
+    of ``tokens`` [B, S].  Under sequence parallelism (``sp`` of size > 1,
+    ``tokens`` this rank's columns) the target of the last column is the
+    next rank's first token, fetched by one exchange over the sp group,
+    and the last rank has no target for its last column."""
+    if sp is None or sp.size == 1:
+        return tokens[:, 1:], tokens.shape[1] - 1
+    (first_of_next,) = ring_shift([tokens[:, :1]], sp, shift=-1)
+    targets = torch.cat([tokens[:, 1:], first_of_next], dim=1)
+    n = tokens.shape[1] - (sp.rank == sp.size - 1)
+    return targets[:, :n], n
+
+
+def next_token_loss(logits, tokens, sp: Optional[SequenceParallel] = None):
     """Shifted cross-entropy: predict tokens[:, 1:] from logits[:, :-1]
-    (logits come in ``dtype`` and are cast to f32 here, as in JAX)."""
-    logits = logits[:, :-1].float()
-    targets = tokens[:, 1:].long()
+    (logits come in ``dtype`` and are cast to f32 here, as in JAX).
+
+    Under sequence parallelism (``sp``: the model's ``SequenceParallel``,
+    size > 1; logits and tokens this rank's columns [B, S/sp]) the value
+    is this rank's share of the global mean over B x (S - 1): its
+    positions' sum over that count (:func:`next_targets` gives their
+    targets), so the shares of the sp ranks sum to the JAX loss of the
+    global logits (a collective over the sp group)."""
+    targets, n = next_targets(tokens, sp)
+    logits = logits[:, :n].float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None])[..., 0]
-    return (logz - gold).mean()
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if sp is None or sp.size == 1:
+        return (logz - gold).mean()
+    return (logz - gold).sum() / (tokens.shape[0] *
+                                  (tokens.shape[1] * sp.size - 1))
 
 
 # -- cache helpers ---------------------------------------------------------

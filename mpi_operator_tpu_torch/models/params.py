@@ -20,13 +20,15 @@ paged layout, another ``max_seq_len``) over the same tensors, without a
 copy; a self-draft for speculative decoding needs not even that: the
 batcher takes the target itself as ``draft_model``.
 
-Tensor parallelism: ``llama_param_specs`` names the dim of each tensor
-that 'tp' cuts.  ``shard_state_dict`` keeps a rank's ``torch.chunk`` of
-a full state dict on it, ``gather_state_dict`` joins every rank's
-chunks back (a collective), ``shard_model`` and the ``mesh=`` of
-``load_flax_params`` and ``init_params`` build a rank's shard, and
-``init_params_`` draws each tensor in full and keeps the rank's part, so
-random weights at a seed are the one-card weights cut up.
+Tensor and expert parallelism: ``llama_param_specs`` names the dim of
+each tensor that 'tp' cuts and the expert dim that 'ep' cuts.
+``shard_state_dict`` keeps a rank's ``torch.chunk`` of a full state dict
+on it (``from_flax_params`` gives the full one), ``gather_state_dict``
+joins every rank's chunks back (a collective), ``shard_model`` and the
+``mesh=`` of ``load_flax_params`` and ``init_params`` build a rank's
+shard, and ``init_params_`` draws each tensor in full and keeps the
+rank's part, so random weights at a seed are the one-card weights cut
+up.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.moe import init_expert_stack_
-from ..parallel.tensor import TensorParallel, tp_dim
+from ..parallel.tensor import ExpertParallel, TensorParallel, tp_dim
 from .llama import LlamaConfig, LlamaModel, llama_param_specs
 
 _LINEARS = {"attention": ("wq", "wk", "wv", "wo"),
@@ -108,33 +110,40 @@ def from_flax_params(tree, cfg: LlamaConfig,
 
 
 def shard_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
-                     tp: TensorParallel) -> Dict[str, torch.Tensor]:
+                     tp: TensorParallel,
+                     ep: ExpertParallel = ExpertParallel()
+                     ) -> Dict[str, torch.Tensor]:
     """This rank's part of a full state dict: each tensor's
-    ``torch.chunk`` on the dim ``llama_param_specs`` puts on 'tp' (an
-    int8 weight's ``.scale`` follows its output dim), the rest whole."""
+    ``torch.chunk`` on the dims ``llama_param_specs`` puts on 'tp' (an
+    int8 weight's ``.scale`` follows its output dim) and on 'ep' (the
+    expert stacks' dim 0), the rest whole."""
     specs = llama_param_specs(cfg)
-    return {k: tp.chunk(v, tp_dim(specs.get(k, ()))).contiguous()
+    return {k: ep.chunk(tp.chunk(v, tp_dim(specs.get(k, ()))),
+                        tp_dim(specs.get(k, ()), "ep")).contiguous()
             for k, v in state.items()}
 
 
 def gather_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
-                      tp: TensorParallel) -> Dict[str, torch.Tensor]:
+                      tp: TensorParallel,
+                      ep: ExpertParallel = ExpertParallel()
+                      ) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_state_dict` (a collective over the tp
-    group: every rank calls it and gets the full tensors)."""
+    and ep groups: every rank calls it and gets the full tensors)."""
     specs = llama_param_specs(cfg)
-    return {k: tp.gather(v, tp_dim(specs.get(k, ())))
+    return {k: ep.gather(tp.gather(v, tp_dim(specs.get(k, ()))),
+                         tp_dim(specs.get(k, ()), "ep"))
             for k, v in state.items()}
 
 
 def shard_model(model: LlamaModel, mesh) -> LlamaModel:
-    """This rank's tensor-parallel shard of a whole (one-card) model,
-    on its device, with its store dtype; the caller frees the whole
-    model."""
+    """This rank's tensor- and expert-parallel shard of a whole
+    (one-card) model, on its device, with its store dtype; the caller
+    frees the whole model."""
     sharded = LlamaModel(model.config, device=model.device,
                          store_dtype=model.tok_embeddings.weight.dtype,
                          mesh=mesh)
     sharded.load_state_dict(shard_state_dict(
-        model.state_dict(), model.config, sharded.tp))
+        model.state_dict(), model.config, sharded.tp, sharded.ep))
     return sharded.eval()
 
 
@@ -144,10 +153,10 @@ def load_flax_params(tree, cfg: LlamaConfig, device=None,
     """A LlamaModel on ``device`` holding the JAX model's weights, its
     matmul weights and embedding stored in ``dtype`` (default
     ``cfg.dtype``; ``cfg.param_dtype`` for training); under a ``mesh``
-    with tp > 1, this rank's tensor-parallel shard of them."""
+    with tp or ep > 1, this rank's shard of them."""
     model = LlamaModel(cfg, device=device, store_dtype=dtype, mesh=mesh)
     model.load_state_dict(shard_state_dict(
-        from_flax_params(tree, cfg, dtype), cfg, model.tp))
+        from_flax_params(tree, cfg, dtype), cfg, model.tp, model.ep))
     return model.eval()
 
 
@@ -160,8 +169,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     flax's truncated ``lecun_normal`` draws them (``ops/moe.py``), norm
     scales 1, matmul weights and embedding stored in ``dtype`` (default
     ``cfg.dtype``).  The values are drawn in f32 on the generator's
-    device, which must be ``device``.  Under a ``mesh`` with tp > 1 the
-    model is this rank's shard of the one-card model at the seed."""
+    device, which must be ``device``.  Under a ``mesh`` with tp or ep > 1
+    the model is this rank's shard of the one-card model at the seed."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
@@ -195,21 +204,24 @@ def init_params_(model: LlamaModel, generator: torch.Generator
                  ) -> LlamaModel:
     """Fill ``model``'s parameters in place with the draws of
     :func:`init_params`, in its order.  A parameter that is a shard
-    (tensor-parallel over 'tp', and/or a DTensor of FSDP2) receives only
-    this rank's part: each draw is made in full on the generator's
-    device, one parameter at a time, and the rank keeps its part (the tp
-    chunk, then FSDP2's), so no rank ever holds the whole model and every
-    rank's weights equal ``init_params``' for the seed."""
+    (over 'tp' or 'ep', and/or a DTensor of FSDP2) receives only this
+    rank's part: each draw is made in full on the generator's device, one
+    parameter at a time, and the rank keeps its part (the tp and ep
+    chunks, then FSDP2's), so no rank ever holds the whole model and
+    every rank's weights equal ``init_params``' for the seed."""
     from torch.distributed.tensor import DTensor
-    tp = model.tp
+    tp, ep = model.tp, model.ep
     specs = llama_param_specs(model.config)
     for name, p in model.named_parameters():
         fsdp = isinstance(p, DTensor)
         d = tp_dim(specs[name]) if tp.size > 1 else None
+        e = tp_dim(specs[name], "ep") if ep.size > 1 else None
         shape = list(p.shape)
         if d is not None:
             shape[d] *= tp.size
-        full = p if not fsdp and d is None else torch.empty(
+        if e is not None:
+            shape[e] *= ep.size
+        full = p if not fsdp and d is None and e is None else torch.empty(
             shape, dtype=p.dtype, device=generator.device)
         if name.endswith(".scale"):
             full.fill_(1.0)
@@ -221,10 +233,10 @@ def init_params_(model: LlamaModel, generator: torch.Generator
             full.copy_(torch.randn(shape, generator=generator,
                                    device=generator.device,
                                    dtype=torch.float32).mul_(std))
-        part = tp.chunk(full, d)
+        part = ep.chunk(tp.chunk(full, d), e)
         if fsdp:
             p.to_local().copy_(_local_part(part, p))
-        elif d is not None:
+        elif d is not None or e is not None:
             p.copy_(part)
     return model
 

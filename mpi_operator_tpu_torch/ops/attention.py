@@ -339,12 +339,18 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
     the batch over (dp, fsdp) and the heads over tp): one process drives
     one card, so q, k and v are already this rank's rows and its H/tp
     heads, and the kernels run on them as they are.  The mesh is checked
-    (its axes; q, k and v holding the same heads); sp > 1 raises (ring
-    attention is ROADMAP.md queue 1 item 3)."""
+    (its axes; q, k and v holding the same heads).  With sp > 1 they are
+    also this rank's token columns [B, S/sp, H/tp, D], and its shard of
+    the attention of the global tensors comes out through
+    ``ops/ring_attention.py`` ('auto' and 'pallas' run the ring on the
+    kernels, 'xla' on the plain product); a ``window`` then raises
+    NotImplementedError, as the JAX model refuses sliding windows under
+    ring attention."""
+    sp = 1
     if mesh is not None:
+        from ..parallel.mesh import AXIS_NAMES
         from ..parallel.tensor import refuse_axes
-        refuse_axes(mesh, "attention", allowed=("dp", "fsdp", "tp", "ep",
-                                                "pp"))
+        sp = refuse_axes(mesh, "attention", allowed=AXIS_NAMES)["sp"]
         if not q.shape[:3] == k.shape[:3] == v.shape[:3]:
             raise ValueError(
                 f"attention(mesh=): q {tuple(q.shape)}, k {tuple(k.shape)} "
@@ -362,6 +368,14 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
                 "impl='pallas' has no banded kernel yet")
         impl = "xla"
     route = flash_route(_on(q), q.dtype, q.shape[-1], impl)
+    if sp > 1:
+        if window is not None:
+            raise NotImplementedError(
+                "sliding_window + sequence-parallel ring attention is not "
+                "supported; run SWA models with sp=1")
+        from .ring_attention import ring_attention
+        return ring_attention(q, k, v, mesh, causal=causal,
+                              impl="dense" if impl == "xla" else "flash")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if route == "plain":
         out, _ = _torch_attention(qt, kt, vt, 1.0 / math.sqrt(q.shape[-1]),

@@ -15,7 +15,9 @@ maxima, rescaled sums and gold logits are then combined by three
 all-reduces (Megatron's vocab-parallel cross-entropy, the reductions
 GSPMD inserts for the JAX function), and the backward sums the ranks'
 input gradients.  The value is the unsharded one up to the order of the
-f32 sums.
+f32 sums.  Under sequence parallelism (``sp``) the shift and the
+normalisation are ``models.llama.next_token_loss``'s: the value is this
+rank's share of the global mean.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def _chunk_logits(x, w, c: int, chunk: int):
 
 class _FusedSoftmaxXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, targets, chunk, tp):
+    def forward(ctx, x, w, targets, chunk, tp, total):
         n = x.shape[0]
         m = torch.full((n,), NEG_INF, dtype=torch.float32, device=x.device)
         s = torch.zeros((n,), dtype=torch.float32, device=x.device)
@@ -69,14 +71,16 @@ class _FusedSoftmaxXent(torch.autograd.Function):
             m = m_all
         logz = m + torch.log(s)
         ctx.save_for_backward(x, w, tgt, logz)
-        ctx.chunk, ctx.tp = chunk, tp
-        return (logz - gold).mean()
+        ctx.chunk, ctx.tp, ctx.total = chunk, tp, total
+        if total is None:
+            return (logz - gold).mean()
+        return (logz - gold).sum() / total
 
     @staticmethod
     def backward(ctx, g):
         x, w, tgt, logz = ctx.saved_tensors
         chunk = ctx.chunk
-        n = x.shape[0]
+        n = x.shape[0] if ctx.total is None else ctx.total
         scale = (g / n).float()
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         dw = []
@@ -94,29 +98,38 @@ class _FusedSoftmaxXent(torch.autograd.Function):
             # Each rank's columns give part of every row's gradient.
             dist.all_reduce(dx, group=ctx.tp.group)
         return (dx.to(x.dtype), torch.cat(dw, dim=1).to(w.dtype), None,
-                None, None)
+                None, None, None)
 
 
-def fused_softmax_xent(x, w, targets, chunk: int = 4096, tp=None):
+def fused_softmax_xent(x, w, targets, chunk: int = 4096, tp=None,
+                       total=None):
     """Mean cross-entropy of rows ``x`` [N, D] against ``targets`` [N]
     under the classifier ``w`` [D, V] — numerically
     ``mean(logsumexp((x @ w).float()) - take(logits, targets))`` with the
     logits materialized ``chunk`` columns at a time.  The products run
     in x's dtype; returns a scalar f32.  With ``tp`` (a
     ``TensorParallel`` of size > 1), ``w`` is this rank's [D, V/tp]
-    columns and ``chunk`` divides V/tp (a collective over the group)."""
+    columns and ``chunk`` divides V/tp (a collective over the group).
+    ``total``: divide the rows' sum by it instead of taking their mean."""
     return _FusedSoftmaxXent.apply(
-        x, w, targets, chunk, tp if tp is not None and tp.size > 1 else None)
+        x, w, targets, chunk, tp if tp is not None and tp.size > 1 else None,
+        total)
 
 
 def fused_next_token_loss(hidden, out_kernel, tokens, chunk: int = 4096,
-                          tp=None):
+                          tp=None, sp=None):
     """Shifted next-token mean cross-entropy from the PRE-head hidden
     states [B, S, D] (the model called with ``return_hidden=True``) and
     the output projection [D, V] (``model.output.weight`` transposed,
     cast to ``dtype``; this rank's columns under ``tp``, the model's
-    ``TensorParallel``), with no [B, S, V] tensor."""
+    ``TensorParallel``), with no [B, S, V] tensor.  Under ``sp`` (the
+    model's ``SequenceParallel``, size > 1) hidden and tokens are this
+    rank's columns and the value its share of the global mean
+    (``models.llama.next_token_loss``)."""
+    from ..models.llama import next_targets
     b, s, d = hidden.shape
-    x = hidden[:, :-1].reshape(b * (s - 1), d)
-    targets = tokens[:, 1:].reshape(b * (s - 1))
-    return fused_softmax_xent(x, out_kernel, targets, chunk, tp)
+    targets, n = next_targets(tokens, sp)
+    x = hidden[:, :n].reshape(b * n, d)
+    total = None if sp is None or sp.size == 1 else b * (s * sp.size - 1)
+    return fused_softmax_xent(x, out_kernel, targets.reshape(b * n), chunk,
+                              tp, total)

@@ -26,11 +26,12 @@ E))`` and the assignments past it are dropped (a training tradeoff).
 The Switch load-balancing value, which the JAX layer sows into the
 ``losses`` collection, is the attribute ``load_balancing`` of the layer
 after each forward: E * sum(frac of tokens whose first choice is e *
-mean router probability of e), computed when read, from the routing of
-the last forward and still attached to its autograd graph
-(``last_routing``: the expert indices [T, K] and router probabilities
-[T, E]).  Training does not add it to the loss, as the JAX example drops
-that collection.
+mean router probability of e) over this rank's tokens, computed when
+read from the routing of the last forward (``last_routing``: the expert
+indices [T, K] and router probabilities [T, E]), which is kept detached:
+a routing kept attached from a checkpoint's recompute would hold the
+recomputed layer's activations until the next step.  Training does not
+add it to the loss, as the JAX example drops that collection.
 
 Under tensor parallelism (``mesh=`` with tp > 1; the JAX specs w1/w3
 P("ep", "fsdp", "tp"), w2 P("ep", "tp", "fsdp")) each rank holds the
@@ -40,7 +41,32 @@ routes the same tokens to the same experts from the same input, and the
 combine is linear in the expert outputs: the ranks' f32 combines are
 summed by one all-reduce before the single rounding.  In training the
 gates enter the expert products through ``copy_to_tp``, so the router
-sees the whole gradient of its gates.  MoE over 'ep' raises.
+sees the whole gradient of its gates.
+
+Under expert parallelism (``mesh=`` with ep > 1; the JAX layer's
+``_constrain_expert`` puts the expert buffers [E, C, D] on 'ep') each
+rank holds experts [rank*E/ep, (rank+1)*E/ep) of the stacks.  The batch
+is sharded over (dp, fsdp) only, so the ep ranks of a batch shard hold
+the same tokens: every rank computes the whole routing (the router is
+replicated, and the capacity positions come from the cumsum over all
+experts, so the drops are the JAX layer's), dispatches to its own
+experts only, and the ranks' f32 partial combines are summed by one
+all-reduce over ep (``reduce_from_ep``) before the single rounding.
+The input and the gates enter through ``copy_to_ep``, so each reaches
+its whole gradient.  ep x tp composes: E over ep, F over tp.
+
+When the tokens are sharded over the mesh (the batch over dp and fsdp,
+the sequence over sp) the capacity and the drops are over the global
+tokens, as the JAX layer sees the global batch, while each rank routes
+and dispatches its own tokens only.  The ranks exchange, per row of
+their tokens, how many assignments each expert took (one small integer
+all-gather per axis), so each assignment learns its position in the
+global token order (JAX's [B, S] flattened): the capacity C counts the
+global tokens, and an assignment is dropped exactly when the JAX layer
+drops it.  The kept assignments of an expert are the first of the
+rank's own, so they take the first slots of a local buffer of min(C, T)
+slots (T the rank's tokens): a rank's memory and expert products stop
+growing with the number of batch and sequence ranks once C passes T.
 """
 
 from __future__ import annotations
@@ -51,8 +77,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.tensor import (TensorParallel, copy_to_tp, reduce_from_tp,
-                               refuse_axes)
+from ..parallel.tensor import (ExpertParallel, SequenceParallel,
+                               TensorParallel, copy_to_ep, copy_to_tp,
+                               reduce_from_ep, reduce_from_tp, refuse_axes)
 
 
 class MoEMLP(nn.Module):
@@ -63,8 +90,9 @@ class MoEMLP(nn.Module):
     matmul weights are bf16), and the expert stacks ``w1``/``w3``
     [E, D, F] and ``w2`` [E, F, D] in ``store_dtype``, cast to ``dtype``
     at every use as flax casts its params; F/tp hidden units of each
-    under a ``mesh`` with tp > 1.  A mesh with ep > 1 raises
-    NotImplementedError, an object that is not a mesh TypeError."""
+    under a ``mesh`` with tp > 1, E/ep experts with ep > 1.  A mesh with
+    pp > 1 raises NotImplementedError, an object that is not a mesh
+    TypeError."""
 
     # Token-chunk size of drop-free dispatch (the JAX NO_DROP_CHUNK): the
     # [T, E, C] one-hots stay linear in T instead of [T, E, T].
@@ -78,21 +106,33 @@ class MoEMLP(nn.Module):
         if mesh is not None:
             refuse_axes(mesh, "MoEMLP")
         self.tp = tp = TensorParallel.of(mesh)
+        self.ep = ep = ExpertParallel.of(mesh)
+        # The axes that shard the tokens: the columns over sp, the rows
+        # over fsdp inside dp.
+        self.token_shards = (SequenceParallel.of(mesh),
+                             TensorParallel.of(mesh, "fsdp"),
+                             TensorParallel.of(mesh, "dp"))
         if ffn_dim % tp.size:
             raise ValueError(f"ffn_dim {ffn_dim} not divisible by "
                              f"tp={tp.size}")
+        if n_experts % ep.size:
+            raise ValueError(f"n_experts {n_experts} not divisible by "
+                             f"ep={ep.size}")
         ffn_dim //= tp.size
+        local = n_experts // ep.size
+        # This rank's experts: [lo, lo + local).
+        self.experts = (ep.rank * local, (ep.rank + 1) * local)
         store = store_dtype or dtype
         self.n_experts, self.top_k = n_experts, top_k
         self.capacity_factor = capacity_factor
         self.dtype = dtype
         self.router = nn.Linear(dim, n_experts, bias=False, device=device,
                                 dtype=param_dtype)
-        self.w1 = nn.Parameter(torch.empty(n_experts, dim, ffn_dim,
+        self.w1 = nn.Parameter(torch.empty(local, dim, ffn_dim,
                                            device=device, dtype=store))
-        self.w3 = nn.Parameter(torch.empty(n_experts, dim, ffn_dim,
+        self.w3 = nn.Parameter(torch.empty(local, dim, ffn_dim,
                                            device=device, dtype=store))
-        self.w2 = nn.Parameter(torch.empty(n_experts, ffn_dim, dim,
+        self.w2 = nn.Parameter(torch.empty(local, ffn_dim, dim,
                                            device=device, dtype=store))
         self.last_routing = None
 
@@ -120,11 +160,12 @@ class MoEMLP(nn.Module):
         # token of their chunk: they cannot displace one, and are cut.
         gate, idx = torch.topk(probs, k, dim=-1)                 # [T, K]
         gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-        self.last_routing = (idx, probs)
+        self.last_routing = (idx, probs.detach())
 
         w1, w3, w2 = (w.to(self.dtype) for w in (self.w1, self.w3, self.w2))
-        # The expert products run on this rank's hidden units.
-        xf, gate = copy_to_tp(xf, self.tp), copy_to_tp(gate, self.tp)
+        # The expert products run on this rank's experts and hidden units.
+        xf, gate = (copy_to_ep(copy_to_tp(t, self.tp), self.ep)
+                    for t in (xf, gate))
         chunk = self.NO_DROP_CHUNK
         if no_drop and tokens > chunk:
             # Pad to whole chunks; padded rows route somewhere and are
@@ -137,31 +178,66 @@ class MoEMLP(nn.Module):
                 self._dispatch(xf_p[i:i + chunk], gate_p[i:i + chunk],
                                idx_p[i:i + chunk], chunk, w1, w3, w2)
                 for i in range(0, tokens + pad, chunk)])[:tokens]
+        elif no_drop:
+            out = self._dispatch(xf, gate, idx, tokens, w1, w3, w2)
         else:
-            capacity = tokens if no_drop else max(
-                1, int(self.capacity_factor * tokens * k / self.n_experts))
-            out = self._dispatch(xf, gate, idx, capacity, w1, w3, w2)
-        out = reduce_from_tp(out, self.tp).to(self.dtype)
-        return out.reshape(b, s, d).to(x.dtype)
+            shards = math.prod(par.size for par in self.token_shards)
+            capacity = max(1, int(self.capacity_factor * tokens * shards
+                                  * k / self.n_experts))
+            offset = self._global_offsets(idx, b) if shards > 1 else None
+            out = self._dispatch(xf, gate, idx, capacity, w1, w3, w2,
+                                 offset)
+        out = reduce_from_ep(reduce_from_tp(out, self.tp), self.ep)
+        return out.to(self.dtype).reshape(b, s, d).to(x.dtype)
 
-    def _dispatch(self, xf, gate, idx, capacity: int, w1, w3, w2):
+    def _global_offsets(self, idx, rows: int):
+        """[T, E]: what to add to the rank's own cumsum of each expert's
+        assignments to get their positions in the global token order.
+        For a row j of the rank's tokens: the assignments that the
+        global order puts before the row's first token here (every
+        earlier row of the global batch, then the columns of the sp
+        ranks before this one), less the rank's own before row j."""
+        e = self.n_experts
+        counts = F.one_hot(idx, e).reshape(rows, -1, e).sum(1)   # [B, E]
+        sp, fsdp, dp = self.token_shards
+        every = counts
+        for par in self.token_shards:              # -> [dp, fsdp, sp, B, E]
+            every = par.gather(every[None], 0)
+        ordered = every.permute(0, 1, 3, 2, 4)     # the global row order
+        before = (ordered.reshape(-1, e).cumsum(0)
+                  - ordered.reshape(-1, e)).reshape(ordered.shape)
+        mine = before[dp.rank, fsdp.rank, :, sp.rank]             # [B, E]
+        offset = mine - (counts.cumsum(0) - counts)
+        return offset.repeat_interleave(idx.shape[0] // rows, 0)
+
+    def _dispatch(self, xf, gate, idx, capacity: int, w1, w3, w2,
+                  offset=None):
         """GShard dispatch, expert products and combine for one block of
-        T tokens at ``capacity`` slots per expert -> [T, D] in f32 (this
-        rank's part under tp), rounded by the caller."""
+        T tokens at ``capacity`` per expert -> [T, D] in f32 (this rank's
+        part under tp and ep), rounded by the caller.  ``offset`` [T, E]
+        places the assignments in the global token order
+        (``_global_offsets``); None when the block is all the tokens."""
         t, k, e, dt = xf.shape[0], self.top_k, self.n_experts, self.dtype
         onehot = F.one_hot(idx, e)                               # [T, K, E]
-        # Position of each assignment in its expert's buffer: a cumsum
-        # over the token-major [T*K, E] one-hot (k inside t), minus 1.
-        position = ((onehot.reshape(t * k, e).cumsum(0).reshape(t, k, e)
-                     - 1) * onehot).sum(-1)                      # [T, K]
+        # Position of each assignment among its expert's: a cumsum over
+        # the token-major [T*K, E] one-hot (k inside t), minus 1.
+        cum = onehot.reshape(t * k, e).cumsum(0).reshape(t, k, e)
+        slot = ((cum - 1) * onehot).sum(-1)                      # [T, K]
+        position = slot if offset is None else \
+            slot + (offset[:, None] * onehot).sum(-1)
         keep = position < capacity                               # drops
-        # one_hot of a position past capacity is all zeros (jax.nn.one_hot)
-        pos_onehot = (position[..., None] == torch.arange(
-            capacity, device=xf.device)).to(dt)                  # [T, K, C]
-        masked = onehot.to(dt) * keep[..., None].to(dt)
-        # sel[t, k] is one-hot over the E*C buffer slots: where assignment
-        # (t, k) sits, zeros if it was dropped.  The JAX dispatch tensor
-        # [T, E, C] is its sum over k (a token routes an expert once).
+        # The kept assignments of an expert are the first of the block's
+        # (positions grow with slots), so each sits at its slot, below
+        # min(C, T): a token routes an expert once.  one_hot of a slot
+        # past them is all zeros (jax.nn.one_hot).
+        pos_onehot = (slot[..., None] == torch.arange(
+            min(capacity, t), device=xf.device)).to(dt)          # [T, K, C]
+        lo, hi = self.experts
+        masked = (onehot.to(dt) * keep[..., None].to(dt))[:, :, lo:hi]
+        # sel[t, k] is one-hot over this rank's E*C buffer slots: where
+        # assignment (t, k) sits, zeros if it was dropped or its expert
+        # lives on another ep rank.  The JAX dispatch tensor [T, E, C] is
+        # its sum over k (a token routes an expert once).
         sel = torch.einsum("tke,tkc->tkec", masked, pos_onehot)
         disp = sel.sum(1)                                        # [T, E, C]
         expert_in = torch.einsum("td,tec->ecd", xf.to(dt), disp)  # [E, C, D]

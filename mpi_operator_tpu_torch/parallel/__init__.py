@@ -1,9 +1,10 @@
-"""Training of the port, on one device or over a (dp, fsdp, tp)
-DeviceMesh of processes (``mesh``: the six-axis mesh; ``train``: the
-step, its ZeRO update and hierarchical all-reduce, FSDP2 sharding;
-``tensor``: Megatron tensor parallelism over tp).  Meshes with sp, ep or
-pp above 1 wait for ROADMAP.md queue 1 item 3."""
+"""Training of the port, on one device or over a DeviceMesh of processes
+(``mesh``: the six-axis mesh; ``train``: the step, its ZeRO update and
+hierarchical all-reduce, FSDP2 sharding, the live re-shard; ``tensor``:
+Megatron tensor parallelism over tp, the pair over ep, the sp ring's
+exchange).  Meshes with pp above 1 wait for ROADMAP.md queue 1 item
+3.4."""
 
 from .mesh import MeshConfig, create_mesh  # noqa: F401
 from .train import (TrainState, adamw, build_train_step,  # noqa: F401
-                    run_train_loop)
+                    reshard_train_state, run_train_loop)

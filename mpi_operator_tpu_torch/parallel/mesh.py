@@ -7,7 +7,8 @@ and :func:`create_mesh` wraps it in a ``DeviceMesh`` with the axis names
 ``dp, fsdp, pp, ep, tp, sp``.  Inner axes vary fastest, so the ranks of
 one ``fsdp`` group are neighbours (one node's NVLink) while ``dp`` spans
 nodes or slices.  JAX's ``batch_sharding``/``seq_batch_sharding`` have
-no torch meaning: a rank holds the rows :func:`batch_rows` names.
+no torch meaning: a rank holds the rows :func:`batch_rows` names and,
+under sequence parallelism, the columns :func:`seq_cols` names.
 """
 
 from __future__ import annotations
@@ -73,19 +74,25 @@ def mesh_ranks(config: Optional[MeshConfig], world: int,
 
 
 def create_mesh(config: Optional[MeshConfig] = None, device_type=None,
-                num_slices: int = 1):
+                num_slices: int = 1, ranks: Optional[List[int]] = None):
     """A ``DeviceMesh`` with axes (dp, fsdp, pp, ep, tp, sp) over the
-    default process group (:func:`mesh_ranks` lays the ranks out).
-    ``device_type`` defaults to ``"cuda"``; ``"cpu"`` gives a gloo mesh.
-    Every rank must call it (the axis groups form collectively)."""
+    default process group's ranks, or over ``ranks`` (a subset, in
+    order: the JAX ``create_mesh(config, devices)`` over a subset of the
+    devices); :func:`mesh_ranks` lays them out.  ``device_type`` defaults
+    to ``"cuda"``; ``"cpu"`` gives a gloo mesh.  Every rank of the
+    default group must call it, members or not (the axis groups form
+    collectively); on a rank outside ``ranks`` the mesh's
+    ``get_coordinate()`` is None."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a process group: call "
                            "bootstrap.initialize_from_env() first")
-    ranks = mesh_ranks(config, dist.get_world_size(), num_slices)
-    return DeviceMesh(device_type or "cuda", ranks.tolist(),
+    members = np.arange(dist.get_world_size()) if ranks is None else \
+        np.asarray(list(ranks))
+    layout = members[mesh_ranks(config, len(members), num_slices)]
+    return DeviceMesh(device_type or "cuda", layout.tolist(),
                       mesh_dim_names=AXIS_NAMES)
 
 
@@ -111,6 +118,20 @@ def batch_rows(mesh_shape, coordinate, global_batch: int) -> slice:
     rows = global_batch // shards
     block = index["dp"] * sizes["fsdp"] + index["fsdp"]
     return slice(block * rows, (block + 1) * rows)
+
+
+def seq_cols(mesh_shape, coordinate, seq_len: int) -> slice:
+    """The token columns the rank at ``coordinate`` holds under sequence
+    parallelism: ``[i*S/sp, (i+1)*S/sp)`` for its sp index i, as JAX's
+    ``seq_batch_sharding`` (``PartitionSpec(("dp", "fsdp"), "sp")``)
+    gives each device; all of them when sp is 1."""
+    sizes = dict(zip(AXIS_NAMES, mesh_shape))
+    index = dict(zip(AXIS_NAMES, coordinate))
+    if seq_len % sizes["sp"]:
+        raise ValueError(f"sequence length {seq_len} not divisible by "
+                         f"sp={sizes['sp']}")
+    cols = seq_len // sizes["sp"]
+    return slice(index["sp"] * cols, (index["sp"] + 1) * cols)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,11 @@
 """Tensor parallelism over the ``tp`` axis of the port's ``DeviceMesh``:
 Megatron's conjugate pair of autograd functions and the helpers that
-cut and join the shards ``models.llama.llama_param_specs`` names.
+cut and join the shards ``models.llama.llama_param_specs`` names.  The
+same pair serves expert parallelism over ``ep`` (:class:`ExpertParallel`:
+the MoE input and gates enter through :func:`copy_to_ep`, the partial
+combines leave through :func:`reduce_from_ep`), and
+:class:`SequenceParallel` names a rank's place on ``sp`` (ring
+attention, ``ops/ring_attention.py``).
 
 One process drives one card, so a rank holds plain local tensors (its
 ``torch.chunk`` of each ``tp`` dimension), not DTensors: the model runs
@@ -33,11 +38,7 @@ import torch.distributed as dist
 from .mesh import AXIS_NAMES
 
 # Where each refused axis waits (ROADMAP.md queue 1 item 3).
-_POINTERS = {
-    "sp": "sequence parallelism (ring attention, the sp batch iterator)",
-    "ep": "MoE over an 'ep' axis",
-    "pp": "pipeline parallelism",
-}
+_POINTERS = {"pp": ("3.4", "pipeline parallelism")}
 
 
 def axis_sizes(mesh) -> dict:
@@ -50,37 +51,47 @@ def axis_sizes(mesh) -> dict:
     return dict(zip(AXIS_NAMES, tuple(mesh.shape)))
 
 
-def refuse_axes(mesh, what: str, allowed=("dp", "fsdp", "tp")) -> dict:
+def refuse_axes(mesh, what: str,
+                allowed=("dp", "fsdp", "ep", "tp", "sp")) -> dict:
     """The mesh's axis sizes; NotImplementedError naming the ROADMAP
     item of any axis above 1 that ``what`` does not take."""
     sizes = axis_sizes(mesh)
     for axis, n in sizes.items():
         if n > 1 and axis not in allowed:
-            why = _POINTERS.get(axis, f"'{axis}' here")
+            item, why = _POINTERS.get(axis, ("3", f"'{axis}' in {what}"))
             raise NotImplementedError(
                 f"{what} over a mesh with {axis}={n} is not ported yet: "
-                f"ROADMAP.md queue 1 item 3 (multi-GPU parallelism, "
+                f"ROADMAP.md queue 1 item {item} (multi-GPU parallelism, "
                 f"{why})")
     return sizes
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TensorParallel:
-    """This rank's place on the ``tp`` axis: its size, its index and the
-    group of its ``tp`` neighbours (None when size is 1)."""
+    """This rank's place on the ``tp`` axis (``AXIS``; another axis when
+    ``of`` names it): its size, its index and the group of its
+    neighbours on the axis (None when size is 1)."""
     size: int = 1
     rank: int = 0
     group: Any = None
     mesh: Any = None
+    AXIS = "tp"
 
     @classmethod
-    def of(cls, mesh) -> "TensorParallel":
+    def of(cls, mesh, axis: Optional[str] = None) -> "TensorParallel":
+        """This rank's place on ``axis`` (default ``AXIS``) of ``mesh``."""
+        axis = axis or cls.AXIS
         if mesh is None:
             return cls()
-        n = axis_sizes(mesh)["tp"]
+        n = axis_sizes(mesh)[axis]
         if n == 1:
             return cls(mesh=mesh)
-        return cls(n, mesh.get_local_rank("tp"), mesh.get_group("tp"), mesh)
+        return cls(n, mesh.get_local_rank(axis), mesh.get_group(axis), mesh)
+
+    def peer(self, shift: int) -> int:
+        """The global rank ``shift`` places along the axis (a ring)."""
+        return dist.get_global_rank(self.group,
+                                    (self.rank + shift) % self.size)
 
     def __deepcopy__(self, memo):          # groups are not copyable
         return self
@@ -108,9 +119,39 @@ class TensorParallel:
         return t
 
 
-def tp_dim(spec) -> Optional[int]:
-    """The dim of a ``llama_param_specs`` entry that 'tp' cuts, or None."""
-    return next((d for d, axis in enumerate(spec) if axis == "tp"), None)
+class ExpertParallel(TensorParallel):
+    """This rank's place on ``ep``: it holds experts
+    [rank*E/size, (rank+1)*E/size) of every MoE layer."""
+    AXIS = "ep"
+
+
+class SequenceParallel(TensorParallel):
+    """This rank's place on ``sp``: it holds token columns
+    [rank*S/size, (rank+1)*S/size) (``parallel.mesh.seq_cols``)."""
+    AXIS = "sp"
+
+
+def ring_shift(tensors, par: TensorParallel, shift: int = 1):
+    """Each tensor to the rank ``shift`` places on along ``par``'s axis
+    (a ring), and that of the rank ``shift`` places back in its place:
+    one batched ``isend``/``irecv`` exchange over the axis group (the
+    JAX ``ppermute``; the peers are global ranks, so they hold however
+    the other axes lay the ranks out)."""
+    dst, src = par.peer(shift), par.peer(-shift)
+    received = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, buf in zip(tensors, received):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, par.group))
+        ops.append(dist.P2POp(dist.irecv, buf, src, par.group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return received
+
+
+def tp_dim(spec, axis: str = "tp") -> Optional[int]:
+    """The dim of a ``llama_param_specs`` entry that ``axis`` cuts, or
+    None."""
+    return next((d for d, a in enumerate(spec) if a == axis), None)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -163,6 +204,11 @@ def reduce_from_tp(x, tp: TensorParallel):
     """Sum of every rank's partial ``x`` over ``tp``, in f32 and rounded
     once to x's dtype; identity backward."""
     return x if tp.size == 1 else _ReduceFromTP.apply(x, tp)
+
+
+# The same pair over 'ep' (the group of an ExpertParallel).
+copy_to_ep = copy_to_tp
+reduce_from_ep = reduce_from_tp
 
 
 def gather_from_tp(x, tp: TensorParallel, dim: int = -1):

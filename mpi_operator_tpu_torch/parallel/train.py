@@ -11,17 +11,27 @@ collectives from sharding annotations; here the mesh plans name them:
 flat f32 buckets, optionally hierarchical and with a ZeRO update) and
 :class:`_ShardedPlan` (FSDP2 ``fully_shard`` over ``fsdp``).
 
-Either plan composes with tensor parallelism over ``tp``: the model is
-built tp-sharded (``LlamaModel(mesh=)``), the plans reduce gradients
-over the batch ranks (dp x fsdp) that share a tp index, the gradient
-norm sums a tp-sharded leaf's squares over the tp group and a replicated
-one once, and a checkpoint joins the tp shards into the one-device
-format (and cuts them again on restore).  Meshes with ``sp``, ``ep`` or
-``pp`` above 1 wait for ROADMAP.md queue 1 item 3.
+Either plan composes with tensor parallelism over ``tp`` and expert
+parallelism over ``ep``: the model is built sharded (``LlamaModel(mesh=)``:
+Megatron shards over tp, each MoE layer's experts over ep), the plans
+reduce gradients over the batch ranks (dp x fsdp) that share a tp and
+ep index (the ep ranks of a batch shard see the same tokens, and
+``copy_to_ep`` makes the gradients of replicated leaves identical on
+them), the gradient norm sums a sharded leaf's squares over its groups
+and a replicated one once, and a checkpoint joins the shards into the
+one-device format (and cuts them again on restore).
+
+Under sequence parallelism over ``sp`` the parameters are replicated
+over sp and each sp rank's loss is its share of the global mean
+(``models.llama.next_token_loss``), so the gradients are summed over sp
+while dp and fsdp keep their mean, and the reported loss is the sp sum.
+:func:`reshard_train_state` moves a live state onto another mesh.
+Meshes with ``pp`` above 1 wait for ROADMAP.md queue 1 item 3.4.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import sys
 import time
@@ -32,7 +42,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from .tensor import TensorParallel, refuse_axes, tp_dim
+from .tensor import ExpertParallel, TensorParallel, refuse_axes, tp_dim
 
 
 @dataclass
@@ -104,65 +114,94 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _batch_ranks(mesh):
-    """Per tp index, the ranks that hold the batch shards (dp x fsdp)
-    beside it: a [tp, dp*fsdp] list of lists."""
-    tp = _axis_sizes(mesh)["tp"]
-    return mesh.mesh.reshape(-1, tp).T.tolist()
+def _axis_ranks(mesh, axes):
+    """The ranks of each group that varies over ``axes`` (in mesh order)
+    with every other coordinate fixed: a [groups, group size] list."""
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    rest = [d for d in range(len(names)) if d not in keep]
+    ranks = mesh.mesh.permute(*rest, *keep)
+    return ranks.reshape(-1, ranks[(0,) * len(rest)].numel()).tolist()
 
 
-def _batch_group(mesh):
-    """The group of this rank's batch ranks: the default group without
-    tp; otherwise one subgroup per tp index (made on every rank)."""
-    if _axis_sizes(mesh)["tp"] == 1:
-        return None
-    group, _ = dist.new_subgroups_by_enumeration(_batch_ranks(mesh))
-    return group
+class _AxesGroup:
+    """A sum over several mesh axes at once: one all-reduce over the
+    default group when the axes span every rank of it, else one over
+    each axis above 1 in turn (the mesh's own groups; no group is made
+    here, so a plan can be built on the members of a mesh alone)."""
+
+    def __init__(self, mesh, axes):
+        sizes = _axis_sizes(mesh)
+        self.size = 1
+        for a in axes:
+            self.size *= sizes[a]
+        if self.size == dist.get_world_size() == mesh.mesh.numel():
+            self.groups = [None]
+        else:
+            self.groups = [mesh.get_group(a) for a in axes if sizes[a] > 1]
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        for group in self.groups:
+            dist.all_reduce(t, group=group)
+        return t
 
 
-def _ssq_split(tensors, sharded) -> torch.Tensor:
-    """[sum of squares over the tp-sharded tensors, over the others],
-    f32 [2]."""
+def _ssq_split(tensors, kinds) -> torch.Tensor:
+    """Sums of squares by how a tensor is cut, f32 [4]: index bit 0 set
+    for the tp-sharded tensors, bit 1 for the ep-sharded ones."""
     parts = [torch.zeros((), dtype=torch.float32,
-                         device=tensors[0].device) for _ in range(2)]
-    for t, cut in zip(tensors, sharded):
-        parts[0 if cut else 1] = parts[0 if cut else 1] + \
+                         device=tensors[0].device) for _ in range(4)]
+    for t, kind in zip(tensors, kinds):
+        parts[kind] = parts[kind] + \
             torch.linalg.vector_norm(t, dtype=torch.float32).square()
     return torch.stack(parts)
 
 
-def _tp_norm(ssq: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
-    """The global norm from :func:`_ssq_split`'s pair: the tp-sharded
-    squares summed over the tp group, the replicated ones once."""
-    cut = ssq[0:1].clone()
-    tp.all_reduce_(cut)
-    return (cut[0] + ssq[1]).sqrt()
+def _shard_norm(ssq: torch.Tensor, tp: TensorParallel,
+                ep: ExpertParallel) -> torch.Tensor:
+    """The global norm from :func:`_ssq_split`'s sums: each sharded kind
+    summed over the groups that cut it, a replicated one counted once."""
+    for bit, par in ((1, tp), (2, ep)):
+        if par.size > 1:
+            cut = torch.tensor([bool(k & bit) for k in range(4)],
+                               device=ssq.device)
+            part = torch.where(cut, ssq, torch.zeros_like(ssq))
+            par.all_reduce_(part)
+            ssq = torch.where(cut, part, ssq)
+    return ssq.sum().sqrt()
 
 
-class _TPLayout:
-    """The 'tp' dim of each trainable parameter (by name and by index in
-    ``model.parameters()``), from the param specs."""
+class _Layout:
+    """The 'tp' and 'ep' dims of each trainable parameter (by name and by
+    index in ``model.parameters()``), from the param specs."""
 
-    def __init__(self, model, specs, tp: TensorParallel):
-        self.tp = tp
+    def __init__(self, model, specs, tp: TensorParallel,
+                 ep: ExpertParallel):
+        self.tp, self.ep = tp, ep
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self.names = [n for n, _ in named]
-        self.dims = {n: (tp_dim(specs[n]) if tp.size > 1 else None)
+        self.dims = {n: (tp_dim(specs[n]) if tp.size > 1 else None,
+                         tp_dim(specs[n], "ep") if ep.size > 1 else None)
                      for n in self.names}
-        self.sharded = [self.dims[n] is not None for n in self.names]
+        self.kinds = [(d is not None) + 2 * (e is not None)
+                      for d, e in (self.dims[n] for n in self.names)]
+        self.sharded = tp.size > 1 or ep.size > 1
+
+    def _name(self, name_or_index):
+        return name_or_index if isinstance(name_or_index, str) else \
+            self.names[name_or_index]
 
     def gather(self, name_or_index, value):
-        """The full tensor of a parameter-shaped tp chunk (collective)."""
-        name = name_or_index if isinstance(name_or_index, str) else \
-            self.names[name_or_index]
-        return self.tp.gather(value, self.dims.get(name))
+        """The full tensor of a parameter-shaped chunk (collective)."""
+        d, e = self.dims.get(self._name(name_or_index), (None, None))
+        return self.ep.gather(self.tp.gather(value, d), e)
 
     def cut(self, name_or_index, value):
-        name = name_or_index if isinstance(name_or_index, str) else \
-            self.names[name_or_index]
-        d = self.dims.get(name)
-        return value if d is None else self.tp.chunk(value, d).clone()
+        d, e = self.dims.get(self._name(name_or_index), (None, None))
+        if d is None and e is None:
+            return value
+        return self.ep.chunk(self.tp.chunk(value, d), e).clone()
 
 
 def _buckets(sizes, cap: int = BUCKET_ELEMENTS):
@@ -227,13 +266,14 @@ class _RankMajor:
             t.movedim(d, 0).copy_(part.reshape(t.movedim(d, 0).shape))
 
 
-def _all_reduce_mean(tensors, world: int, group=None) -> None:
-    """Replace each tensor by its mean over the ``world`` ranks of
-    ``group`` (default: every rank), on flat f32 buckets."""
+def _all_reduce_mean(tensors, world: int, group: _AxesGroup) -> None:
+    """Replace each tensor by its sum over ``group`` divided by ``world``,
+    on flat f32 buckets."""
     for bucket in _buckets([t.numel() for t in tensors]):
         flat = torch.cat([tensors[i].float().reshape(-1) for i in bucket])
-        dist.all_reduce(flat, group=group)
-        flat /= world
+        group.all_reduce_(flat)
+        if world != 1:
+            flat /= world
         for i, piece in zip(bucket, flat.split([tensors[i].numel()
                                                 for i in bucket])):
             tensors[i].copy_(piece.view(tensors[i].shape))
@@ -260,26 +300,29 @@ class _ReplicatedPlan:
 
     A chunk is cut along the parameter's first dim divisible by the
     group's size; a parameter with no such dim stays whole and is
-    all-reduced, as ``graft_spec`` leaves it replicated."""
+    all-reduced, as ``graft_spec`` leaves it replicated.  Under sp the
+    sums run over the sp group too (the gradients are summed over sp,
+    not averaged)."""
 
     def __init__(self, mesh, zero: bool, hier: bool, ici_axis: str,
                  specs=None):
         sizes = _axis_sizes(mesh)
         self.device = _mesh_device(mesh)
         self.world = sizes["dp"] * sizes["fsdp"]       # batch ranks
-        self.batch_group = _batch_group(mesh)
+        self.grads = _AxesGroup(mesh, ("dp", "fsdp", "sp"))
         self.tp = TensorParallel.of(mesh)
+        self.ep = ExpertParallel.of(mesh)
         self.specs = specs
         self.layout = None
         self.zero = zero
         # The collectives' pair: the group the buckets are scattered
-        # over, and the group that then reduces the scattered shard.
+        # over, and the axes that then reduce the scattered shard.
         if hier:
             scatter, other = ici_axis, "dp"
         else:
             scatter, other = "dp", "fsdp"
         self.scatter = (mesh.get_group(scatter), sizes[scatter])
-        self.other = (mesh.get_group(other), sizes[other])
+        self.other = _AxesGroup(mesh, (other, "sp"))
         self.split = zero or hier
         self.layouts = []          # (indices, _RankMajor) per bucket
         self.whole = []            # indices reduced whole
@@ -290,7 +333,7 @@ class _ReplicatedPlan:
 
     def optimizer(self, model, factory):
         params = [p for p in model.parameters() if p.requires_grad]
-        self.layout = _TPLayout(model, self.specs, self.tp)
+        self.layout = _Layout(model, self.specs, self.tp, self.ep)
         group, n = self.scatter
         dims = {i: _first_divisible_dim(p.shape, n)
                 for i, p in enumerate(params)} if self.split else {}
@@ -315,20 +358,18 @@ class _ReplicatedPlan:
 
     def reduce(self, params) -> None:
         """Gradients (each rank's mean over its rows) -> the mean over
-        every batch rank: in ``p.grad``, or in the masters' ``grad``
-        under ZeRO."""
+        every batch rank (summed over sp): in ``p.grad``, or in the
+        masters' ``grad`` under ZeRO."""
         group, n = self.scatter
-        other, n_other = self.other
         if not self.split:
             _all_reduce_mean([p.grad for p in params], self.world,
-                             self.batch_group)
+                             self.grads)
             return
         for idx, layout in self.layouts:
             flat = layout.pack([params[i].grad for i in idx])
             shard = flat.new_empty(layout.per_rank)
             dist.reduce_scatter_tensor(shard, flat, group=group)
-            if n_other > 1:
-                dist.all_reduce(shard, group=other)
+            self.other.all_reduce_(shard)
             shard /= self.world
             if self.zero:
                 for i, chunk in zip(idx, layout.chunks(shard)):
@@ -338,11 +379,11 @@ class _ReplicatedPlan:
                 dist.all_gather_into_tensor(flat, shard, group=group)
                 layout.unpack(flat, [params[i].grad for i in idx])
         _all_reduce_mean([params[i].grad for i in self.whole], self.world,
-                         self.batch_group)
+                         self.grads)
 
     def grad_norm(self, params) -> torch.Tensor:
-        if self.tp.size > 1:
-            return self._tp_grad_norm(params)
+        if self.layout.sharded:
+            return self._shard_grad_norm(params)
         if not self.zero:
             return optax_global_norm([p.grad for p in params])
         group, _ = self.scatter
@@ -354,18 +395,18 @@ class _ReplicatedPlan:
             split = split + optax_global_norm(whole).square()
         return split.sqrt()
 
-    def _tp_grad_norm(self, params) -> torch.Tensor:
-        cut = self.layout.sharded
+    def _shard_grad_norm(self, params) -> torch.Tensor:
+        kinds = self.layout.kinds
         if not self.zero:
-            return _tp_norm(_ssq_split([p.grad for p in params], cut),
-                            self.tp)
+            return _shard_norm(_ssq_split([p.grad for p in params], kinds),
+                               self.tp, self.ep)
         split = _ssq_split([m.grad for m in self.masters.values()],
-                           [cut[i] for i in self.masters])
+                           [kinds[i] for i in self.masters])
         dist.all_reduce(split, group=self.scatter[0])
         if self.whole:
             split = split + _ssq_split([params[i].grad for i in self.whole],
-                                       [cut[i] for i in self.whole])
-        return _tp_norm(split, self.tp)
+                                       [kinds[i] for i in self.whole])
+        return _shard_norm(split, self.tp, self.ep)
 
     @torch.no_grad()
     def after_step(self, params) -> None:
@@ -408,7 +449,7 @@ class _ReplicatedPlan:
                                                     group=group)
                         optim["state"][i][key] = full.movedim(0, d)
         model = state.model.state_dict()
-        if self.tp.size > 1:
+        if self.layout.sharded:
             lay = self.layout
             model = {k: lay.gather(k, v) for k, v in model.items()}
             for i, entry in optim["state"].items():
@@ -420,7 +461,7 @@ class _ReplicatedPlan:
     @torch.no_grad()
     def load_state_dict(self, state, payload: dict) -> None:
         model, optim = payload["model"], payload["optimizer"]
-        if self.tp.size > 1:
+        if self.layout.sharded:
             lay = self.layout
             model = {k: lay.cut(k, v) for k, v in model.items()}
             optim = {"param_groups": optim["param_groups"],
@@ -458,24 +499,29 @@ class _ShardedPlan:
     all-reduce of the shard over dp, which is the hierarchical
     schedule).  With ``shard_update`` and dp > 1 the parameters and
     optimizer state are sharded over every batch rank (dp x fsdp), the
-    JAX ZeRO plan's optimizer-state sharding."""
+    JAX ZeRO plan's optimizer-state sharding.  Under sp each rank's
+    gradient shard is then summed over the sp group: an HSDP replicate
+    dim over sp would average it."""
 
     def __init__(self, mesh, zero: bool, specs=None):
         from torch.distributed.device_mesh import DeviceMesh
         sizes = _axis_sizes(mesh)
         self.device = _mesh_device(mesh)
         self.world = sizes["dp"] * sizes["fsdp"]       # batch ranks
-        self.batch_group = _batch_group(mesh)
+        self.grads = _AxesGroup(mesh, ("dp", "fsdp", "sp"))
+        self.sp = _AxesGroup(mesh, ("sp",))
         self.tp = TensorParallel.of(mesh)
+        self.ep = ExpertParallel.of(mesh)
         self.specs = specs
         self.layout = None
         if sizes["dp"] == 1:
             self.mesh, self.norm_group = mesh["fsdp"], mesh.get_group("fsdp")
         elif zero:
-            # Every batch rank of this tp index (all ranks without tp).
+            # Every batch rank of this rank's place on the other axes
+            # (all ranks without them).
             self.mesh = DeviceMesh(
-                mesh.device_type, _batch_ranks(mesh),
-                mesh_dim_names=("tp_index", "batch"))["batch"]
+                mesh.device_type, _axis_ranks(mesh, ("dp", "fsdp")),
+                mesh_dim_names=("others", "batch"))["batch"]
             self.norm_group = self.mesh.get_group()
         else:
             self.mesh = mesh["dp", "fsdp"]
@@ -491,18 +537,22 @@ class _ShardedPlan:
         return model
 
     def optimizer(self, model, factory):
-        self.layout = _TPLayout(model, self.specs, self.tp)
+        self.layout = _Layout(model, self.specs, self.tp, self.ep)
         return factory(model.parameters())
 
     def reduce(self, params) -> None:
-        """FSDP2 reduced the gradients in the backward."""
+        """FSDP2 reduced the gradients over the batch ranks in the
+        backward; under sp each rank's shards are summed over sp."""
+        if self.sp.size > 1:
+            _all_reduce_mean([p.grad.to_local() for p in params], 1,
+                             self.sp)
 
     def grad_norm(self, params) -> torch.Tensor:
-        if self.tp.size > 1:
+        if self.layout.sharded:
             ssq = _ssq_split([p.grad.to_local() for p in params],
-                             self.layout.sharded)
+                             self.layout.kinds)
             dist.all_reduce(ssq, group=self.norm_group)
-            return _tp_norm(ssq, self.tp)
+            return _shard_norm(ssq, self.tp, self.ep)
         local = optax_global_norm([p.grad.to_local() for p in params])
         ssq = local.square()
         dist.all_reduce(ssq, group=self.norm_group)
@@ -521,7 +571,7 @@ class _ShardedPlan:
         ``get_state_dict``, its optimizer state keyed by parameter
         name."""
         from torch.distributed.checkpoint.state_dict import get_state_dict
-        if self.tp.size > 1:
+        if self.layout.sharded:
             return self._tp_state_dict(state)
         model, optim = get_state_dict(state.model, state.optimizer,
                                       options=self._options())
@@ -531,7 +581,8 @@ class _ShardedPlan:
     def _tp_state_dict(self, state) -> dict:
         """get_state_dict's full form (optimizer state keyed by parameter
         name), one tensor at a time: each FSDP2 shard made whole over
-        fsdp, then over tp, and kept (on the host) by rank 0 alone."""
+        fsdp, then over tp and ep, and kept (on the host) by rank 0
+        alone."""
         from torch.distributed.tensor import DTensor
 
         lay, keep = self.layout, dist.get_rank() == 0
@@ -561,7 +612,7 @@ class _ShardedPlan:
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions, set_state_dict)
         model, optim = payload["model"], payload["optimizer"]
-        if self.tp.size > 1:
+        if self.layout.sharded:
             lay = self.layout
             model = {k: lay.cut(k, v) for k, v in model.items()}
             optim = {"param_groups": optim["param_groups"],
@@ -574,13 +625,37 @@ class _ShardedPlan:
                        options=StateDictOptions(full_state_dict=True))
 
 
+def _init_state(plan, model, optimizer, init_weights=None) -> TrainState:
+    """A TrainState at step 0: under a plan the model is placed first (a
+    model on the meta device is then allocated on the mesh's device) and
+    filled by ``init_weights`` before the optimizer is made."""
+    if plan is not None:
+        for par in (plan.tp, plan.ep):
+            held = getattr(getattr(model, par.AXIS, None), "size", 1)
+            if held != par.size:
+                raise ValueError(
+                    f"the model holds {par.AXIS}={held} shards, the mesh "
+                    f"has {par.AXIS}={par.size}: build it with "
+                    f"LlamaModel(mesh=)")
+        model = plan.place(model)
+        if any(p.is_meta for p in model.parameters()):
+            model.to_empty(device=plan.device)
+    if init_weights is not None:
+        init_weights(model)
+    make = optimizer if plan is None else \
+        (lambda params: plan.optimizer(model, optimizer))
+    return TrainState(step=0, model=model,
+                      optimizer=make(model.parameters()), plan=plan)
+
+
 def _mesh_plan(mesh, param_specs, shard_update, hierarchical_allreduce,
                ici_axis):
     sizes = refuse_axes(mesh, "build_train_step")
-    if sizes["tp"] > 1 and param_specs is None:
-        raise ValueError("tensor parallelism (tp > 1) needs param_specs "
-                         "(models.llama.llama_param_specs): they name the "
-                         "dims the model's shards cut")
+    for axis, what in (("tp", "tensor"), ("ep", "expert")):
+        if sizes[axis] > 1 and param_specs is None:
+            raise ValueError(f"{what} parallelism ({axis} > 1) needs "
+                             f"param_specs (models.llama.llama_param_specs):"
+                             f" they name the dims the model's shards cut")
     zero = shard_update and sizes["dp"] > 1
     if param_specs is not None and sizes["fsdp"] > 1 and any(
             "fsdp" in spec for spec in param_specs.values()):
@@ -605,12 +680,16 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
     - optimizer: a factory over the parameters (:func:`adamw`).
     - mesh: a ``parallel.mesh.create_mesh`` DeviceMesh; the metrics are
       then those of the global batch (the loss mean and the gradients
-      are averaged over every batch rank).
+      are averaged over every batch rank).  Under sp > 1 the batch holds
+      this rank's token columns too (``parallel.mesh.seq_cols``), the
+      loss_fn returns the rank's share of the global mean
+      (``next_token_loss(..., sp=model.sp)``), and loss and gradients
+      are summed over sp.
     - param_specs: ``models.llama.llama_param_specs``; with fsdp > 1 the
       parameters are sharded over it (:class:`_ShardedPlan`), else
-      replicated (:class:`_ReplicatedPlan`).  With tp > 1 (needs
+      replicated (:class:`_ReplicatedPlan`).  With tp or ep > 1 (needs
       param_specs) the model must be built on the same mesh
-      (``LlamaModel(mesh=)``: its tp shards).
+      (``LlamaModel(mesh=)``: its tp and ep shards).
     - shard_update / hierarchical_allreduce / ici_axis: the ZeRO update
       and the hierarchical gradient schedule (see the plans); a 1-sized
       dp is the plain update and a 1-sized ``ici_axis`` the flat
@@ -632,7 +711,9 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
     fills it before the optimizer is made (``models.params.init_params_``
     fills each rank's shard).  step_fn(state, batch) -> (state, metrics)
     with ``loss`` and ``grad_norm`` (of the gradients before the update)
-    as f32 device scalars, read by nobody unless asked."""
+    as f32 device scalars, read by nobody unless asked; it runs the
+    collectives of the state's plan, so it also steps a state that
+    :func:`reshard_train_state` moved onto this mesh."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     plan = None
@@ -648,21 +729,7 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
             return checkpoint(loss_fn, model, batch, use_reentrant=False)
 
     def init_fn(model, init_weights: Optional[Callable] = None):
-        if plan is not None:
-            held = getattr(getattr(model, "tp", None), "size", 1)
-            if held != plan.tp.size:
-                raise ValueError(
-                    f"the model holds tp={held} shards, the mesh has "
-                    f"tp={plan.tp.size}: build it with LlamaModel(mesh=)")
-            model = plan.place(model)
-            if any(p.is_meta for p in model.parameters()):
-                model.to_empty(device=plan.device)
-        if init_weights is not None:
-            init_weights(model)
-        make = optimizer if plan is None else \
-            (lambda params: plan.optimizer(model, optimizer))
-        return TrainState(step=0, model=model,
-                          optimizer=make(model.parameters()), plan=plan)
+        return _init_state(plan, model, optimizer, init_weights)
 
     def split(batch, i):
         if isinstance(batch, (tuple, list)):
@@ -710,14 +777,16 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
         return loss_sum / accum_steps, params
 
     def step_fn(state: TrainState, batch):
+        plan = state.plan
         state.optimizer.zero_grad(set_to_none=True)
         loss, params = grads_of(state, batch)
         if plan is None:
             grad_norm = optax_global_norm([p.grad for p in params])
         else:
             plan.reduce(params)
-            # The tp ranks of a batch shard computed the same loss.
-            dist.all_reduce(loss, group=plan.batch_group)
+            # The tp and ep ranks of a batch shard computed the same
+            # loss; the sp ranks' shares sum to it.
+            plan.grads.all_reduce_(loss)
             loss /= plan.world
             grad_norm = plan.grad_norm(params)
         state.optimizer.step()
@@ -732,6 +801,147 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
                                   registry=telemetry_registry,
                                   sync_every=sync_every)
     return init_fn, step_fn
+
+
+# ---------------------------------------------------------------------------
+# Live re-shard onto another mesh
+# ---------------------------------------------------------------------------
+
+def _model_class(model):
+    """The model's own class (FSDP2 wraps it in a subclass)."""
+    from torch.distributed.fsdp import FSDPModule
+    return next(c for c in type(model).__mro__
+                if issubclass(c, torch.nn.Module)
+                and not issubclass(c, FSDPModule))
+
+
+def _rekey_optimizer(optim: dict, names, by_name: bool) -> dict:
+    """An optimizer state dict keyed by parameter index (one optimizer
+    over ``model.parameters()``) or by parameter name (the full form of
+    ``torch.distributed.checkpoint``'s ``get_state_dict``), in the form
+    ``by_name`` asks for."""
+    index = {n: i for i, n in enumerate(names)}
+
+    def key(k):
+        if by_name:
+            return names[k] if isinstance(k, int) else k
+        return index[k] if isinstance(k, str) else k
+
+    return {"state": {key(k): v for k, v in optim["state"].items()},
+            "param_groups": [{**g, "params": [key(k) for k in g["params"]]}
+                             for g in optim["param_groups"]]}
+
+
+def _map_tensors(tree, fn):
+    """``tree`` (nested dicts, lists and tuples) with ``fn(leaf)`` in
+    place of each tensor and of each ``("tensor", shape, dtype)``
+    placeholder of one, in one traversal order."""
+    if torch.is_tensor(tree) or (isinstance(tree, tuple) and len(tree) == 3
+                                 and tree[0] == "tensor"):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def _comm_device() -> torch.device:
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def reshard_train_state(state: Optional[TrainState], mesh,
+                        param_specs=None, shard_update: bool = False,
+                        model=None) -> Optional[TrainState]:
+    """Move a live TrainState onto another mesh (the gang after an
+    elastic resize) at the SAME step: counterpart of the JAX
+    ``reshard_train_state``.  Pure data movement, no arithmetic:
+
+    - the old plan gathers the state into the one-device format
+      (``TrainState.state_dict()``, a collective over the old mesh);
+    - the lowest rank that holds it broadcasts it, with what builds the
+      model and the optimizer (their classes, the model's config and
+      storage type, the optimizer's hyperparameters), over the default
+      group, which spans both meshes;
+    - every rank of the new mesh builds the model on the meta device
+      (``cls(config, device="meta", store_dtype=, mesh=mesh)``: its tp
+      and ep shards; or takes ``model``, a fresh model of its own for
+      the new mesh, which a model without a ``config`` needs), places
+      it through the new mesh's plan (``param_specs`` and
+      ``shard_update`` as ``build_train_step`` takes them; the flat
+      gradient schedule) and loads the state through that plan's
+      ``load_state_dict``.
+
+    Every rank of the default group calls it: ``state`` is the live
+    state on the ranks of the old mesh and None elsewhere (ranks outside
+    the old mesh hold nothing until the grow), ``mesh`` the new mesh
+    (``parallel.mesh.create_mesh(..., ranks=)``), built by every rank.
+    Returns the moved state on the ranks of the new mesh, None on the
+    others.  ``build_train_step``'s step function on the new mesh steps
+    it (it runs the state's plan).  A new mesh that is not the whole
+    group cannot take the FSDP2 plan with ``shard_update`` and dp > 1:
+    that plan forms a group of its own, which every rank must join."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    payload = state.state_dict() if state is not None else None
+    holds = bool(payload) and bool(payload.get("model"))
+    comm = _comm_device()
+    first = torch.tensor([rank if holds else world], device=comm)
+    dist.all_reduce(first, op=dist.ReduceOp.MIN)
+    src = int(first.item())
+    if src == world:
+        raise RuntimeError("reshard_train_state: no rank holds the state "
+                           "(pass the live TrainState on the old mesh)")
+    meta = [None]
+    tensors = []
+
+    def keep(t):
+        tensors.append(t)
+        return ("tensor", tuple(t.shape), t.dtype)
+
+    if rank == src:
+        old = state.model
+        meta = [{"model": (_model_class(old), old.config,
+                           old.tok_embeddings.weight.dtype)
+                 if hasattr(old, "config") else None,
+                 "optimizer": (type(state.optimizer),
+                               state.optimizer.defaults),
+                 "tree": _map_tensors(payload, keep)}]
+    dist.broadcast_object_list(meta, src=src)
+    meta = meta[0]
+    if rank != src:
+        def fresh(leaf):
+            tensors.append(torch.empty(leaf[1], dtype=leaf[2], device=comm))
+            return tensors[-1]
+
+        payload = _map_tensors(meta["tree"], fresh)
+    for t in tensors:
+        dist.broadcast(t.to(comm) if rank == src else t, src=src)
+    if mesh.get_coordinate() is None:
+        return None
+    sizes = _axis_sizes(mesh)
+    if mesh.mesh.numel() != world and shard_update and sizes["dp"] > 1 \
+            and param_specs is not None and sizes["fsdp"] > 1:
+        raise NotImplementedError(
+            "reshard_train_state onto a part of the group with FSDP2 and "
+            "shard_update over dp > 1 (that plan forms a group of its own)")
+    if model is None:
+        if meta["model"] is None:
+            raise ValueError("reshard_train_state: a model without a "
+                             "config needs model= on the new mesh")
+        cls, config, store = meta["model"]
+        model = cls(config, device="meta", store_dtype=store, mesh=mesh)
+    optim_cls, defaults = meta["optimizer"]
+    accepted = inspect.signature(optim_cls.__init__).parameters
+    kwargs = {k: v for k, v in defaults.items() if k in accepted}
+    plan = _mesh_plan(mesh, param_specs, shard_update, False, "fsdp")
+    new = _init_state(plan, model, lambda params: optim_cls(params, **kwargs))
+    names = [n for n, p in new.model.named_parameters() if p.requires_grad]
+    payload["optimizer"] = _rekey_optimizer(
+        payload["optimizer"], names, isinstance(plan, _ShardedPlan))
+    new.load_state_dict(payload)
+    return new
 
 
 # ---------------------------------------------------------------------------

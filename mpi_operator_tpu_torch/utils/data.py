@@ -33,24 +33,34 @@ def global_batch_iterator(local_batch_fn: Callable[[int], Sequence],
                           steps: Optional[int] = None) -> Iterator:
     """Yield this process's rows of each global batch, on ``device``.
 
-    - local_batch_fn(step) -> tuple of arrays: THIS process's share,
-      [global_batch / (dp*fsdp), ...].  Process p holds the rows
-      ``parallel.mesh.batch_rows`` names for its mesh coordinate, the
-      rows ``jax.make_array_from_process_local_data`` gives it, so no
+    - local_batch_fn(step) -> tuple of arrays: THIS process's rows,
+      [global_batch / (dp*fsdp), S, ...].  Process p holds the rows
+      ``parallel.mesh.batch_rows`` names for its mesh coordinate, so no
       host ever holds the global batch.
     - mesh: the process's ``DeviceMesh`` (None: one process, a plain
       copy); every process of one batch shard must feed the same rows:
-      ranks that differ only on 'tp' hold the same rows
-      (``parallel.mesh.batch_rows``).  'sp', 'ep' and 'pp' above 1 raise.
+      ranks that differ only on 'tp', 'ep' or 'sp' hold the same rows
+      (``parallel.mesh.batch_rows``).  Under sp > 1 each rank keeps its
+      token columns of them (``parallel.mesh.seq_cols``, dim 1 of every
+      array): its [global_batch / (dp*fsdp), S/sp] block, the block
+      ``jax.make_array_from_process_local_data`` with
+      ``seq_batch_sharding`` gives its device.  'pp' above 1 raises.
 
     Tuples of tensors come out, as the JAX iterator yields tuples of
     global arrays."""
+    coord = None
     if mesh is not None:
+        from ..parallel.mesh import seq_cols
         from ..parallel.tensor import refuse_axes
-        refuse_axes(mesh, "global_batch_iterator")
+        if refuse_axes(mesh, "global_batch_iterator")["sp"] > 1:
+            shape, coord = tuple(mesh.shape), mesh.get_coordinate()
     step = 0
     while steps is None or step < steps:
-        yield tuple(_to_device(arr, device) for arr in local_batch_fn(step))
+        local = local_batch_fn(step)
+        if coord is not None:
+            local = [arr[:, seq_cols(shape, coord, arr.shape[1])]
+                     for arr in local]
+        yield tuple(_to_device(arr, device) for arr in local)
         step += 1
 
 

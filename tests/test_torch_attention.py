@@ -136,11 +136,12 @@ def test_dispatcher_layout_window_and_refusals():
                                        atol=F32_TOL, rtol=F32_TOL)
     assert ta.LAUNCHES == before
     # Under a mesh each rank holds its heads (tp is ported:
-    # tests/test_torch_tensor_parallel.py); sp (ring attention) still
-    # raises, and anything but a DeviceMesh is refused.
+    # tests/test_torch_tensor_parallel.py) and sp runs the ring
+    # (tests/test_torch_ring_attention.py), which refuses a sliding
+    # window as the JAX model does; anything but a DeviceMesh is refused.
     from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ta.attention(*_t(q, k, v), mesh=types.SimpleNamespace(
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+        ta.attention(*_t(q, k, v), window=7, mesh=types.SimpleNamespace(
             mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 1, 1, 2)))
     with pytest.raises(TypeError, match="DeviceMesh"):
         ta.attention(*_t(q, k, v), mesh=object())

@@ -268,17 +268,18 @@ def test_out_of_slice_paths_raise():
     # The training forward (no cache) is ported: logits [B, S, V].
     assert tm(torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     # MoE is ported (tests/test_torch_mixtral.py), over tp too
-    # (tests/test_torch_tensor_parallel.py); int8 weights with MoE and
-    # an MoE layer over an 'ep' axis still raise, and a mesh must be a
+    # (tests/test_torch_tensor_parallel.py) and over 'ep'
+    # (tests/test_torch_expert_parallel.py); int8 weights with MoE and
+    # an MoE layer over a 'pp' axis still raise, and a mesh must be a
     # DeviceMesh.
     assert tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")(
         torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.LlamaModel(tl.llama2_tiny(n_experts=4, weight_dtype="int8"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh with ep=2"):
+    with pytest.raises(NotImplementedError, match="mesh with pp=2"):
         MoEMLP(128, 256, 4, mesh=types.SimpleNamespace(
-            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 2, 1, 1)))
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
     with pytest.raises(TypeError, match="DeviceMesh"):
         MoEMLP(128, 256, 4, mesh=object())
     # Weight-only int8 is ported (tests/test_torch_quant.py): the matmul

@@ -207,6 +207,27 @@ def test_two_adamw_steps_match_jax():
             assert p.grad is not None and p.grad.abs().sum() > 0
 
 
+def test_remat_step_keeps_no_recomputed_graph_in_the_routing():
+    """Under remat each layer runs again inside the backward; the routing
+    it keeps from that run is detached (an attached one would hold the
+    recomputed layer's activations until the next step), and the step
+    equals the step without remat."""
+    tokens = torch.from_numpy(_tokens(seed=4, b=4, s=16))
+    runs = {}
+    for remat in (False, True):
+        model = tl.LlamaModel(tl.mixtral_tiny(remat=remat), device="cpu",
+                              store_dtype=torch.float32)
+        model.load_state_dict(_port(torch.float32).state_dict())
+        init, step = ttrain.build_train_step(
+            lambda m, b: tl.next_token_loss(m(b), b), ttrain.adamw(3e-4))
+        state, metrics = step(init(model), tokens)
+        runs[remat] = (metrics["loss"].item(), state.model)
+    assert runs[True][0] == runs[False][0]
+    for layer in runs[True][1].layers:
+        assert layer.feed_forward.last_routing[1].grad_fn is None
+        assert layer.feed_forward.load_balancing is not None
+
+
 def test_share_weights_and_init_params_of_an_moe_model():
     cfg = tl.mixtral_tiny()
     model = init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
@@ -223,7 +244,8 @@ def test_share_weights_and_init_params_of_an_moe_model():
 def test_int8_and_mesh_still_raise_for_moe():
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.mixtral_tiny(weight_dtype="int8")
-    # tp is ported (tests/test_torch_tensor_parallel.py); 'ep' is not.
+    # tp and ep are ported (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_expert_parallel.py); 'pp' is not.
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         MoEMLP(8, 16, 4, mesh=types.SimpleNamespace(
-            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 2, 1, 1)))
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))

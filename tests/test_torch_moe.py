@@ -177,10 +177,12 @@ def test_expert_stack_init_is_truncated_lecun_normal():
 
 
 def test_mesh_raises_and_load_balancing_before_forward():
-    # Over 'ep' MoE is not ported; anything but a DeviceMesh is refused.
+    # Over 'pp' MoE is not ported ('ep' is:
+    # tests/test_torch_expert_parallel.py); anything but a DeviceMesh is
+    # refused.
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tmoe.MoEMLP(DIM, FFN, E, mesh=types.SimpleNamespace(
-            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 1, 2, 1, 1)))
+            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
     with pytest.raises(TypeError, match="DeviceMesh"):
         tmoe.MoEMLP(DIM, FFN, E, mesh=object())
     assert tmoe.MoEMLP(DIM, FFN, E, device="cpu").load_balancing is None
