@@ -258,6 +258,35 @@ continued:
              routed.  Printed per rank: ms a step, tokens/s a card,
              train_mfu (the formula of training, over the global
              tokens), peak, the ring's ms a layer and share of the step.
+12. pipeline parallel  one process per card (4 or 2; at one card it
+             prints that it needs two), NCCL.  (a) llama2_tiny f32 at 4
+             layers, M = 4: GPipe and 1F1B at pp = 4, 1F1B at dp = 2 x
+             pp = 2, interleaved 1F1B (V = 2) at fsdp = 2 x pp = 2 with
+             the stages' matrices sharded (two cards: GPipe and 1F1B at
+             pp = 2): the loss at 2e-5 and every gradient leaf, joined
+             from the stages, at rtol 2e-4 / atol 2e-5 of the sequential
+             model on card 0 (tests/test_pipeline.py's bounds), then 3
+             AdamW steps at 1e-5 as phase 7 (b); a planted fault (rank 1
+             files received activations under the wrong ring slot) must
+             fail.  (b) llama2_7b at full width, 8 layers a card (all
+             32 at four cards), pp = cards, M = 8 microbatches of 1 x
+             4096 tokens, bf16 compute, f32 weights and AdamW, each
+             stage built on the meta device and filled with the one-card
+             draws for SEED: 1F1B, then interleaved 1F1B (V = 2), one
+             warm-up + 3 steps, twice each; then 1F1B on phase 7 (c)'s
+             weights and global batch (M = cards), 3 steps.  Checked on
+             every rank: K1' launches == 2 x M x layers a stage a step
+             (each F slot and each B slot's recompute), K2' and K3' ==
+             M x layers a stage a step, finite losses, bit-identical
+             over the two runs, peak < 80 GB; the first loss within
+             1e-4 relative of phase 7 (c)'s and the next two within
+             1e-2.  Printed per rank: ms a step (and each step's),
+             tokens/s a card, train_mfu (no credit for the recompute),
+             peak, allocator retries, the F and B slots' device ms (CUDA
+             events) and the idle share they leave of each step, beside
+             the tables' bubble (event-driven: (P-1)/(M+P-1) for 1F1B)
+             and its lock-step value (each tick as long as its busiest
+             rank).
 10. profile  after every measured phase, the serving phase's concurrent
              prompts on a fresh server of the same shape, once to warm
              up and once under torch.profiler: K4''s device ms per
@@ -2143,13 +2172,15 @@ def dist_loss(model, batch):
     return next_token_loss(model(batch), batch)
 
 
-def dist_parity_inputs(world: int, preset: str = "llama2_tiny"):
+def dist_parity_inputs(world: int, preset: str = "llama2_tiny",
+                       n_layers: int = 0):
     """A tiny model's f32 weights from SEED (llama2_tiny, or
-    mixtral_tiny) and a global batch of 2 rows per card, the same in
-    every process."""
+    mixtral_tiny; ``n_layers`` overrides its depth) and a global batch of
+    2 rows per card, the same in every process."""
     from mpi_operator_tpu_torch.models import llama
     from mpi_operator_tpu_torch.models.params import init_params
-    cfg = getattr(llama, preset)()
+    cfg = getattr(llama, preset)(**({"n_layers": n_layers} if n_layers
+                                    else {}))
     weights = init_params(cfg, torch.Generator().manual_seed(SEED),
                           device="cpu", dtype=torch.float32).state_dict()
     tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
@@ -2328,14 +2359,15 @@ def dist_parity_failures(metrics, params, ref_metrics, ref_params,
     return bad
 
 
-def dist_parity_reference(world: int, preset: str = "llama2_tiny"):
+def dist_parity_reference(world: int, preset: str = "llama2_tiny",
+                          n_layers: int = 0):
     """The same steps in this process on card 0, on the whole global
     batch: metrics, parameters and the smallest |gradient| per
     element."""
     from mpi_operator_tpu_torch.models.llama import LlamaModel
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
-    cfg, weights, tokens = dist_parity_inputs(world, preset)
+    cfg, weights, tokens = dist_parity_inputs(world, preset, n_layers)
     model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
     model.load_state_dict(weights)
     init, step = build_train_step(dist_loss, adamw(DIST_LR))
@@ -2425,7 +2457,8 @@ def distributed_phase(card: str):
           f"{stats[0]['n_layers']} layers, 1 x 4096 tokens a rank: "
           + json.dumps({"card": card, "world": world, "ranks": stats}),
           flush=True)
-    return {"world": world, "launches_rank0": stats[0]["launches"]}
+    return {"world": world, "launches_rank0": stats[0]["launches"],
+            "losses": stats[0]["losses"]}
 
 
 # -- phase 9: tensor parallel ---------------------------------------------------
@@ -3460,6 +3493,436 @@ def sp_verdict(card: str, world: int, out_dir: str, refs):
     return result
 
 
+# -- phase 12: pipeline parallel ----------------------------------------------
+
+PP_DEADLINE_S = 900
+PP_STEPS = 4                      # one warm-up + 3 timed
+PP_CHECK_STEPS = 3                # the run held to phase 7 (c)'s losses
+PP_MICRO = 8                      # (b): M microbatches of 1 x 4096 tokens
+PP_LAYERS_PER_CARD = 8            # (b): all 32 layers of the 7B at pp = 4
+PP_PARITY_LAYERS = 4              # (a): llama2_tiny deep enough for pp = 4
+PP_PARITY_M = 4
+PP_LOSS_RTOL = 2e-5               # tests/test_pipeline.py:367
+PP_GRAD_RTOL, PP_GRAD_ATOL = 2e-4, 2e-5   # tests/test_pipeline.py:378
+PP_CHECK_FIRST, PP_CHECK_NEXT = 1e-4, 1e-3   # against phase 7 (c)
+PP_B_COST = 3.0                   # a B slot: the recompute and the backward
+
+
+def pp_world() -> int:
+    """Ranks of phase 12: 4 or 2 (one card runs none)."""
+    cards = torch.cuda.device_count()
+    return 4 if cards >= 4 else (2 if cards >= 2 else 1)
+
+
+def pp_parity_kinds(world: int):
+    """(a)'s runs: name -> (mesh axes, schedule, virtual stages,
+    pp_fsdp).  The planted fault runs on the first 1F1B kind."""
+    if world >= 4:
+        return {"gpipe_pp4": (dict(pp=4), "gpipe", 1, False),
+                "1f1b_pp4": (dict(pp=4), "1f1b", 1, False),
+                "1f1b_dp2_pp2": (dict(dp=2, pp=2), "1f1b", 1, False),
+                "interleaved_fsdp2_pp2": (dict(fsdp=2, pp=2), "1f1b", 2,
+                                          True)}
+    return {"gpipe_pp2": (dict(pp=2), "gpipe", 1, False),
+            "1f1b_pp2": (dict(pp=2), "1f1b", 1, False)}
+
+
+_PP_MESHES = {}
+
+
+def pp_mesh(**axes):
+    """Phase 12's mesh over these axes (dp 1 unless named), made once per
+    process: each DeviceMesh forms communicators of its own."""
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    key = tuple(sorted(axes.items()))
+    if key not in _PP_MESHES:
+        _PP_MESHES[key] = create_mesh(MeshConfig(**{"dp": 1, **axes}),
+                                      "cuda")
+    return _PP_MESHES[key]
+
+
+def table_bubble(fwd, bwd, n_stages: int, n_virtual: int, n_micro: int,
+                 b_cost: float = PP_B_COST, lockstep: bool = False) -> float:
+    """The idle share a schedule's tables imply: each rank runs its slots
+    in the tables' order, an F slot of chunk work 1/V and a B slot of
+    b_cost/V, each after its input (the F of the stage before; the B of
+    the stage after, or the last stage's own F); 1 - busy / makespan.
+    For the 1F1B tables this is (P-1)/(M+P-1) whatever b_cost is.
+    ``lockstep``: every tick lasts as long as its busiest rank's slots,
+    as when each tick ends in an exchange that waits for the neighbours
+    (JAX's shard_map body, and the port's tick loop)."""
+    P, V, M = n_stages, n_virtual, n_micro
+    if lockstep:
+        span = sum(max(float(fwd[p][t] >= 0) / V
+                       + float(bwd[p][t] >= 0) * b_cost / V
+                       for p in range(P)) for t in range(fwd.shape[1]))
+        return 1 - M * (1 + b_cost) / span
+    end, free = {}, [0.0] * P
+    for t in range(fwd.shape[1]):
+        for kind, table in (("f", fwd), ("b", bwd)):
+            for p in range(P):
+                e = int(table[p][t])
+                if e < 0:
+                    continue
+                v, m = divmod(e, M)
+                s = v * P + p
+                if kind == "f":
+                    dep, cost = end.get(("f", s - 1, m), 0.0), 1.0 / V
+                else:
+                    dep = end[("b", s + 1, m)] if s < P * V - 1 else \
+                        end[("f", s, m)]
+                    cost = b_cost / V
+                start = max(free[p], dep)
+                end[(kind, s, m)] = free[p] = start + cost
+    return 1 - M * (1 + b_cost) / max(free)
+
+
+def _wrong_slot(tick_ops):
+    """Phase 12 (a)'s planted fault: this rank files every received
+    activation under the next microbatch's ring slot."""
+    def planted(*args, **kwargs):
+        return [op._replace(micro=op.micro + 1)
+                if not op.send and op.kind == "f" else op
+                for op in tick_ops(*args, **kwargs)]
+    return planted
+
+
+def pp_parity_run(world: int, spec, fault: bool):
+    """Phase 12 (a), one rank: llama2_tiny f32 at PP_PARITY_LAYERS layers
+    on ``spec``'s mesh and schedule: the (loss, gradients) of one pass,
+    joined into the one-device layout, then DIST_PARITY_STEPS AdamW steps
+    of build_train_step and the joined weights after.  ``fault``: rank 1
+    files received activations under the wrong ring slot."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models.llama_pipeline import (
+        LlamaStage, pipeline_loss, pipeline_loss_and_grads_1f1b)
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    from mpi_operator_tpu_torch.parallel import pipeline
+    from mpi_operator_tpu_torch.parallel.mesh import batch_rows
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    axes, schedule, virtual, pp_fsdp = spec
+    cfg, weights, tokens = dist_parity_inputs(world,
+                                              n_layers=PP_PARITY_LAYERS)
+    mesh = pp_mesh(**axes)
+    rows = tokens[batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                             len(tokens))].cuda()
+
+    def stage():
+        s = LlamaStage(cfg, mesh=mesh, virtual_stages=virtual,
+                       fsdp_shard=pp_fsdp, device="cuda",
+                       store_dtype=torch.float32)
+        s.load_full_state_dict(weights)
+        return s
+
+    real = pipeline.tick_ops
+    if fault and dist.get_rank() == 1:
+        pipeline.tick_ops = _wrong_slot(real)
+    try:
+        one = stage()
+        if schedule == "1f1b":
+            loss, grads = pipeline_loss_and_grads_1f1b(
+                one, rows, mesh, PP_PARITY_M, virtual_stages=virtual,
+                fsdp_shard=pp_fsdp)
+        else:                            # dp = fsdp = 1: nothing to reduce
+            loss = pipeline_loss(one, rows, mesh, PP_PARITY_M)
+            loss.backward()
+            grads = {n: p.grad for n, p in one.named_parameters()}
+        grads = gather_stage_state_dict(one, grads)
+        init, step = build_train_step(
+            None, adamw(DIST_LR), mesh=mesh, pipeline_schedule=schedule,
+            microbatches=PP_PARITY_M, virtual_stages=virtual,
+            pp_fsdp=pp_fsdp)
+        state = init(stage())
+        metrics = []
+        for _ in range(DIST_PARITY_STEPS):
+            state, m = step(state, rows)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        params = gather_stage_state_dict(state.model)
+    finally:
+        pipeline.tick_ops = real
+    return ({"loss": loss.item(), "metrics": metrics},
+            {"grads": grads, "params": params})
+
+
+def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
+                      steps: int):
+    """Phase 12 (b), one rank: llama2_7b at full width, 8 layers a card
+    (all 32 at pp = 4), pp = world, the 1F1B schedule (interleaved at
+    ``virtual`` > 1) over ``n_micro`` microbatches of the rows of
+    ``tokens`` (every stage takes them all), f32 weights and AdamW state,
+    bf16 compute; the stage is built on the meta device and filled with
+    init_params' draws for SEED.  Per step: host ms between synchronised
+    steps, and the F and B slots' device ms (CUDA events) for the
+    pipeline's idle share."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
+    from mpi_operator_tpu_torch.models.params import init_params_
+    from mpi_operator_tpu_torch.ops import attention as fa
+    from mpi_operator_tpu_torch.parallel import pipeline
+    from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
+
+    cfg = dataclasses.replace(llama.llama2_7b(),
+                              n_layers=PP_LAYERS_PER_CARD * world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = pp_mesh(pp=world)
+    init, step = build_train_step(None, adamw(3e-4), mesh=mesh,
+                                  pipeline_schedule="1f1b",
+                                  microbatches=n_micro,
+                                  virtual_stages=virtual)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    state = init(LlamaStage(cfg, mesh=mesh, virtual_stages=virtual,
+                            device="meta", store_dtype=cfg.param_dtype),
+                 init_weights=lambda m: init_params_(m, gen))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    local_params = sum(p.numel() for p in state.model.parameters())
+    rows = torch.as_tensor(tokens, device="cuda")
+    for kernel in fa.LAUNCHES:
+        fa.LAUNCHES[kernel] = 0
+    losses, stamps, busy = [], [], []
+    pipeline.SLOT_EVENTS = []
+    dist.barrier()
+    stamps.append(time.perf_counter())
+    try:
+        for _ in range(steps):
+            del pipeline.SLOT_EVENTS[:]
+            state, metrics = step(state, rows)
+            losses.append(metrics["loss"].item())     # waits for the step
+            stamps.append(time.perf_counter())
+            busy.append(sum(a.elapsed_time(b)
+                            for _, a, b in pipeline.SLOT_EVENTS))
+    finally:
+        pipeline.SLOT_EVENTS = None
+    launches = dict(fa.LAUNCHES)
+    each = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    step_ms = (stamps[-1] - stamps[1]) * 1e3 / (steps - 1)
+    fwd, bwd, n_ticks, *_ = pipeline.schedule(world, n_micro, virtual)
+    out = {"n_layers": cfg.n_layers, "pp": world, "virtual_stages": virtual,
+           "microbatches": n_micro, "tokens_per_step": rows.numel(),
+           "stage": state.model.stage, "layers": state.model.layer_ids,
+           "local_params": local_params, "init_s": init_s,
+           "losses": losses, "step_ms": step_ms, "each_step_ms": each,
+           "tokens_per_s_per_card": rows.numel() / (step_ms / 1e3) / world,
+           "train_mfu": train_flops(cfg, rows.shape[0], rows.shape[1])
+           / (step_ms / 1e3) / (world * PEAK_OPS[torch.bfloat16]),
+           "busy_ms": busy,
+           "idle_share": [1 - b / s for b, s in zip(busy[1:], each[1:])],
+           "schedule_bubble": table_bubble(fwd, bwd, world, virtual,
+                                           n_micro),
+           "schedule_bubble_lockstep": table_bubble(
+               fwd, bwd, world, virtual, n_micro, lockstep=True),
+           "schedule_ticks": n_ticks, "launches": launches,
+           "alloc_retries": torch.cuda.memory_stats().get(
+               "num_alloc_retries", 0),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if virtual == 1:
+        out["bubble_formula"] = (world - 1) / (n_micro + world - 1)
+    del state, metrics
+    gc.collect()
+    return out
+
+
+def pp_rank(out_dir: str, part: str) -> int:
+    """A child of phase 12: ``part`` "parity" runs (a) and its planted
+    fault; "full" runs (b): the 7B under 1F1B and interleaved 1F1B, each
+    twice, and the run on phase 7 (c)'s weights and batch."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.dump_traceback_later(PP_DEADLINE_S - 30, exit=False)
+    rank, world = sp_group()
+    result = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "card": torch.cuda.current_device()}
+    path = os.path.join(out_dir, f"pp_{part}_rank{rank}.json")
+    if part == "parity":
+        kinds = pp_parity_kinds(world)
+        runs = {k: pp_parity_run(world, spec, fault=False)
+                for k, spec in kinds.items()}
+        fault = next(k for k, v in kinds.items() if v[1] == "1f1b")
+        runs[fault + "_fault"] = pp_parity_run(world, kinds[fault],
+                                               fault=True)
+        result["parity"] = {k: v[0] for k, v in runs.items()}
+        if rank == 0:
+            torch.save({k: v[1] for k, v in runs.items()},
+                       os.path.join(out_dir, "pp_tensors.pt"))
+    else:
+        seq = 4096
+        tokens = np.random.default_rng(SEED).integers(0, 32000,
+                                                      (PP_MICRO, seq))
+        result["full_width"] = {}
+        for name, virtual in (("1f1b", 1), ("interleaved", 2)):
+            result["full_width"][name] = [
+                pp_full_width_run(world, virtual, PP_MICRO, tokens, PP_STEPS)
+                for _ in range(2)]
+            print(f"pp rank {rank}: {name} done", flush=True)
+            with open(path, "w") as f:         # what is done so far
+                json.dump(result, f)
+        # Phase 7 (c)'s global batch: one row a card, as M = world.
+        check = np.random.default_rng(SEED).integers(0, 32000, (world, seq))
+        result["phase7_check"] = pp_full_width_run(world, 1, world, check,
+                                                   PP_CHECK_STEPS)
+    with open(path, "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    # As phase 11: sub-meshes and point-to-point communicators need no
+    # shutdown to end the process.
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def pp_phase(card: str, phase7_losses):
+    """Phase 12: one process per card (4 or 2), NCCL.  (a) parity of
+    llama2_tiny through GPipe, 1F1B and interleaved 1F1B against card 0
+    alone, with a planted fault; (b) llama2_7b at full width, 8 layers a
+    card, under 1F1B and interleaved 1F1B, and held to phase 7 (c)'s
+    losses on its weights and batch."""
+    import tempfile
+    world = pp_world()
+    if world < 2:
+        print("pipeline parallel: phase 12 needs two cards; this machine "
+              "shows one", flush=True)
+        return {}
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-pp-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"pipeline parallel: world {world} (one process per card); "
+          f"{card}", flush=True)
+    refs = pp_references(world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for part in ("parity", "full"):
+        run_ranks([sys.executable, os.path.abspath(__file__), "pp-rank",
+                   out_dir, part], world, f"pipeline parallel ({part})",
+                  PP_DEADLINE_S, out_dir)
+    return pp_verdict(card, world, out_dir, refs, phase7_losses)
+
+
+def pp_references(world: int):
+    """Card 0 alone on (a)'s weights and global batch: the sequential
+    model's loss and gradients, and DIST_PARITY_STEPS AdamW steps."""
+    from mpi_operator_tpu_torch.models.llama import LlamaModel
+    cfg, weights, tokens = dist_parity_inputs(world,
+                                              n_layers=PP_PARITY_LAYERS)
+    model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
+    model.load_state_dict(weights)
+    loss = dist_loss(model, tokens.cuda())
+    loss.backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    del model
+    return {"loss": loss.item(), "grads": grads,
+            "steps": dist_parity_reference(world,
+                                           n_layers=PP_PARITY_LAYERS)}
+
+
+def pp_grad_failures(loss, grads, ref_loss, ref_grads):
+    """What in one pass differs from the sequential model beyond the JAX
+    tests' bounds."""
+    bad = []
+    if abs(loss - ref_loss) > PP_LOSS_RTOL * abs(ref_loss):
+        bad.append(f"loss {loss} vs {ref_loss}")
+    for name, want in ref_grads.items():
+        err = (grads[name] - want).abs()
+        if (err > PP_GRAD_ATOL + PP_GRAD_RTOL * want.abs()).any():
+            bad.append(f"grad {name} max err {err.max().item():.3g}")
+    return bad
+
+
+def pp_verdict(card: str, world: int, out_dir: str, refs, phase7_losses):
+    """Phase 12's checks and printed results."""
+    ranks = []
+    for r in range(world):
+        parts = [json.load(open(os.path.join(out_dir,
+                                             f"pp_{part}_rank{r}.json")))
+                 for part in ("parity", "full")]
+        ranks.append({**parts[0], **parts[1]})
+    if any(r["world"] != world or r["backend"] != "nccl"
+           or r["card"] != r["rank"] for r in ranks):
+        raise SystemExit(f"pipeline parallel: ranks formed {ranks}")
+    tensors = torch.load(os.path.join(out_dir, "pp_tensors.pt"))
+
+    # (a) parity and the planted fault.
+    ref_metrics, ref_params, smallest = refs["steps"]
+    verdict = {}
+    for name, t in tensors.items():
+        # The joined gradients and weights are rank 0's (every rank holds
+        # the same); each rank's loss and metrics are its own.
+        verdict[name] = pp_grad_failures(
+            ranks[0]["parity"][name]["loss"], t["grads"], refs["loss"],
+            refs["grads"]) + [f for r in ranks for f in dist_parity_failures(
+                r["parity"][name]["metrics"], t["params"], ref_metrics,
+                ref_params, smallest)] + [
+            f"rank {r['rank']} loss {r['parity'][name]['loss']}"
+            for r in ranks if r["parity"][name]["loss"]
+            != ranks[0]["parity"][name]["loss"]]
+    if any(v for k, v in verdict.items() if not k.endswith("_fault")) or \
+            not all(v for k, v in verdict.items() if k.endswith("_fault")):
+        raise SystemExit(f"pipeline parallel (a) parity: {verdict}")
+    print("pipeline parallel (a) parity: " + json.dumps({
+        "card": card, "world": world, "layers": PP_PARITY_LAYERS,
+        "microbatches": PP_PARITY_M,
+        "held_at": {"loss_rtol": PP_LOSS_RTOL, "grad_rtol": PP_GRAD_RTOL,
+                    "grad_atol": PP_GRAD_ATOL, "steps": DIST_STEP_TOL},
+        "runs": [k for k in verdict if not k.endswith("_fault")],
+        "loss_rel_err": {k: abs(ranks[0]["parity"][k]["loss"] - refs["loss"])
+                         / abs(refs["loss"]) for k in verdict},
+        "planted_faults_caught": {k: v[:2] for k, v in verdict.items()
+                                  if k.endswith("_fault")}}), flush=True)
+
+    # (b) full width.
+    result = {"world": world}
+    for name in ("1f1b", "interleaved"):
+        stats = []
+        for r in ranks:
+            first, again = r["full_width"][name]
+            per = PP_MICRO * first["n_layers"] // world
+            want = {"flash_fwd": 2 * per * PP_STEPS,
+                    "flash_bwd_dq": per * PP_STEPS,
+                    "flash_bwd_dkv": per * PP_STEPS}
+            if first["launches"] != want or \
+                    not all(np.isfinite(first["losses"])) or \
+                    not first["peak_bytes"] < 80e9 or \
+                    again["losses"] != first["losses"]:
+                raise SystemExit(
+                    f"pipeline parallel (b) {name} rank {r['rank']}: "
+                    f"launches {first['launches']} (want {want}), {first} "
+                    f"/ repeat {again['losses']}")
+            stats.append({**first, "rank": r["rank"], "launches_want": want,
+                          "losses_repeat": again["losses"],
+                          "repeat_step_ms": again["step_ms"]})
+        print(f"pipeline parallel (b) llama2_7b full width, "
+              f"{stats[0]['n_layers']} layers, pp={world}, {name} "
+              f"(V={stats[0]['virtual_stages']}), M={PP_MICRO} x 1 x 4096 "
+              f"tokens: " + json.dumps({"card": card, "world": world,
+                                        "ranks": stats}), flush=True)
+        result[name] = {f"rank{s['rank']}": s["launches"] for s in stats}
+
+    # Held to phase 7 (c) on its weights and its global batch.
+    check = [r["phase7_check"] for r in ranks]
+    losses = check[0]["losses"]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, phase7_losses)]
+    if any(c["losses"] != losses for c in check) or \
+            not diffs[0] <= PP_CHECK_FIRST or \
+            not all(d <= PP_CHECK_NEXT for d in diffs[1:PP_CHECK_STEPS]):
+        raise SystemExit(f"pipeline parallel (b) against phase 7 (c): "
+                         f"{losses} vs {phase7_losses} ({diffs})")
+    print("pipeline parallel (b) against phase 7 (c): " + json.dumps({
+        "card": card, "world": world, "n_layers": check[0]["n_layers"],
+        "microbatches": world, "losses": losses,
+        "phase7_losses": phase7_losses[:PP_CHECK_STEPS],
+        "rel_diff": diffs, "limits": [PP_CHECK_FIRST, PP_CHECK_NEXT],
+        "step_ms": [c["step_ms"] for c in check],
+        "peak_bytes": [c["peak_bytes"] for c in check]}), flush=True)
+    return result
+
+
 def build_phase() -> None:
     """Both kernel sources, each by its own nvcc, started together."""
     from mpi_operator_tpu_torch.ops import _build
@@ -3608,6 +4071,8 @@ def main() -> int:
         return tp_rank(sys.argv[2])
     if sys.argv[1:2] == ["sp-rank"]:
         return sp_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["pp-rank"]:
+        return pp_rank(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs the card",
               file=sys.stderr)
@@ -3664,6 +4129,7 @@ def main() -> int:
     distributed = distributed_phase(card)
     tp = tp_phase(card, serve)
     sp = sp_phase(card)
+    pp = pp_phase(card, distributed["losses"])
     k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]
@@ -3722,6 +4188,10 @@ def main() -> int:
         other[f"sp_training_{rank}"] = counts
     if "mixtral_8x7b" in sp:
         other["ep_training_rank0"] = sp["mixtral_8x7b"]["rank0"]
+    # Phase 12 (two cards or more): the 7B's stages on every pp rank.
+    for name in ("1f1b", "interleaved"):
+        for rank, counts in pp.get(name, {}).items():
+            other[f"pp_{name}_{rank}"] = counts
     entries = [entry] + [flash_entry(name, flash, flash_launches, other)
                          for name in FLASH_REPLACES] + [rmsnorm_entry(rms)]
     print(card)

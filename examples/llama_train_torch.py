@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Llama training with the PyTorch port: the counterpart of
-examples/llama_train.py, on one device or over a (dp, fsdp, ep, tp, sp)
+examples/llama_train.py, on one device or over a (dp, fsdp, pp, ep, tp, sp)
 mesh of processes.
 
     python examples/llama_train_torch.py --config tiny --device cpu --steps 2
@@ -10,6 +10,9 @@ mesh of processes.
         --n-layers 2 --batch 1 --seq-len 4096 --steps 3   # MoE, on the card
     python examples/llama_train_torch.py --config mixtral-tiny --device cpu \\
         --steps 2 --seq-len 32 --data corpus.bin      # the native loader
+    python examples/llama_train_torch.py --config 7b --pp 4 \\
+        --pipeline-schedule 1f1b --microbatches 8 --batch 8 --seq-len 4096
+                                      # 4 processes: all 32 layers, 8 a card
 
 Under the operator (or by hand, with JAX_COORDINATOR_ADDRESS,
 JAX_PROCESS_ID and JAX_NUM_PROCESSES set per process) the processes form
@@ -27,8 +30,18 @@ prints the ``mesh dp=...`` line and ``tokens/sec: N loss=L`` (global
 tokens, after a warm-up step).  ``--data`` streams each batch shard's
 rows from a flat int32 token file (``native.write_token_file``) through
 the native loader, which splits the corpus by batch shard; without it
-every step trains on one fixed random batch.  --pp above 1 waits for
-ROADMAP.md queue 1 item 3.4 (pipeline parallelism).
+every step trains on one fixed random batch.
+
+--pp P trains through a pipeline of P stages (with dp and fsdp): each
+rank builds only its stage (``LlamaStage``: its blocks, the embedding on
+stage 0, the norm and head on the last) and every stage of a batch shard
+reads the shard's rows.  --pipeline-schedule gpipe (the default: GPipe
+under autograd) or 1f1b (fused forward and backward, each stage's
+forward recomputed in its backward slot), --microbatches M (the batch
+shard's rows split M ways), --virtual-stages V (with 1f1b: V chunks a
+rank, the interleaved schedule) and --pp-fsdp (the stage weights and
+their AdamW moments sharded over fsdp) are the JAX example's flags, with
+its refusals.  pp with tp, sp or ep, and MoE under pp, are refused.
 """
 
 import argparse
@@ -67,6 +80,20 @@ def main() -> int:
                         help="vocab chunk width for --fused-xent (must"
                              " divide vocab_size)")
     parser.add_argument("--accum-steps", type=int, default=1)
+    parser.add_argument("--pipeline-schedule", default="gpipe",
+                        choices=["gpipe", "1f1b"],
+                        help="gpipe: fill-drain + autograd; 1f1b: fused"
+                             " fwd/bwd, activation memory bounded by"
+                             " pipeline depth")
+    parser.add_argument("--microbatches", type=int, default=4)
+    parser.add_argument("--virtual-stages", type=int, default=1,
+                        help="with --pipeline-schedule 1f1b: chunks per"
+                             " pipeline rank (interleaved schedule;"
+                             " bubble shrinks ~1/V)")
+    parser.add_argument("--pp-fsdp", action="store_true",
+                        help="with --pp > 1 and --fsdp > 1: shard the stage"
+                             " weights over fsdp (gathered per pipeline"
+                             " pass)")
     parser.add_argument("--checkpoint-dir", default="")
     parser.add_argument("--checkpoint-every", type=int, default=50)
     parser.add_argument("--device", default=None,
@@ -74,9 +101,35 @@ def main() -> int:
                              " path (gloo between processes)")
     args = parser.parse_args()
 
-    if args.pp != 1:
-        raise SystemExit(f"--pp {args.pp} needs pipeline parallelism, not "
-                         f"ported yet: ROADMAP.md queue 1 item 3.4")
+    if args.pp_fsdp and args.pp <= 1:
+        raise SystemExit(
+            "--pp-fsdp shards PIPELINE stage weights; without --pp > 1 "
+            "there are no stages (plain --fsdp already shards the "
+            "non-pipeline path)")
+    if args.accum_steps > 1 and args.pp > 1:
+        raise SystemExit(
+            "--accum-steps applies to the non-pipeline path; pipeline "
+            "schedules already stream --microbatches per optimizer "
+            "update (raise that instead)")
+    if args.pp > 1:
+        mixed = [f"--{a} {getattr(args, a)}" for a in ("tp", "sp", "ep")
+                 if getattr(args, a) > 1]
+        if mixed:
+            raise SystemExit(
+                f"--pp {args.pp} with {', '.join(mixed)}: the pipeline "
+                f"stages run their blocks without a mesh, so those axes "
+                f"would only repeat each stage's work; combine --pp with "
+                f"--dp and --fsdp")
+        if args.fused_xent:
+            raise SystemExit(
+                f"--pp {args.pp} with --fused-xent: the pipeline's head is "
+                f"the last stage's next_token_loss of its microbatches; "
+                f"drop --fused-xent (and --xent-chunk)")
+        if args.config.startswith("mixtral"):
+            raise SystemExit(
+                f"--pp {args.pp} with --config {args.config}: MoE under "
+                f"pipeline parallelism is not ported yet: ROADMAP.md queue "
+                f"1 item 3.6")
 
     import numpy as np
     import torch
@@ -91,6 +144,7 @@ def main() -> int:
                                                      mixtral_8x7b,
                                                      mixtral_tiny,
                                                      next_token_loss)
+    from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
     from mpi_operator_tpu_torch.models.params import (init_params,
                                                       init_params_)
     from mpi_operator_tpu_torch.native import dataloader
@@ -109,8 +163,8 @@ def main() -> int:
     grouped = dist.is_initialized()
     rank = dist.get_rank() if grouped else 0
     world = dist.get_world_size() if grouped else 1
-    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp, ep=args.ep, tp=args.tp,
-                          sp=args.sp)
+    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp, pp=args.pp, ep=args.ep,
+                          tp=args.tp, sp=args.sp)
     shape = dict(zip(AXIS_NAMES, mesh_cfg.resolve(world)))
     shards = shape["dp"] * shape["fsdp"]
     mesh = None
@@ -126,9 +180,18 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     seq = args.seq_len or cfg.max_seq_len
     gen = torch.Generator(device=device).manual_seed(1)
+    pipelined = shape["pp"] > 1
     if mesh is None:
         model = init_params(cfg, gen, device=device, dtype=cfg.param_dtype)
         init_weights = None
+    elif pipelined:
+        # This rank's stage only, filled with the one-card draws.
+        model = LlamaStage(cfg, mesh=mesh, virtual_stages=args.virtual_stages,
+                           fsdp_shard=args.pp_fsdp, device="meta",
+                           store_dtype=cfg.param_dtype)
+
+        def init_weights(model):
+            init_params_(model, gen)
     else:
         # Placed (sharded) before it is filled: no rank holds it whole.
         model = LlamaModel(cfg, device="meta", store_dtype=cfg.param_dtype,
@@ -137,7 +200,9 @@ def main() -> int:
         def init_weights(model):
             init_params_(model, gen)
 
-    if args.fused_xent:
+    if pipelined:
+        loss_fn = None          # the schedule's (build_train_step)
+    elif args.fused_xent:
         # A chunk that does not divide the (rank's) vocab falls back to
         # one full-width chunk (correct, just unfused).
         vocab = cfg.vocab_size // shape["tp"]
@@ -157,10 +222,16 @@ def main() -> int:
         from mpi_operator_tpu_torch.utils import CheckpointManager
         mgr = CheckpointManager(args.checkpoint_dir,
                                 every=args.checkpoint_every)
+    pipeline = {}
+    if pipelined:
+        pipeline = dict(pipeline_schedule=args.pipeline_schedule,
+                        microbatches=args.microbatches,
+                        virtual_stages=args.virtual_stages,
+                        pp_fsdp=args.pp_fsdp)
     init_fn, step_fn = build_train_step(
         loss_fn, adamw(3e-4), mesh=mesh,
         param_specs=llama_param_specs(cfg) if mesh is not None else None,
-        accum_steps=args.accum_steps)
+        accum_steps=args.accum_steps, **pipeline)
     state = init_fn(model, init_weights)
     loader = prefetch = None
     if args.data:
@@ -217,8 +288,14 @@ def main() -> int:
             loader.close()
     tokens_per_sec = args.batch * shards * seq * args.steps / elapsed
     if rank == 0:
+        schedule = ""
+        if pipelined:
+            schedule = f" schedule={args.pipeline_schedule}" + (
+                f" virtual_stages={args.virtual_stages}"
+                if args.virtual_stages > 1 else "") + (
+                " pp_fsdp" if args.pp_fsdp else "")
         print(" ".join(["mesh"] + [f"{a}={n}" for a, n in shape.items()])
-              + f" processes={world}")
+              + schedule + f" processes={world}")
         print(f"device {device} layers={cfg.n_layers} batch="
               f"{args.batch * shards} seq={seq}")
         print(f"tokens/sec: {tokens_per_sec:.0f} loss={final_loss:.4f}")

@@ -80,7 +80,7 @@ from ..ops.paged_attention import paged_decode_attention
 from ..ops.ring_attention import ring_attention
 from ..parallel.tensor import (ExpertParallel, SequenceParallel,
                                TensorParallel, copy_to_tp, gather_from_tp,
-                               reduce_from_tp, refuse_axes, ring_shift)
+                               reduce_from_tp, refuse_pp_mix, ring_shift)
 
 
 @dataclass(frozen=True)
@@ -520,9 +520,13 @@ class LlamaModel(nn.Module):
     Its 'dp' and 'fsdp' axes are the training step's; under 'sp' the
     training forward takes this rank's token columns and runs ring
     attention, under 'ep' each MoE layer holds its experts' share (see
-    the module docstring); 'pp' above 1 raises.  A KV-head count that tp
-    does not divide raises ValueError: KV-head replication is not
-    ported."""
+    the module docstring).  Over 'pp' the model is whole, as the JAX
+    model is under a pp mesh: a pipeline rank builds only its stage
+    (``models/llama_pipeline.LlamaStage``, from this module's
+    ``LlamaBlock``, ``RMSNorm`` and ``_linear``); pp with tp, sp or ep
+    raises ValueError, an MoE config under pp NotImplementedError.  A
+    KV-head count that tp does not divide raises ValueError: KV-head
+    replication is not ported."""
 
     def __init__(self, config: LlamaConfig, device=None, store_dtype=None,
                  mesh=None):
@@ -534,7 +538,7 @@ class LlamaModel(nn.Module):
         store = store_dtype or config.dtype
         self.config = config
         if mesh is not None:
-            refuse_axes(mesh, "LlamaModel")
+            refuse_pp_mix(mesh, "LlamaModel")
         self.tp = tp = TensorParallel.of(mesh)
         self.sp = sp = SequenceParallel.of(mesh)
         self.ep = ExpertParallel.of(mesh)

@@ -28,7 +28,10 @@ joins every rank's chunks back (a collective), ``shard_model`` and the
 ``mesh=`` of ``load_flax_params`` and ``init_params`` build a rank's
 shard, and ``init_params_`` draws each tensor in full and keeps the
 rank's part, so random weights at a seed are the one-card weights cut
-up.
+up.  A pipeline rank's ``LlamaStage`` takes the same draws (every draw of
+the one-card model is made, the stage keeps its own), its part of a JAX
+tree (``from_flax_params(stage=)``), and ``gather_stage_state_dict``
+joins every stage's tensors into the one-device state dict.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.moe import init_expert_stack_
@@ -59,7 +63,7 @@ def _linear_weight(kernel: np.ndarray, name: str) -> np.ndarray:
 
 
 def from_flax_params(tree, cfg: LlamaConfig,
-                     dtype: Optional[torch.dtype] = None
+                     dtype: Optional[torch.dtype] = None, stage=None
                      ) -> Dict[str, torch.Tensor]:
     """The JAX LlamaModel's ``params`` (nested dicts of numpy arrays; a
     ``{"params": ...}`` wrapper is accepted) -> the port's state dict on
@@ -67,10 +71,16 @@ def from_flax_params(tree, cfg: LlamaConfig,
     the matmul weights and the embedding.  A quantized matmul
     (``{kernel: int8, scale: f32}``) gives ``<layer>.weight`` int8
     [out, in] and ``<layer>.scale`` f32 [out]: the JAX scale covers the
-    kernel's output dims, flattened in the weight's row order."""
+    kernel's output dims, flattened in the weight's row order.  With
+    ``stage`` (a ``models.llama_pipeline.LlamaStage``) only what the
+    stage holds: its ``layers_i``, and the embedding or the norm and head
+    where it holds them (``LlamaStage.load_full_state_dict`` loads it)."""
     if "params" in tree:
         tree = tree["params"]
     dtype = dtype or cfg.dtype
+    layers = range(cfg.n_layers) if stage is None else stage.layer_ids
+    embedding = stage is None or stage.holds_embedding
+    head = stage is None or stage.holds_head
 
     def t(arr, dt):
         return torch.from_numpy(np.array(arr, dtype=np.float32,
@@ -86,11 +96,14 @@ def from_flax_params(tree, cfg: LlamaConfig,
         sd[key + ".scale"] = t(np.asarray(node["scale"]).reshape(-1),
                                torch.float32)
 
-    sd = {"tok_embeddings.weight": t(tree["tok_embeddings"]["embedding"],
-                                     dtype),
-          "norm.scale": t(tree["norm"]["scale"], cfg.param_dtype)}
-    linear(sd, "output", tree["output"], "output")
-    for i in range(cfg.n_layers):
+    sd = {}
+    if embedding:
+        sd["tok_embeddings.weight"] = t(tree["tok_embeddings"]["embedding"],
+                                        dtype)
+    if head:
+        sd["norm.scale"] = t(tree["norm"]["scale"], cfg.param_dtype)
+        linear(sd, "output", tree["output"], "output")
+    for i in layers:
         layer = tree[f"layers_{i}"]
         for group, names in _LINEARS.items():
             if group == "feed_forward" and cfg.n_experts > 1:
@@ -210,6 +223,8 @@ def init_params_(model: LlamaModel, generator: torch.Generator
     chunks, then FSDP2's), so no rank ever holds the whole model and
     every rank's weights equal ``init_params``' for the seed."""
     from torch.distributed.tensor import DTensor
+    if hasattr(model, "chunks"):                   # a pipeline stage
+        return _init_stage_(model, generator)
     tp, ep = model.tp, model.ep
     specs = llama_param_specs(model.config)
     for name, p in model.named_parameters():
@@ -239,6 +254,80 @@ def init_params_(model: LlamaModel, generator: torch.Generator
         elif d is not None or e is not None:
             p.copy_(part)
     return model
+
+
+def _init_stage_(stage, generator: torch.Generator):
+    """:func:`init_params_` of a ``LlamaStage``: every draw of the
+    one-device model is made, in its order, and the stage keeps those of
+    the parameters it holds (their fsdp chunks under ``fsdp_shard``), so
+    a pipeline at a seed trains the one-card weights."""
+    own = dict(stage.named_parameters())
+    whole = LlamaModel(stage.config, device="meta")
+    for name, meta in whole.named_parameters():
+        p = own.get(name)
+        if name.endswith(".scale"):                # no draw
+            if p is not None:
+                p.fill_(1.0)
+            continue
+        shape = tuple(meta.shape)
+        std = 1.0 if name == "tok_embeddings.weight" else \
+            1.0 / math.sqrt(shape[1])
+        full = torch.randn(shape, generator=generator,
+                           device=generator.device,
+                           dtype=torch.float32).mul_(std)
+        if p is not None:
+            p.copy_(stage.fsdp_part(name, full))
+    return stage
+
+
+def gather_stage_state_dict(stage, tensors: Optional[dict] = None,
+                            device="cpu", dst: Optional[int] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The one-device state dict (``LlamaModel``'s names, shapes and
+    order) joined from every pp rank's ``LlamaStage``: ``tensors``
+    (default: the stage's parameters) maps this stage's names to tensors
+    in its layout (its fsdp chunks under ``fsdp_shard``), such as the
+    gradients of ``pipeline_loss_and_grads_1f1b`` or the optimizer's
+    moments.  A collective over the stage's fsdp and pp groups: every
+    rank calls it and every rank gets the whole, on ``device``; with
+    ``dst`` (a global rank) only that rank does, one tensor at a time,
+    and the others get {}.  Every matrix shares one type and every norm
+    scale another (a stage holds both kinds), so the receivers know what
+    each message holds."""
+    from ..parallel.pipeline import _gather_fsdp, _Place
+    from .llama_pipeline import layer_owner
+    if tensors is None:
+        tensors = dict(stage.named_parameters())
+    cfg = stage.config
+    place = _Place(stage.mesh)
+    keep = dst is None or dist.get_rank() == dst
+    # Under dst, only dst's pp group moves the tensors (the fsdp gathers
+    # run on every rank of the owning stage).
+    moves = dst is None or place.group is None or \
+        dst in dist.get_process_group_ranks(place.group)
+    kinds = {n.endswith(".scale"): t.dtype for n, t in tensors.items()}
+    whole = LlamaModel(cfg, device="meta")
+    out = {}
+    for name, meta in whole.named_parameters():
+        owner = layer_owner(name, cfg.n_layers, stage.n_stages,
+                            stage.virtual_stages)
+        if owner == stage.stage:
+            t = tensors[name].detach()
+            d = stage.fsdp_dims.get(name, -1)
+            if d >= 0:
+                t = _gather_fsdp(t, d, place)
+            buf = t.to(place.device).contiguous()
+        elif moves:
+            buf = torch.empty(meta.shape, dtype=kinds[name.endswith(
+                ".scale")], device=place.device)
+        if not moves:
+            continue
+        if place.n > 1:
+            dist.broadcast(buf, src=place.global_rank(owner),
+                           group=place.group)
+        if keep:
+            out[name] = buf.to(device)
+    return out
 
 
 # Configuration fields that shape no tensor: a model that differs from

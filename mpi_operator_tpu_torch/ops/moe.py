@@ -77,9 +77,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.tensor import (ExpertParallel, SequenceParallel,
-                               TensorParallel, copy_to_ep, copy_to_tp,
-                               reduce_from_ep, reduce_from_tp, refuse_axes)
+from ..parallel.tensor import (MOE_UNDER_PP, ExpertParallel,
+                               SequenceParallel, TensorParallel, copy_to_ep,
+                               copy_to_tp, reduce_from_ep, reduce_from_tp,
+                               refuse_axes)
 
 
 class MoEMLP(nn.Module):
@@ -91,7 +92,8 @@ class MoEMLP(nn.Module):
     [E, D, F] and ``w2`` [E, F, D] in ``store_dtype``, cast to ``dtype``
     at every use as flax casts its params; F/tp hidden units of each
     under a ``mesh`` with tp > 1, E/ep experts with ep > 1.  A mesh with
-    pp > 1 raises NotImplementedError, an object that is not a mesh
+    pp > 1 raises NotImplementedError (ROADMAP.md queue 1 item 3.6: MoE
+    under pipeline parallelism), an object that is not a mesh
     TypeError."""
 
     # Token-chunk size of drop-free dispatch (the JAX NO_DROP_CHUNK): the
@@ -104,7 +106,9 @@ class MoEMLP(nn.Module):
                  param_dtype=torch.float32, mesh=None, device=None):
         super().__init__()
         if mesh is not None:
-            refuse_axes(mesh, "MoEMLP")
+            refuse_axes(mesh, "MoEMLP",
+                        allowed=("dp", "fsdp", "ep", "tp", "sp"),
+                        pointers=MOE_UNDER_PP)
         self.tp = tp = TensorParallel.of(mesh)
         self.ep = ep = ExpertParallel.of(mesh)
         # The axes that shard the tokens: the columns over sp, the rows

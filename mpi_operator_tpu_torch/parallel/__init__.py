@@ -1,9 +1,9 @@
 """Training of the port, on one device or over a DeviceMesh of processes
 (``mesh``: the six-axis mesh; ``train``: the step, its ZeRO update and
-hierarchical all-reduce, FSDP2 sharding, the live re-shard; ``tensor``:
-Megatron tensor parallelism over tp, the pair over ep, the sp ring's
-exchange).  Meshes with pp above 1 wait for ROADMAP.md queue 1 item
-3.4."""
+hierarchical all-reduce, FSDP2 sharding, the live re-shard, the
+pipeline plan; ``tensor``: Megatron tensor parallelism over tp, the pair
+over ep, the sp ring's exchange; ``pipeline``: GPipe, 1F1B and
+interleaved 1F1B over pp)."""
 
 from .mesh import MeshConfig, create_mesh  # noqa: F401
 from .train import (TrainState, adamw, build_train_step,  # noqa: F401

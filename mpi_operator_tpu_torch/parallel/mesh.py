@@ -8,7 +8,9 @@ and :func:`create_mesh` wraps it in a ``DeviceMesh`` with the axis names
 one ``fsdp`` group are neighbours (one node's NVLink) while ``dp`` spans
 nodes or slices.  JAX's ``batch_sharding``/``seq_batch_sharding`` have
 no torch meaning: a rank holds the rows :func:`batch_rows` names and,
-under sequence parallelism, the columns :func:`seq_cols` names.
+under sequence parallelism, the columns :func:`seq_cols` names.  Under
+pipeline parallelism a rank holds one stage (:func:`pp_neighbours` names
+the ranks before and after it on the pp ring).
 """
 
 from __future__ import annotations
@@ -108,7 +110,9 @@ def batch_rows(mesh_shape, coordinate, global_batch: int) -> slice:
     index on each mesh axis) holds: the batch is split over (dp, fsdp),
     block ``dp_index * fsdp + fsdp_index``, as JAX's
     ``PartitionSpec(("dp", "fsdp"))``; ranks that differ only on the
-    other axes hold the same rows."""
+    other axes (pp, ep, tp, sp) hold the same rows: every stage of a
+    pipeline sees the batch shard's rows (stage 0 embeds them, the last
+    stage takes its targets from them)."""
     sizes = dict(zip(AXIS_NAMES, mesh_shape))
     index = dict(zip(AXIS_NAMES, coordinate))
     shards = sizes["dp"] * sizes["fsdp"]
@@ -132,6 +136,19 @@ def seq_cols(mesh_shape, coordinate, seq_len: int) -> slice:
                          f"sp={sizes['sp']}")
     cols = seq_len // sizes["sp"]
     return slice(index["sp"] * cols, (index["sp"] + 1) * cols)
+
+
+def pp_neighbours(mesh) -> Tuple[int, int]:
+    """(previous, next): the global ranks one place back and one place
+    on along this rank's 'pp' axis, as a ring (pp rank 0's previous is
+    the last stage); this rank itself twice when pp is 1."""
+    import torch.distributed as dist
+    n = dict(zip(AXIS_NAMES, mesh.shape))["pp"]
+    if n == 1:
+        return dist.get_rank(), dist.get_rank()
+    index, group = mesh.get_local_rank("pp"), mesh.get_group("pp")
+    return (dist.get_global_rank(group, (index - 1) % n),
+            dist.get_global_rank(group, (index + 1) % n))
 
 
 # ---------------------------------------------------------------------------

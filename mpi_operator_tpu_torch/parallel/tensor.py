@@ -5,7 +5,8 @@ same pair serves expert parallelism over ``ep`` (:class:`ExpertParallel`:
 the MoE input and gates enter through :func:`copy_to_ep`, the partial
 combines leave through :func:`reduce_from_ep`), and
 :class:`SequenceParallel` names a rank's place on ``sp`` (ring
-attention, ``ops/ring_attention.py``).
+attention, ``ops/ring_attention.py``).  :func:`refuse_pp_mix` keeps
+pipelines (``parallel/pipeline.py``) to dp and fsdp.
 
 One process drives one card, so a rank holds plain local tensors (its
 ``torch.chunk`` of each ``tp`` dimension), not DTensors: the model runs
@@ -37,8 +38,8 @@ import torch.distributed as dist
 
 from .mesh import AXIS_NAMES
 
-# Where each refused axis waits (ROADMAP.md queue 1 item 3).
-_POINTERS = {"pp": ("3.4", "pipeline parallelism")}
+# Where a refused MoE layer under 'pp' waits (ROADMAP.md queue 1).
+MOE_UNDER_PP = {"pp": ("3.6", "MoE under pipeline parallelism")}
 
 
 def axis_sizes(mesh) -> dict:
@@ -51,18 +52,38 @@ def axis_sizes(mesh) -> dict:
     return dict(zip(AXIS_NAMES, tuple(mesh.shape)))
 
 
-def refuse_axes(mesh, what: str,
-                allowed=("dp", "fsdp", "ep", "tp", "sp")) -> dict:
+def refuse_axes(mesh, what: str, allowed=AXIS_NAMES,
+                pointers=None) -> dict:
     """The mesh's axis sizes; NotImplementedError naming the ROADMAP
-    item of any axis above 1 that ``what`` does not take."""
+    item of any axis above 1 that ``what`` does not take (``pointers``:
+    {axis: (item, why)}; item 3 otherwise)."""
     sizes = axis_sizes(mesh)
     for axis, n in sizes.items():
         if n > 1 and axis not in allowed:
-            item, why = _POINTERS.get(axis, ("3", f"'{axis}' in {what}"))
+            item, why = (pointers or {}).get(axis,
+                                             ("3", f"'{axis}' in {what}"))
             raise NotImplementedError(
                 f"{what} over a mesh with {axis}={n} is not ported yet: "
                 f"ROADMAP.md queue 1 item {item} (multi-GPU parallelism, "
                 f"{why})")
+    return sizes
+
+
+def refuse_pp_mix(mesh, what: str) -> dict:
+    """The mesh's axis sizes; ValueError when pp > 1 meets tp, sp or ep
+    above 1.  The pipeline stages run ``LlamaBlock`` without a mesh, as
+    the JAX package's do (``models/llama_pipeline.py:45-56``), so those
+    axes would only repeat each stage's work: pipelines compose with dp
+    and fsdp."""
+    sizes = axis_sizes(mesh)
+    mixed = [a for a in ("tp", "sp", "ep") if sizes[a] > 1]
+    if sizes["pp"] > 1 and mixed:
+        raise ValueError(
+            f"{what}: pp={sizes['pp']} with "
+            f"{', '.join(f'{a}={sizes[a]}' for a in mixed)}: the pipeline "
+            f"stages run their blocks without a mesh (as the JAX "
+            f"package's stages do), so {'/'.join(mixed)} would only repeat "
+            f"each stage's work; combine pp with dp and fsdp")
     return sizes
 
 

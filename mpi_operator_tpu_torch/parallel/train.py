@@ -26,7 +26,12 @@ over sp and each sp rank's loss is its share of the global mean
 (``models.llama.next_token_loss``), so the gradients are summed over sp
 while dp and fsdp keep their mean, and the reported loss is the sp sum.
 :func:`reshard_train_state` moves a live state onto another mesh.
-Meshes with ``pp`` above 1 wait for ROADMAP.md queue 1 item 3.4.
+
+Over ``pp`` (:class:`_PipelinePlan`) each rank trains its
+``models.llama_pipeline.LlamaStage`` through the schedule the caller
+picks (``parallel/pipeline.py``): GPipe under autograd, or the fused
+(loss, gradients) of 1F1B and interleaved 1F1B; each stage's gradients
+are averaged over the dp x fsdp ranks that hold it.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from .tensor import ExpertParallel, TensorParallel, refuse_axes, tp_dim
+from .tensor import ExpertParallel, TensorParallel, refuse_pp_mix, tp_dim
 
 
 @dataclass
@@ -625,6 +630,156 @@ class _ShardedPlan:
                        options=StateDictOptions(full_state_dict=True))
 
 
+class _PipelinePlan:
+    """A pipeline over ``pp`` (with dp and fsdp): the model is this
+    rank's ``LlamaStage``; ``schedule`` "gpipe" runs the loss function
+    (``models.llama_pipeline.pipeline_loss``) under autograd and "1f1b"
+    the fused ``pipeline_loss_and_grads_1f1b`` (``virtual_stages`` > 1:
+    interleaved), as the JAX example's ``loss_fn`` and ``f1_step``.
+
+    Each stage's gradients are averaged over its dp x fsdp ranks (the
+    fused schedule averages them itself, as JAX's ``_collect_1f1b``);
+    with ``pp_fsdp`` the stage's matrices are its fsdp chunks, gathered
+    once a step, their f32 gradients reduce-scattered.  The loss is the
+    last stage's on every rank, the gradient norm the global one (every
+    leaf once: a chunk's squares summed over fsdp, the stages' over pp),
+    and a checkpoint is the one-device state dict on rank 0 (every rank
+    calls ``TrainState.state_dict()``; a restore cuts it onto the
+    stages)."""
+
+    fused = False
+
+    def __init__(self, mesh, schedule: str, microbatches: int,
+                 virtual_stages: int, pp_fsdp: bool):
+        if schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"pipeline_schedule must be 'gpipe' or '1f1b', "
+                             f"got {schedule!r}")
+        if virtual_stages > 1 and schedule != "1f1b":
+            raise ValueError("virtual_stages > 1 runs the interleaved 1F1B "
+                             "schedule: pass pipeline_schedule='1f1b'")
+        sizes = _axis_sizes(mesh)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh)
+        self.world = sizes["dp"] * sizes["fsdp"]        # batch ranks
+        self.grads = _AxesGroup(mesh, ("dp", "fsdp"))
+        self.dp = _AxesGroup(mesh, ("dp",))
+        self.pp = _AxesGroup(mesh, ("pp",))
+        self.fsdp_group = mesh.get_group("fsdp") if sizes["fsdp"] > 1 \
+            else None
+        self.tp, self.ep = TensorParallel(), ExpertParallel()
+        self.schedule, self.microbatches = schedule, microbatches
+        self.virtual_stages, self.pp_fsdp = virtual_stages, pp_fsdp
+        self.fused = schedule == "1f1b"
+        self.stage = None
+
+    def place(self, model):
+        pp = _axis_sizes(self.mesh)["pp"]
+        if not hasattr(model, "chunks") or model.n_stages != pp or \
+                model.virtual_stages != self.virtual_stages or \
+                model.fsdp_shard != self.pp_fsdp:
+            raise ValueError(
+                f"a pipeline over pp={pp} trains this rank's stage: "
+                f"LlamaStage(config, mesh=, virtual_stages="
+                f"{self.virtual_stages}, fsdp_shard={self.pp_fsdp})")
+        self.stage = model
+        return model
+
+    def optimizer(self, model, factory):
+        return factory([p for p in model.parameters() if p.requires_grad])
+
+    def loss_and_grads(self, model, batch):
+        """The 1F1B step's (loss, parameters with their gradients)."""
+        from ..models.llama_pipeline import pipeline_loss_and_grads_1f1b
+        loss, grads = pipeline_loss_and_grads_1f1b(
+            model, batch, self.mesh, self.microbatches,
+            virtual_stages=self.virtual_stages, fsdp_shard=self.pp_fsdp)
+        params = []
+        for name, p in model.named_parameters():
+            p.grad = grads[name].to(p.dtype)
+            params.append(p)
+        return loss, params
+
+    def reduce(self, params) -> None:
+        """GPipe: each rank's gradients (its rows' mean) -> the mean over
+        the batch ranks; an fsdp chunk's gradient left the all-gather's
+        backward as the fsdp sum, so it is summed over dp only."""
+        chunks = set(id(p) for n, p in self.stage.named_parameters()
+                     if n in self.stage.fsdp_dims)
+        whole = [p.grad for p in params if id(p) not in chunks]
+        _all_reduce_mean(whole, self.world, self.grads)
+        _all_reduce_mean([p.grad for p in params if id(p) in chunks],
+                         self.world, self.dp)
+
+    def grad_norm(self, params) -> torch.Tensor:
+        dims = self.stage.fsdp_dims
+        names = {id(p): n for n, p in self.stage.named_parameters()}
+        split = [p.grad for p in params if names[id(p)] in dims]
+        whole = [p.grad for p in params if names[id(p)] not in dims]
+        ssq = torch.zeros((), dtype=torch.float32, device=self.device)
+        if split:
+            ssq = optax_global_norm(split).square()
+        if self.fsdp_group is not None:
+            dist.all_reduce(ssq, group=self.fsdp_group)
+        if whole:
+            ssq = ssq + optax_global_norm(whole).square()
+        return self.pp.all_reduce_(ssq).sqrt()
+
+    def after_step(self, params) -> None:
+        pass
+
+    def state_dict(self, state) -> dict:
+        """The one-device model and optimizer state on rank 0, on the
+        host (empty elsewhere; every rank takes part): the stages'
+        tensors joined over pp and fsdp one at a time, the optimizer's
+        entries re-keyed by the one-device parameter index."""
+        from ..models.llama import LlamaModel
+        from ..models.params import gather_stage_state_dict
+        stage, opt = self.stage, state.optimizer
+        model = gather_stage_state_dict(stage, dst=0)
+        names = [n for n, _ in LlamaModel(stage.config,
+                                          device="meta").named_parameters()]
+        own = {id(p): n for n, p in stage.named_parameters()}
+        first = next(iter(opt.state.values()), {})
+        # Moments are parameter-shaped and joined like the parameters;
+        # a scalar entry (AdamW's step) is the same for every parameter.
+        moments = [k for k, v in first.items() if torch.is_tensor(v)
+                   and v.dim()]
+        joined = {k: gather_stage_state_dict(stage, {
+            own[id(p)]: entry[k] for p, entry in opt.state.items()}, dst=0)
+            for k in moments}
+        if dist.get_rank() != 0:
+            return {}
+        optim = {"state": {i: {k: (joined[k][n] if k in joined else
+                                   (v.clone() if torch.is_tensor(v) else v))
+                               for k, v in first.items()}
+                           for i, n in enumerate(names)} if first else {},
+                 "param_groups": [{**{k: v for k, v in g.items()
+                                      if k != "params"},
+                                   "params": list(range(len(names)))}
+                                  for g in opt.param_groups]}
+        return {"model": model, "optimizer": optim}
+
+    @torch.no_grad()
+    def load_state_dict(self, state, payload: dict) -> None:
+        from ..models.llama import LlamaModel
+        stage = self.stage
+        stage.load_full_state_dict(payload["model"])
+        index = {n: i for i, (n, _) in enumerate(LlamaModel(
+            stage.config, device="meta").named_parameters())}
+        optim = payload["optimizer"]
+        entries = {}
+        for j, (name, p) in enumerate(stage.named_parameters()):
+            entry = optim["state"].get(index[name], {})
+            entries[j] = {k: (stage.fsdp_part(name, v).clone()
+                              if torch.is_tensor(v) and v.dim() else v)
+                          for k, v in entry.items()}
+        groups = [{**{k: v for k, v in g.items() if k != "params"},
+                   "params": list(range(len(entries)))}
+                  for g in optim["param_groups"]]
+        state.optimizer.load_state_dict({"state": entries,
+                                         "param_groups": groups})
+
+
 def _init_state(plan, model, optimizer, init_weights=None) -> TrainState:
     """A TrainState at step 0: under a plan the model is placed first (a
     model on the meta device is then allocated on the mesh's device) and
@@ -649,8 +804,10 @@ def _init_state(plan, model, optimizer, init_weights=None) -> TrainState:
 
 
 def _mesh_plan(mesh, param_specs, shard_update, hierarchical_allreduce,
-               ici_axis):
-    sizes = refuse_axes(mesh, "build_train_step")
+               ici_axis, pipeline=None):
+    sizes = refuse_pp_mix(mesh, "build_train_step")
+    if sizes["pp"] > 1:
+        return _PipelinePlan(mesh, **pipeline)
     for axis, what in (("tp", "tensor"), ("ep", "expert")):
         if sizes[axis] > 1 and param_specs is None:
             raise ValueError(f"{what} parallelism ({axis} > 1) needs "
@@ -670,7 +827,10 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
                      hierarchical_allreduce: bool = False,
                      ici_axis: str = "fsdp", goodput=None,
                      telemetry_registry=None,
-                     sync_every: Optional[int] = None):
+                     sync_every: Optional[int] = None,
+                     pipeline_schedule: str = "gpipe",
+                     microbatches: int = 4, virtual_stages: int = 1,
+                     pp_fsdp: bool = False):
     """Build (init_fn, step_fn), on one device or over ``mesh``.
 
     - loss_fn(model, batch) -> scalar loss; batch is a tensor (or a tuple
@@ -704,6 +864,18 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
       last microbatch.
     - goodput / telemetry_registry: wrap step_fn in
       ``telemetry.goodput.instrument_step`` (sync every ``sync_every``).
+    - pipeline_schedule / microbatches / virtual_stages / pp_fsdp (the
+      JAX example's --pipeline-schedule, --microbatches,
+      --virtual-stages, --pp-fsdp): with pp > 1 in ``mesh`` the model is
+      this rank's ``models.llama_pipeline.LlamaStage`` (built with the
+      same ``virtual_stages`` and ``fsdp_shard=pp_fsdp``), the batch this
+      batch shard's rows (the same on every pp rank).  "gpipe" runs
+      ``loss_fn`` (None: ``pipeline_loss`` over ``microbatches``) under
+      autograd; "1f1b" the fused ``pipeline_loss_and_grads_1f1b`` (its
+      own next-token loss: ``loss_fn`` must be None), interleaved when
+      ``virtual_stages`` > 1.  pp with tp, sp or ep, accum_steps,
+      shard_update, hierarchical_allreduce or remat raises ValueError,
+      as does pp_fsdp without pp.
 
     init_fn(model, init_weights=None) -> TrainState: under a mesh the
     model is placed first (sharded by FSDP2; a model on the meta device
@@ -716,11 +888,44 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
     :func:`reshard_train_state` moved onto this mesh."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    pp = 1 if mesh is None else refuse_pp_mix(mesh, "build_train_step")["pp"]
+    if pp_fsdp and pp <= 1:
+        raise ValueError(
+            "pp_fsdp shards PIPELINE stage weights; without pp > 1 there are "
+            "no stages (fsdp with param_specs already shards the "
+            "non-pipeline path)")
+    if pp > 1:
+        if accum_steps > 1:
+            raise ValueError(
+                "accum_steps applies to the non-pipeline path; pipeline "
+                "schedules already stream `microbatches` per optimizer "
+                "update (raise that instead)")
+        for flag, on in (("shard_update", shard_update),
+                         ("hierarchical_allreduce", hierarchical_allreduce),
+                         ("remat", remat)):
+            if on:
+                raise ValueError(
+                    f"{flag} does not apply under pp: the pipeline plan "
+                    f"averages each stage over dp x fsdp (pp_fsdp shards "
+                    f"its state) and the 1F1B B slot recomputes each stage")
+        if pipeline_schedule == "1f1b" and loss_fn is not None:
+            raise ValueError("the 1F1B schedule fuses its own next-token "
+                             "loss: pass loss_fn=None")
+        if loss_fn is None:
+            from ..models.llama_pipeline import pipeline_loss
+
+            def loss_fn(model, batch):
+                return pipeline_loss(model, batch, mesh, microbatches,
+                                     fsdp_shard=pp_fsdp)
     plan = None
     batch_shards = 1
     if mesh is not None:
         plan = _mesh_plan(mesh, param_specs, shard_update,
-                          hierarchical_allreduce, ici_axis)
+                          hierarchical_allreduce, ici_axis,
+                          pipeline={"schedule": pipeline_schedule,
+                                    "microbatches": microbatches,
+                                    "virtual_stages": virtual_stages,
+                                    "pp_fsdp": pp_fsdp})
         batch_shards = plan.world
     fsdp = isinstance(plan, _ShardedPlan)
     run_loss = loss_fn
@@ -779,6 +984,13 @@ def build_train_step(loss_fn: Callable, optimizer, mesh=None,
     def step_fn(state: TrainState, batch):
         plan = state.plan
         state.optimizer.zero_grad(set_to_none=True)
+        if getattr(plan, "fused", False):
+            # 1F1B: the schedule's loss and gradients are global already.
+            loss, params = plan.loss_and_grads(state.model, batch)
+            grad_norm = plan.grad_norm(params)
+            state.optimizer.step()
+            state.step += 1
+            return state, {"loss": loss, "grad_norm": grad_norm}
         loss, params = grads_of(state, batch)
         if plan is None:
             grad_norm = optax_global_norm([p.grad for p in params])
@@ -883,6 +1095,12 @@ def reshard_train_state(state: Optional[TrainState], mesh,
     it (it runs the state's plan).  A new mesh that is not the whole
     group cannot take the FSDP2 plan with ``shard_update`` and dp > 1:
     that plan forms a group of its own, which every rank must join."""
+    if isinstance(getattr(state, "plan", None), _PipelinePlan) or \
+            _axis_sizes(mesh)["pp"] > 1:
+        raise NotImplementedError(
+            "reshard_train_state of a pipeline (pp > 1) is not ported yet: "
+            "ROADMAP.md queue 1 item 3.6 (multi-GPU parallelism, what the "
+            "pipeline slice left)")
     rank, world = dist.get_rank(), dist.get_world_size()
     payload = state.state_dict() if state is not None else None
     holds = bool(payload) and bool(payload.get("model"))

@@ -39,20 +39,24 @@ def global_batch_iterator(local_batch_fn: Callable[[int], Sequence],
       host ever holds the global batch.
     - mesh: the process's ``DeviceMesh`` (None: one process, a plain
       copy); every process of one batch shard must feed the same rows:
-      ranks that differ only on 'tp', 'ep' or 'sp' hold the same rows
+      ranks that differ only on 'pp', 'tp', 'ep' or 'sp' hold the same
+      rows
       (``parallel.mesh.batch_rows``).  Under sp > 1 each rank keeps its
       token columns of them (``parallel.mesh.seq_cols``, dim 1 of every
       array): its [global_batch / (dp*fsdp), S/sp] block, the block
       ``jax.make_array_from_process_local_data`` with
-      ``seq_batch_sharding`` gives its device.  'pp' above 1 raises.
+      ``seq_batch_sharding`` gives its device.  Under pp every stage of a
+      batch shard takes its rows whole (stage 0 embeds them, the last
+      stage reads its targets from them); pp beside tp, sp or ep raises
+      ValueError, as the step does.
 
     Tuples of tensors come out, as the JAX iterator yields tuples of
     global arrays."""
     coord = None
     if mesh is not None:
         from ..parallel.mesh import seq_cols
-        from ..parallel.tensor import refuse_axes
-        if refuse_axes(mesh, "global_batch_iterator")["sp"] > 1:
+        from ..parallel.tensor import refuse_pp_mix
+        if refuse_pp_mix(mesh, "global_batch_iterator")["sp"] > 1:
             shape, coord = tuple(mesh.shape), mesh.get_coordinate()
     step = 0
     while steps is None or step < steps:

@@ -309,11 +309,17 @@ def test_global_batch_iterator_yields_the_local_rows():
                                          None, "cpu", steps=2))
     assert len(batches) == 2
     assert torch.equal(batches[1][0], torch.from_numpy(local + 1))
-    # sp is ported (tests/test_torch_ring_attention.py); pp is not.
+    # sp and pp are ported (tests/test_torch_ring_attention.py,
+    # tests/test_torch_pipeline.py): every stage of a batch shard gets its
+    # rows whole; pp beside sp still raises.
     wider = types.SimpleNamespace(mesh_dim_names=tmesh.AXIS_NAMES,
                                   shape=(1, 1, 2, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.4"):
-        next(global_batch_iterator(lambda step: (local,), wider, "cpu"))
+    (got,) = next(global_batch_iterator(lambda step: (local,), wider, "cpu"))
+    assert torch.equal(got, torch.from_numpy(local))
+    mixed = types.SimpleNamespace(mesh_dim_names=tmesh.AXIS_NAMES,
+                                  shape=(1, 1, 2, 1, 1, 2))
+    with pytest.raises(ValueError, match="pp=2 with sp=2"):
+        next(global_batch_iterator(lambda step: (local,), mixed, "cpu"))
 
 
 def test_placement_from_env_matches_jax(monkeypatch):

@@ -270,14 +270,15 @@ def test_out_of_slice_paths_raise():
     # MoE is ported (tests/test_torch_mixtral.py), over tp too
     # (tests/test_torch_tensor_parallel.py) and over 'ep'
     # (tests/test_torch_expert_parallel.py); int8 weights with MoE and
-    # an MoE layer over a 'pp' axis still raise, and a mesh must be a
-    # DeviceMesh.
+    # an MoE layer over a 'pp' axis (ROADMAP.md queue 1 item 3.6) still
+    # raise, and a mesh must be a DeviceMesh.
     assert tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")(
         torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.LlamaModel(tl.llama2_tiny(n_experts=4, weight_dtype="int8"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh with pp=2"):
+    with pytest.raises(NotImplementedError,
+                       match="mesh with pp=2.*queue 1 item 3.6"):
         MoEMLP(128, 256, 4, mesh=types.SimpleNamespace(
             mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
     with pytest.raises(TypeError, match="DeviceMesh"):

@@ -245,7 +245,8 @@ def test_int8_and_mesh_still_raise_for_moe():
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.mixtral_tiny(weight_dtype="int8")
     # tp and ep are ported (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_expert_parallel.py); 'pp' is not.
+    # tests/test_torch_expert_parallel.py); MoE under 'pp' is not
+    # (ROADMAP.md queue 1 item 3.6).
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         MoEMLP(8, 16, 4, mesh=types.SimpleNamespace(
             mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))

@@ -177,7 +177,7 @@ def test_expert_stack_init_is_truncated_lecun_normal():
 
 
 def test_mesh_raises_and_load_balancing_before_forward():
-    # Over 'pp' MoE is not ported ('ep' is:
+    # Over 'pp' MoE is not ported (ROADMAP.md queue 1 item 3.6; 'ep' is:
     # tests/test_torch_expert_parallel.py); anything but a DeviceMesh is
     # refused.
     with pytest.raises(NotImplementedError, match="multi-GPU"):

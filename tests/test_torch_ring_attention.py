@@ -269,10 +269,17 @@ def test_train_example_over_two_sp_processes_with_data(tmp_path):
 
 
 def test_train_example_refuses_pp_naming_its_roadmap_item():
-    """Only pp is left: --pp 2 exits before forming a group."""
+    """pp is ported (tests/test_torch_pipeline.py); what is left of it
+    exits before forming a group: MoE under pp names its ROADMAP item,
+    and --pp beside --sp is refused."""
     import subprocess
-    done = subprocess.run([sys.executable, TRAIN_EXAMPLE, "--config",
-                           "tiny", "--device", "cpu", "--pp", "2"],
-                          capture_output=True, text=True, timeout=120)
-    assert done.returncode != 0
-    assert "ROADMAP.md queue 1 item 3.4" in done.stderr
+    for flags, message in (
+            (["--config", "mixtral-tiny", "--pp", "2"],
+             "ROADMAP.md queue 1 item 3.6"),
+            (["--config", "tiny", "--pp", "2", "--sp", "2"],
+             "combine --pp with --dp and --fsdp")):
+        done = subprocess.run([sys.executable, TRAIN_EXAMPLE, "--device",
+                               "cpu", *flags],
+                              capture_output=True, text=True, timeout=120)
+        assert done.returncode != 0
+        assert message in done.stderr

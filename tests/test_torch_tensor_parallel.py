@@ -323,23 +323,30 @@ def _fake_mesh(**axes):
 
 @pytest.mark.parametrize("axis", ["pp"])
 def test_axes_past_tp_still_raise_with_their_pointer(axis):
+    """pp is ported for training (tests/test_torch_pipeline.py), beside dp
+    and fsdp only: beside tp the model, the step and the batch iterator
+    refuse it (ValueError); serving over pp still waits for item 3 and an
+    MoE layer under pp for item 3.6 (NotImplementedError)."""
+    from mpi_operator_tpu_torch.ops.moe import MoEMLP
     from mpi_operator_tpu_torch.serving import InferenceServer
     from mpi_operator_tpu_torch.utils.data import global_batch_iterator
+    mixed = _fake_mesh(**{axis: 2, "tp": 2})
     mesh = _fake_mesh(**{axis: 2})
     model = tl.LlamaModel(tl.llama2_tiny(), device="cpu")
     q = torch.zeros(1, 4, 2, 32)
-    calls = [lambda: tl.LlamaModel(tl.llama2_tiny(), device="cpu",
-                                   mesh=mesh),
-             lambda: ttrain.build_train_step(
-                 lambda m, b: 0, ttrain.adamw(LR), mesh=mesh,
-                 param_specs=tl.llama_param_specs(tl.llama2_tiny())),
-             lambda: InferenceServer(model, mesh=mesh, max_batch_slots=2,
-                                     device="cpu"),
-             lambda: next(global_batch_iterator(lambda s: (q,), mesh,
-                                                "cpu"))]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    for call in (lambda: tl.LlamaModel(tl.llama2_tiny(), device="cpu",
+                                       mesh=mixed),
+                 lambda: ttrain.build_train_step(
+                     lambda m, b: 0, ttrain.adamw(LR), mesh=mixed,
+                     param_specs=tl.llama_param_specs(tl.llama2_tiny())),
+                 lambda: next(global_batch_iterator(lambda s: (q,), mixed,
+                                                    "cpu"))):
+        with pytest.raises(ValueError, match=f"{axis}=2 with tp=2"):
             call()
+    with pytest.raises(NotImplementedError, match="queue 1 item 3 "):
+        InferenceServer(model, mesh=mesh, max_batch_slots=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3.6"):
+        MoEMLP(128, 256, 4, mesh=mesh)
 
 
 def test_global_batch_iterator_takes_tp():

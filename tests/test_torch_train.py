@@ -220,13 +220,13 @@ def test_accum_steps_equals_the_full_batch_and_out_of_slice_raise():
     # One device is a 1-sized dp and ici axis: the plain step.
     for kw in (dict(shard_update=True), dict(hierarchical_allreduce=True)):
         assert _tiny_state(**kw)[0].plan is None
-    # A mesh axis that training does not shard yet raises: pp (tp, sp
-    # and ep are ported: tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_ring_attention.py,
-    # tests/test_torch_expert_parallel.py).
+    # Every mesh axis trains now (tp, sp, ep and pp:
+    # tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
+    # tests/test_torch_expert_parallel.py, tests/test_torch_pipeline.py);
+    # what still raises is pp beside tp, sp or ep.
     mesh = types.SimpleNamespace(mesh_dim_names=AXIS_NAMES,
-                                 shape=(1, 1, 2, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.4"):
+                                 shape=(1, 1, 2, 1, 1, 2))
+    with pytest.raises(ValueError, match="pp=2 with sp=2"):
         _tiny_state(mesh=mesh)
 
 

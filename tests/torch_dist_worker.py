@@ -1,6 +1,6 @@
 """One rank of a gloo process group for tests/test_torch_distributed.py,
-tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py
-and tests/test_torch_expert_parallel.py.
+tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
+tests/test_torch_expert_parallel.py and tests/test_torch_pipeline.py.
 
     JAX_COORDINATOR_ADDRESS=127.0.0.1:PORT JAX_PROCESS_ID=r \\
     JAX_NUM_PROCESSES=n python tests/torch_dist_worker.py SCENARIO DIR [cuda]
@@ -776,6 +776,203 @@ def scenario_sp_cuda_ring(inputs, out_dir):
             "out": (flash["out"].float().cpu(), plain["out"].float().cpu()),
             "grads": [(a.float().cpu(), b.float().cpu()) for a, b in
                       zip(flash["grads"], plain["grads"])]}
+
+
+# -- pipelines (tests/test_torch_pipeline.py) ------------------------------------
+
+def _pp_mesh(**axes):
+    return tmesh.create_mesh(tmesh.MeshConfig(**{"dp": 1, **axes}), DEVICE)
+
+
+def _pp_stage(inputs, mesh, virtual_stages=1, fsdp_shard=False, config=None):
+    """This rank's LlamaStage of the test's 4-layer llama2_tiny weights."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
+    cfg = tl.llama2_tiny(**{**inputs["pp_config"], **(config or {})})
+    stage = LlamaStage(cfg, mesh=mesh, virtual_stages=virtual_stages,
+                       fsdp_shard=fsdp_shard,
+                       device=None if DEVICE == "cuda" else "cpu",
+                       store_dtype=torch.float32)
+    stage.load_full_state_dict(inputs["pp_weights"])
+    return stage
+
+
+def _pp_mlp(inputs, n_stages):
+    """pipeline_apply on tests/test_pipeline.py's MLP stages: the outputs
+    and the gradients of mean(out ** 2) (this stage's, and the
+    microbatches' on stage 0)."""
+    from mpi_operator_tpu_torch.parallel.pipeline import pipeline_apply
+    case = inputs["mlp"][n_stages]
+    mesh = _pp_mesh(pp=n_stages)
+    p = mesh.get_local_rank("pp")
+    params = {k: v.clone().requires_grad_()
+              for k, v in case["stages"][p].items()}
+    micro = case["micro"].clone().requires_grad_(p == 0)
+
+    def stage_fn(prm, x):
+        return torch.tanh(x @ prm["w1"] + prm["b1"]) @ prm["w2"] + x
+
+    out = pipeline_apply(stage_fn, params, micro, mesh)
+    (out ** 2).mean().backward()
+    return {"out": out.detach(), "stage": p,
+            "grads": {k: v.grad for k, v in params.items()},
+            "x_grad": micro.grad}
+
+
+def _pp_1f1b(inputs, mesh, m, virtual_stages=1, fsdp_shard=False):
+    """pipeline_loss_and_grads_1f1b on this rank's rows; the loss and
+    every stage's gradients joined into the one-device dict."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import (
+        pipeline_loss_and_grads_1f1b)
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    stage = _pp_stage(inputs, mesh, virtual_stages, fsdp_shard)
+    loss, grads = pipeline_loss_and_grads_1f1b(
+        stage, _rows(mesh, inputs["pp_tokens"]), mesh, m,
+        virtual_stages=virtual_stages, fsdp_shard=fsdp_shard)
+    return {"loss": loss.item(), "grads": gather_stage_state_dict(
+        stage, grads)}
+
+
+def _pp_train(inputs, mesh, steps=3, **build):
+    """``steps`` AdamW steps of build_train_step over ``mesh``: metrics
+    and the one-device parameters after."""
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    stage = _pp_stage(inputs, mesh, build.get("virtual_stages", 1),
+                      build.get("pp_fsdp", False))
+    init, step = ttrain.build_train_step(None, ttrain.adamw(LR), mesh=mesh,
+                                         **build)
+    state = init(stage)
+    batch = _rows(mesh, inputs["pp_tokens"])
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    return {"metrics": metrics, "state": state, "step": step,
+            "batch": batch, "params": gather_stage_state_dict(state.model)}
+
+
+def _pp_checkpoint(inputs, out_dir, mesh, **build):
+    """4 steps straight, against 2 steps, a save (the one-device format)
+    and a fresh state that restores it and takes 2 more."""
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    straight = _pp_train(inputs, mesh, steps=4, **build)["params"]
+    run = _pp_train(inputs, mesh, steps=2, **build)
+    ckpt_dir = os.path.join(out_dir, "ckpt-pp")
+    mgr = tckpt.CheckpointManager(ckpt_dir, every=100)
+    mgr.save(run["state"], 2)
+    mgr.drain()
+    dist.barrier()                        # rank 0's write has landed
+    held = sorted(run["state"].state_dict())  # the whole on rank 0 alone
+    fresh = _pp_train(inputs, mesh, steps=0, **build)
+    with torch.no_grad():                 # unlike the saved weights
+        for p in fresh["state"].model.parameters():
+            p.mul_(0.5)
+    state = mgr.restore(fresh["state"])
+    for _ in range(2):
+        state, _ = fresh["step"](state, fresh["batch"])
+    saved = torch.load(os.path.join(ckpt_dir, "step_00000002",
+                                    tckpt.STATE_FILE), weights_only=False)
+    return {"straight": straight, "resumed": gather_stage_state_dict(
+        state.model), "step": state.step, "held_keys": held,
+        "saved_keys": sorted(saved["model"]),
+        "saved_optimizer_entries": len(saved["optimizer"]["state"])}
+
+
+def scenario_pp_world2(inputs, out_dir):
+    """pp = 2: the MLP stages through pipeline_apply, the logits, 1F1B and
+    interleaved 1F1B, three AdamW steps of gpipe and 1f1b, a checkpoint,
+    the refusal of M < P and the batch iterator's rows."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import pipeline_forward
+    from mpi_operator_tpu_torch.parallel.pipeline import pipeline_1f1b
+    from mpi_operator_tpu_torch.utils.data import global_batch_iterator
+    mesh = _pp_mesh(pp=2)
+    out = {"mlp": _pp_mlp(inputs, 2)}
+    with torch.no_grad():
+        out["logits"] = pipeline_forward(_pp_stage(inputs, mesh),
+                                         inputs["pp_tokens"], mesh, 2)
+    out["1f1b"] = _pp_1f1b(inputs, mesh, 4)
+    out["interleaved"] = _pp_1f1b(inputs, mesh, 4, virtual_stages=2)
+    for name, build in (("gpipe", {"microbatches": 4}),
+                        ("1f1b", {"pipeline_schedule": "1f1b",
+                                  "microbatches": 4})):
+        out[f"steps_{name}"] = _strip(_pp_train(inputs, mesh, **build))
+    out["ckpt"] = _pp_checkpoint(inputs, out_dir, mesh,
+                                 pipeline_schedule="1f1b", microbatches=4)
+    try:
+        pipeline_1f1b(lambda prm, x: x, lambda *a: None, {}, {},
+                      torch.zeros(1, 2, 3), mesh)
+        out["m_lt_p"] = None
+    except ValueError as exc:
+        out["m_lt_p"] = str(exc)
+    rows = inputs["pp_tokens"][:4]
+    (got,) = next(global_batch_iterator(lambda step: (rows.numpy(),), mesh,
+                                        "cpu"))
+    out["iterator"] = {"got": got, "want": rows}
+    return out
+
+
+def scenario_pp_world4(inputs, out_dir):
+    """pp = 4 (MLP stages, logits, 1F1B), dp = 2 x pp = 2 and fsdp = 2 x
+    pp = 2 with the stages' matrices sharded (1F1B, interleaved), and
+    three AdamW steps on each composed mesh."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import pipeline_forward
+    pp4 = _pp_mesh(pp=4)
+    out = {"mlp": _pp_mlp(inputs, 4)}
+    with torch.no_grad():
+        out["logits"] = pipeline_forward(_pp_stage(inputs, pp4),
+                                         inputs["pp_tokens"], pp4, 4)
+    out["1f1b_pp4"] = _pp_1f1b(inputs, pp4, 4)
+    dp2 = _pp_mesh(dp=2, pp=2)
+    fsdp2 = _pp_mesh(fsdp=2, pp=2)
+    out["1f1b_dp2"] = _pp_1f1b(inputs, dp2, 2)
+    out["1f1b_fsdp2"] = _pp_1f1b(inputs, fsdp2, 2, fsdp_shard=True)
+    out["interleaved_fsdp2"] = _pp_1f1b(inputs, fsdp2, 2, virtual_stages=2,
+                                        fsdp_shard=True)
+    from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    stage = LlamaStage(tl.llama2_tiny(**inputs["pp_config"]), mesh=fsdp2,
+                       fsdp_shard=True, device="meta",
+                       store_dtype=torch.float32)
+    stage.to_empty(device="cpu")
+    init_params_(stage, torch.Generator().manual_seed(7))
+    out["init_fsdp"] = {"sharded": len(stage.fsdp_dims),
+                        "joined": gather_stage_state_dict(stage)}
+    out["steps_1f1b_dp2"] = _strip(_pp_train(
+        inputs, dp2, pipeline_schedule="1f1b", microbatches=2))
+    out["steps_gpipe_fsdp2"] = _strip(_pp_train(
+        inputs, fsdp2, microbatches=2, pp_fsdp=True))
+    out["steps_interleaved_fsdp2"] = _strip(_pp_train(
+        inputs, fsdp2, pipeline_schedule="1f1b", microbatches=2,
+        virtual_stages=2, pp_fsdp=True))
+    return out
+
+
+def scenario_pp_cuda(inputs, out_dir):
+    """pp = world on the cards: 1F1B on llama2_tiny in bf16 through
+    K1'-K3' ("auto") and through the plain attention ("xla") on the same
+    weights and rows, with each kernel's launches over the kernel run."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import (
+        pipeline_loss_and_grads_1f1b)
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    from mpi_operator_tpu_torch.ops import attention as fa
+    mesh = _pp_mesh(pp=dist.get_world_size())
+    tokens = inputs["pp_tokens"].cuda()
+    runs = {}
+    for impl in ("xla", "auto"):
+        stage = _pp_stage(inputs, mesh, config={"dtype": torch.bfloat16,
+                                                "attention_impl": impl})
+        torch.cuda.synchronize()
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        loss, grads = pipeline_loss_and_grads_1f1b(stage, tokens, mesh,
+                                                   inputs["pp_m"])
+        torch.cuda.synchronize()
+        runs[impl] = {"loss": loss.item(), "launches": dict(fa.LAUNCHES),
+                      "grads": {n: g.cpu() for n, g in
+                                gather_stage_state_dict(stage,
+                                                        grads).items()}}
+    return {"runs": runs, "stage": mesh.get_local_rank("pp"),
+            "layers_per_stage": inputs["pp_config"]["n_layers"]
+            // dist.get_world_size()}
 
 
 def main() -> int:
