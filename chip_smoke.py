@@ -287,6 +287,38 @@ continued:
              the tables' bubble (event-driven: (P-1)/(M+P-1) for 1F1B)
              and its lock-step value (each tick as long as its busiest
              rank).
+13. image workloads  (a) a tiny ResNet (stage sizes (1, 1, 1, 1), width
+             16, 10 classes, f32, 32 x 32, 8 images from SEED) on card 0
+             against the CPU: train-mode logits at 1e-4, the running
+             statistics of that forward and 3 SGD-momentum steps (losses,
+             weights, statistics) at 1e-5.  (b) ResNet-101 at 224 x 224,
+             1000 classes, 64 images, bf16 compute over f32 weights,
+             channels_last, cudnn.benchmark, SGD 0.01 momentum 0.9
+             through examples/resnet_benchmark_torch.py's benchmark(): 5
+             warm-up + 20 steps, twice from SEED.  Checked: finite
+             losses, the two runs' first loss within 1e-6 relative and
+             the later ones within 1e-2 (cuDNN may pick other
+             algorithms), peak < 80 GB.  Printed: images/s, ms a step,
+             peak GB and train_mfu (3 x the forward's 2 k^2 C_in C_out
+             H_out W_out over the convolutions and the head, counted
+             from the model's shapes, over 989 TFLOP/s).  (c) with two
+             cards or more, one process per card (NCCL, `chip_smoke.py
+             image-rank DIR`): the tiny ResNet at dp = cards, 8 rows a
+             card, every BatchNorm over the global batch, against card 0
+             alone on the global batch at 1e-5, and a planted fault
+             (bn_init with local statistics) that must fail; then
+             ResNet-101 at 64 a card as (b): finite losses, peak < 80
+             GB, and every weight and BatchNorm buffer bit-identical
+             over the ranks (sha256); printed per rank and in total.  At
+             one card it prints that (c) needs two.  (d)
+             examples/elastic_train_torch.py --model resnet50 at 224, 64
+             a card, one process per card: the discover_hosts.sh file
+             goes from cards to cards / 2 hosts and back (at one card it
+             stays at one), then a stop file ends it; checked: both
+             WORLD-CHANGE ... restored=True lines in order, the step
+             count going on across them, ELASTIC-TRAIN-OK with a finite
+             final loss.  (e) examples/mnist_train_torch.py on card 0:
+             its done line and a final loss below the first.
 10. profile  after every measured phase, the serving phase's concurrent
              prompts on a fresh server of the same shape, once to warm
              up and once under torch.profiler: K4''s device ms per
@@ -3923,6 +3955,395 @@ def pp_verdict(card: str, world: int, out_dir: str, refs, phase7_losses):
     return result
 
 
+# -- phase 13: image workloads ------------------------------------------------
+
+IMAGE_LR, IMAGE_MOMENTUM = 0.01, 0.9     # examples/resnet_benchmark.py
+IMAGE_PARITY_STEPS = 3
+IMAGE_PARITY_BATCH = 8                   # (a): rows; (c): rows a card
+IMAGE_LOGIT_TOL = 1e-4                   # ROADMAP.md parity rules: logits
+IMAGE_STEP_TOL = 1e-5                    # and training steps, f32
+IMAGE_BATCH = 64                         # images a card (the reference)
+IMAGE_SIZE = 224
+IMAGE_WARMUP, IMAGE_STEPS = 5, 20
+IMAGE_FIRST_RTOL, IMAGE_LATER_RTOL = 1e-6, 1e-2
+IMAGE_DEADLINE_S = 600
+ELASTIC_DEADLINE_S = 400
+
+
+def image_world() -> int:
+    """Ranks of phase 13 (c) and (d): every card, at most four."""
+    return min(torch.cuda.device_count(), DIST_MAX_WORLD)
+
+
+def load_example(name: str):
+    """An examples/ script as a module (its main() is not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def tiny_resnet_run(device, global_batch: int, mesh=None,
+                    fault: bool = False):
+    """ResNet with stage sizes (1, 1, 1, 1), width 16, 10 classes, f32,
+    at 32 x 32, weights and a global batch from SEED: one train-mode
+    forward (its logits and the running statistics it leaves), then, from
+    the same weights, IMAGE_PARITY_STEPS SGD-momentum steps through
+    build_train_step (losses, final weights and statistics).  Under
+    ``mesh`` the rank takes its rows; ``fault`` gives one BatchNorm
+    (``bn_init``) local statistics."""
+    from mpi_operator_tpu_torch.models import resnet as tres
+    from mpi_operator_tpu_torch.parallel.mesh import batch_rows
+    from mpi_operator_tpu_torch.parallel.train import build_train_step, sgd
+
+    cfg = tres.ResNetConfig(stage_sizes=(1, 1, 1, 1), num_classes=10,
+                            width=16, dtype=torch.float32)
+    weights = tres.init_weights_(tres.ResNet(cfg, device="cpu"),
+                                 torch.Generator().manual_seed(SEED))
+    weights = weights.state_dict()
+    rng = np.random.default_rng(SEED)
+    images = torch.as_tensor(rng.standard_normal((global_batch, 32, 32, 3),
+                                                 dtype=np.float32))
+    labels = torch.as_tensor(rng.integers(0, 10, (global_batch,)))
+    if mesh is not None:
+        rows = batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                          global_batch)
+        images, labels = images[rows], labels[rows]
+    images, labels = images.to(device), labels.to(device)
+
+    def build():
+        model = tres.ResNet(cfg, mesh=mesh, device=device)
+        model.load_state_dict(weights)
+        if fault:
+            model.bn_init.group = None
+        return model
+
+    model = build()
+    logits = model(images).detach().cpu()
+    forward_stats = {k: v.cpu().clone() for k, v in
+                     model.state_dict().items()
+                     if k.endswith((".mean", ".var"))}
+    init, step = build_train_step(
+        lambda m, b: tres.cross_entropy_loss(m(b[0]), b[1]),
+        sgd(IMAGE_LR, momentum=IMAGE_MOMENTUM), mesh=mesh)
+    state = init(build())
+    losses = [step(state, (images, labels))[1]["loss"].item()
+              for _ in range(IMAGE_PARITY_STEPS)]
+    return {"logits": logits, "forward_stats": forward_stats,
+            "losses": losses,
+            "state": {k: v.detach().cpu()
+                      for k, v in state.model.state_dict().items()}}
+
+
+def image_parity_failures(got, want, logits: bool = True):
+    """What of a tiny run differs from the reference beyond the parity
+    rules: logits 1e-4 (``logits``: a run over the whole batch), the
+    statistics the forward leaves, the losses and every final weight and
+    running statistic 1e-5."""
+    bad = []
+
+    def close(a, b, tol):
+        return bool(torch.allclose(torch.as_tensor(a), torch.as_tensor(b),
+                                   rtol=tol, atol=tol))
+
+    if logits and not close(got["logits"], want["logits"], IMAGE_LOGIT_TOL):
+        bad.append("logits")
+    bad += [f"forward {k}" for k, v in want["forward_stats"].items()
+            if not close(got["forward_stats"][k], v, IMAGE_STEP_TOL)]
+    if not close(got["losses"], want["losses"], IMAGE_STEP_TOL):
+        bad.append(f"losses {got['losses']} vs {want['losses']}")
+    bad += [k for k, v in want["state"].items()
+            if not close(got["state"][k], v, IMAGE_STEP_TOL)]
+    return bad
+
+
+def state_digest(model) -> str:
+    """sha256 over every parameter and buffer's bytes, in name order."""
+    import hashlib
+    digest = hashlib.sha256()
+    for name, value in sorted(model.state_dict().items()):
+        digest.update(name.encode())
+        digest.update(value.detach().contiguous().view(torch.uint8).cpu()
+                      .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def image_train_mfu(run) -> float:
+    return (run["train_flops_per_image"] * run["batch_per_device"]
+            / (run["step_ms"] / 1e3) / PEAK_OPS[torch.bfloat16])
+
+
+def image_summary(run) -> dict:
+    return {"images_per_s": run["images_per_s"], "step_ms": run["step_ms"],
+            "peak_gb": run["peak_bytes"] / 1e9,
+            "train_mfu": image_train_mfu(run),
+            "train_gflop_per_image": run["train_flops_per_image"] / 1e9,
+            "losses": run["losses"]}
+
+
+def image_run_failures(run) -> list:
+    bad = []
+    if not all(np.isfinite(run["losses"])):
+        bad.append(f"losses {run['losses']}")
+    if not run["peak_bytes"] < 80e9:
+        bad.append(f"peak {run['peak_bytes']}")
+    return bad
+
+
+def image_rank(out_dir: str) -> int:
+    """A child of phase 13 (c): the tiny ResNet at dp = world, and again
+    with the planted fault; then ResNet-101 at IMAGE_BATCH a card."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    rank, world = sp_group()
+    mesh = create_mesh(MeshConfig(dp=world), "cuda")
+    runs = {"global": tiny_resnet_run("cuda", IMAGE_PARITY_BATCH * world,
+                                      mesh),
+            "local_bn_init": tiny_resnet_run(
+                "cuda", IMAGE_PARITY_BATCH * world, mesh, fault=True)}
+    torch.save(runs, os.path.join(out_dir, f"image_tiny_rank{rank}.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    run = load_example("resnet_benchmark_torch").benchmark(
+        "resnet101", IMAGE_BATCH, IMAGE_STEPS, IMAGE_WARMUP, IMAGE_SIZE,
+        "cuda", mesh, seed=SEED)
+    result = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "card": torch.cuda.current_device(),
+              "digest": state_digest(run["state"].model),
+              **image_summary(run), "peak_bytes": run["peak_bytes"]}
+    with open(os.path.join(out_dir, f"image_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def elastic_run(card: str, world: int, out_dir: str):
+    """Phase 13 (d): examples/elastic_train_torch.py --model resnet50 at
+    224, IMAGE_BATCH images a card, one process per card; the membership
+    artifact goes from ``world`` hosts to world / 2 and back (at one
+    card it stays at one), then the stop file ends the run."""
+    mpi_dir = os.path.join(out_dir, "mpi")
+    os.makedirs(mpi_dir, exist_ok=True)
+    hosts = os.path.join(mpi_dir, "discover_hosts.sh")
+    stop = os.path.join(out_dir, "stop")
+
+    def write_hosts(n):
+        with open(hosts + ".tmp", "w") as f:
+            f.write("#!/bin/sh\n" + "".join(f"echo h{i}\n" for i in range(n)))
+        os.replace(hosts + ".tmp", hosts)
+
+    write_hosts(world)
+    port, submit = free_port(), time.time()
+    argv = [sys.executable, os.path.join(HERE, "examples",
+                                         "elastic_train_torch.py"),
+            "--model", "resnet50", "--image-size", str(IMAGE_SIZE),
+            "--batch", str(IMAGE_BATCH * world), "--steps", "100000",
+            "--poll", "0.05", "--ckpt-dir", os.path.join(out_dir, "ckpt"),
+            "--stop-file", stop]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_PROCESS_ID=str(rank), JAX_NUM_PROCESSES=str(world),
+                   MPIJOB_SUBMIT_TIME=repr(submit), K_MOUNT_MPI=mpi_dir)
+        log = open(os.path.join(out_dir, f"elastic_rank{rank}.log"), "w")
+        procs.append((log, subprocess.Popen(argv, env=env, stdout=log,
+                                            stderr=subprocess.STDOUT,
+                                            cwd=HERE)))
+    log0 = os.path.join(out_dir, "elastic_rank0.log")
+    end = time.monotonic() + ELASTIC_DEADLINE_S
+
+    def wait_for(pattern, count=1):
+        while time.monotonic() < end:
+            text = open(log0).read()
+            if len(re.findall(pattern, text)) >= count:
+                return text
+            if any(p.poll() for _, p in procs):
+                break
+            time.sleep(0.2)
+        raise SystemExit(f"image workloads (d) elastic: no {pattern!r}:\n"
+                         + open(log0).read()[-4000:])
+
+    t0 = time.perf_counter()
+    try:
+        wait_for(rf"ELASTIC-TRAIN-START world={world} ")
+        start_s = time.perf_counter() - t0
+        changes = []
+        if world >= 2:
+            for n, new in enumerate((world // 2, world)):
+                time.sleep(3.0)                      # steps on this world
+                write_hosts(new)
+                wait_for(r"WORLD-CHANGE .* restored=True", n + 1)
+                changes.append(time.perf_counter() - t0)
+        time.sleep(3.0)
+        with open(stop, "w"):
+            pass
+        for _, proc in procs:
+            proc.wait(timeout=max(end - time.monotonic(), 1))
+    finally:
+        for log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    text = open(log0).read()
+    codes = [p.returncode for _, p in procs]
+    found = re.findall(r"WORLD-CHANGE step=(\d+) old=(\d+) new=(\d+) "
+                       r"restored=True", text)
+    ok = re.search(r"ELASTIC-TRAIN-OK steps=(\d+) worlds=(\S+) "
+                   r"final_loss=(\S+)", text)
+    want = ([(str(world), str(world // 2)), (str(world // 2), str(world))]
+            if world >= 2 else [])
+    steps = [int(s) for s, _, _ in found]
+    if any(codes) or not ok or [(o, n) for _, o, n in found] != want or \
+            steps != sorted(steps) or (steps and int(ok.group(1)) <=
+                                       steps[-1]) or \
+            not np.isfinite(float(ok.group(3))):
+        raise SystemExit(f"image workloads (d) elastic: exit {codes}:\n"
+                         + text[-4000:])
+    print(f"image workloads (d) elastic: resnet50 at {IMAGE_SIZE}, "
+          f"{IMAGE_BATCH} a card at {world} cards, "
+          + (f"world {world} -> {world // 2} -> {world} at steps "
+             f"{steps}" if world >= 2 else
+             "world changes need two cards; ran at one")
+          + f"; {ok.group(0)}; start {start_s:.1f} s, changes done at "
+          f"{[round(c, 1) for c in changes]} s; {card}", flush=True)
+
+
+def mnist_run(card: str, out_dir: str):
+    """Phase 13 (e): examples/mnist_train_torch.py on card 0."""
+    out = subprocess.run([sys.executable, os.path.join(
+        HERE, "examples", "mnist_train_torch.py")], capture_output=True,
+        text=True, timeout=300, cwd=HERE,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+    first = re.search(r"step=0 loss=(\S+)", out.stdout)
+    done = re.search(r"done processes=1 devices=1 final_loss=(\S+)",
+                     out.stdout)
+    if out.returncode or not first or not done or \
+            not float(done.group(1)) < float(first.group(1)):
+        raise SystemExit(f"image workloads (e) mnist: exit "
+                         f"{out.returncode}\n{out.stdout[-2000:]}"
+                         f"{out.stderr[-2000:]}")
+    goodput = re.search(r"goodput=.*", out.stdout).group(0)
+    print(f"image workloads (e) mnist: step 0 loss {first.group(1)} -> "
+          f"{done.group(0)}; {goodput}; {card}", flush=True)
+
+
+def image_phase(card: str):
+    """Phase 13: (a) the tiny ResNet on card 0 against the CPU; (b)
+    ResNet-101 at 224, 64 a card, bf16, on one card, twice; (c) with
+    two cards or more, dp over every card: the tiny model against one
+    card and a planted BatchNorm fault, then ResNet-101 at 64 a card;
+    (d) the elastic example; (e) the MNIST example."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-image-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+
+    cpu = tiny_resnet_run("cpu", IMAGE_PARITY_BATCH)
+    card_run = tiny_resnet_run("cuda", IMAGE_PARITY_BATCH)
+    bad = image_parity_failures(card_run, cpu)
+    if bad:
+        raise SystemExit(f"image workloads (a) parity: {bad}")
+    print(f"image workloads (a) parity: tiny ResNet (1, 1, 1, 1) x 16, "
+          f"f32, 32 x 32, batch {IMAGE_PARITY_BATCH}: card == CPU (logits "
+          f"{IMAGE_LOGIT_TOL}, statistics and {IMAGE_PARITY_STEPS} "
+          f"SGD-momentum steps {IMAGE_STEP_TOL}); largest logit error "
+          f"{(card_run['logits'] - cpu['logits']).abs().max().item():.3g}, "
+          f"losses {card_run['losses']}", flush=True)
+
+    bench = load_example("resnet_benchmark_torch")
+    benchmark_flag = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        runs = []
+        for _ in range(2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = bench.benchmark("resnet101", IMAGE_BATCH, IMAGE_STEPS,
+                                  IMAGE_WARMUP, IMAGE_SIZE, "cuda",
+                                  seed=SEED)
+            del run["state"]
+            runs.append(run)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark_flag
+    first, again = (r["losses"] for r in runs)
+    rel = [abs(a - b) / abs(b) for a, b in zip(again, first)]
+    bad = image_run_failures(runs[0]) + image_run_failures(runs[1])
+    if bad or rel[0] > IMAGE_FIRST_RTOL or max(rel[1:]) > IMAGE_LATER_RTOL:
+        raise SystemExit(f"image workloads (b) resnet101: {bad}, repeat "
+                         f"relative differences {rel}")
+    print("image workloads (b) resnet101 at 224, batch 64, bf16, "
+          "channels_last, one card: " + json.dumps({
+              "card": card, "runs": [image_summary(r) for r in runs],
+              "repeat_rel_diff_first": rel[0],
+              "repeat_rel_diff_later_max": max(rel[1:])}), flush=True)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    world = image_world()
+    if world >= 2:
+        run_ranks([sys.executable, os.path.abspath(__file__), "image-rank",
+                   out_dir], world, "image workloads (c)",
+                  IMAGE_DEADLINE_S, out_dir)
+        ref = tiny_resnet_run("cuda", IMAGE_PARITY_BATCH * world)
+        ranks = [json.load(open(os.path.join(out_dir,
+                                             f"image_rank{r}.json")))
+                 for r in range(world)]
+        verdict = {}
+        for r in range(world):
+            tiny = torch.load(os.path.join(out_dir,
+                                           f"image_tiny_rank{r}.pt"))
+            verdict[r] = {name: image_parity_failures(run, ref,
+                                                      logits=False)
+                          for name, run in tiny.items()}
+        if any(v["global"] or not v["local_bn_init"]
+               for v in verdict.values()):
+            raise SystemExit(f"image workloads (c) parity: {verdict}")
+        digests = {r["digest"] for r in ranks}
+        bad = [f"rank {r['rank']}: {f}" for r in ranks
+               for f in image_run_failures(r)]
+        if bad or len(digests) != 1 or \
+                any(r["world"] != world or r["backend"] != "nccl"
+                    for r in ranks):
+            raise SystemExit(f"image workloads (c) resnet101: {bad}, "
+                             f"{len(digests)} distinct states over "
+                             f"{world} ranks: {ranks}")
+        print(f"image workloads (c) parity: tiny ResNet at dp={world} "
+              f"({IMAGE_PARITY_BATCH} rows a card) == card 0 alone on the "
+              f"global batch at {IMAGE_STEP_TOL} ({IMAGE_PARITY_STEPS} "
+              f"SGD-momentum steps, every weight and statistic); planted "
+              f"fault (bn_init with local statistics) caught: "
+              f"{verdict[0]['local_bn_init'][:3]}", flush=True)
+        print(f"image workloads (c) resnet101 at dp={world}, {IMAGE_BATCH} "
+              f"a card: weights and BatchNorm buffers bit-identical over "
+              f"the ranks; " + json.dumps({
+                  "card": card, "world": world,
+                  "total_images_per_s": ranks[0]["images_per_s"],
+                  "images_per_s_per_card": ranks[0]["images_per_s"] / world,
+                  "ranks": [{"rank": r["rank"], "step_ms": r["step_ms"],
+                             "images_per_s_per_card":
+                                 r["images_per_s"] / world,
+                             "peak_gb": r["peak_gb"],
+                             "train_mfu": r["train_mfu"],
+                             "losses": r["losses"]} for r in ranks]}),
+              flush=True)
+    else:
+        print("image workloads (c) dp: needs two cards; this machine shows "
+              "one", flush=True)
+
+    elastic_run(card, world, out_dir)
+    mnist_run(card, out_dir)
+    print(f"image workloads: phase 13 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def build_phase() -> None:
     """Both kernel sources, each by its own nvcc, started together."""
     from mpi_operator_tpu_torch.ops import _build
@@ -4073,6 +4494,8 @@ def main() -> int:
         return sp_rank(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["pp-rank"]:
         return pp_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["image-rank"]:
+        return image_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs the card",
               file=sys.stderr)
@@ -4130,6 +4553,7 @@ def main() -> int:
     tp = tp_phase(card, serve)
     sp = sp_phase(card)
     pp = pp_phase(card, distributed["losses"])
+    image_phase(card)
     k4_profile = serving_profile_phase(serve["prompts"])
 
     main_case = kernels["llama2_7b"]

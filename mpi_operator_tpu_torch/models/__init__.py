@@ -1,1 +1,1 @@
-"""Llama decode path in PyTorch (counterpart of mpi_operator_tpu/models)."""
+"""Models of the port: Llama and Mixtral (decode and training paths), ResNet-50/101 and the MNIST CNN."""

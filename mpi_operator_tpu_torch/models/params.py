@@ -355,3 +355,52 @@ def share_weights(model: LlamaModel, **overrides) -> LlamaModel:
         if hasattr(module, "config"):
             module.config = cfg
     return twin
+
+
+# ---------------------------------------------------------------------------
+# The image models (models/resnet.py, models/mnist.py)
+# ---------------------------------------------------------------------------
+
+def _flax_image_state(tree) -> Dict[str, torch.Tensor]:
+    """A flax conv/dense/BatchNorm tree -> the port's state dict: each
+    leaf at its path joined by dots, an HWIO conv kernel as an OIHW
+    ``weight``, a dense [in, out] kernel as a [out, in] ``weight``; a
+    BatchNorm's ``scale``/``bias`` and ``mean``/``var`` keep their
+    names."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if hasattr(node, "items"):
+            for key, value in node.items():
+                walk(value, path + (key,))
+            return
+        value = np.array(node, dtype=np.float32)
+        if path[-1] == "kernel":
+            path = path[:-1] + ("weight",)
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 \
+                else value.T
+        out[".".join(path)] = torch.from_numpy(np.ascontiguousarray(value))
+
+    walk(tree, ())
+    return out
+
+
+def from_flax_resnet(variables, cfg=None) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` of the JAX ResNet (numpy or
+    JAX arrays) -> a state dict for ``models.resnet.ResNet``: weights
+    and running statistics, in f32.  ``cfg`` (a ResNetConfig), when
+    given, is checked against the tree's block count."""
+    state = _flax_image_state(variables["params"])
+    state.update(_flax_image_state(variables.get("batch_stats", {})))
+    if cfg is not None:
+        blocks = {k.split(".")[0] for k in state if k.startswith("stage")}
+        if len(blocks) != sum(cfg.stage_sizes):
+            raise ValueError(f"the tree holds {len(blocks)} blocks, the "
+                             f"config {sum(cfg.stage_sizes)}")
+    return state
+
+
+def from_flax_mnist(params) -> Dict[str, torch.Tensor]:
+    """The JAX MnistCNN's params (``model.init``'s ``{"params": ...}``
+    or the inner tree) -> a state dict for ``models.mnist.MnistCNN``."""
+    return _flax_image_state(params.get("params", params))

@@ -6,5 +6,6 @@ over ep, the sp ring's exchange; ``pipeline``: GPipe, 1F1B and
 interleaved 1F1B over pp)."""
 
 from .mesh import MeshConfig, create_mesh  # noqa: F401
-from .train import (TrainState, adamw, build_train_step,  # noqa: F401
-                    reshard_train_state, run_train_loop)
+from .train import (TrainState, adam, adamw,  # noqa: F401
+                    build_train_step, reshard_train_state, run_train_loop,
+                    sgd)

@@ -93,6 +93,26 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return make
 
 
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Callable[[Any], torch.optim.Optimizer]:
+    """Counterpart of ``optax.adam``: :func:`adamw` without weight
+    decay (the same m_hat / (sqrt(v_hat) + eps) step)."""
+    return adamw(learning_rate, b1, b2, eps, weight_decay=0.0)
+
+
+def sgd(learning_rate: float, momentum: float = 0.0
+        ) -> Callable[[Any], torch.optim.Optimizer]:
+    """Counterpart of ``optax.sgd(learning_rate, momentum)``.
+
+    optax:  t <- g + momentum * t  (t = 0 at init);  p <- p - lr * t
+    torch:  b <- g at the first step, then momentum * b + g;  p <- p -
+            lr * b  (dampening 0, no Nesterov), the same sequence."""
+    def make(params):
+        return torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
+                               dampening=0.0, nesterov=False)
+    return make
+
+
 def optax_global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32)

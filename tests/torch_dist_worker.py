@@ -1,6 +1,7 @@
 """One rank of a gloo process group for tests/test_torch_distributed.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
-tests/test_torch_expert_parallel.py and tests/test_torch_pipeline.py.
+tests/test_torch_expert_parallel.py, tests/test_torch_pipeline.py and
+tests/test_torch_resnet.py.
 
     JAX_COORDINATOR_ADDRESS=127.0.0.1:PORT JAX_PROCESS_ID=r \\
     JAX_NUM_PROCESSES=n python tests/torch_dist_worker.py SCENARIO DIR [cuda]
@@ -973,6 +974,46 @@ def scenario_pp_cuda(inputs, out_dir):
     return {"runs": runs, "stage": mesh.get_local_rank("pp"),
             "layers_per_stage": inputs["pp_config"]["n_layers"]
             // dist.get_world_size()}
+
+
+# -- the image workloads ---------------------------------------------------
+
+def _resnet_run(inputs, fault: bool):
+    """The test's tiny f32 ResNet at dp = world: ``steps`` SGD-momentum
+    steps on this rank's rows; the losses and the final state (weights
+    and running statistics).  ``fault`` gives ``bn_init`` local
+    statistics (the reduction skipped on every rank)."""
+    from mpi_operator_tpu_torch.models import resnet as tres
+
+    spec = inputs["resnet"]
+    mesh = tmesh.create_mesh(tmesh.MeshConfig(dp=dist.get_world_size()),
+                             DEVICE)
+    cfg = tres.ResNetConfig(stage_sizes=(1, 1, 1, 1), num_classes=10,
+                            width=8, dtype=torch.float32)
+    model = tres.ResNet(cfg, mesh=mesh,
+                        device=None if DEVICE == "cuda" else "cpu")
+    model.load_state_dict(spec["weights"])
+    if fault:
+        model.bn_init.group = None
+    init, step = ttrain.build_train_step(
+        lambda m, b: tres.cross_entropy_loss(m(b[0]), b[1]),
+        ttrain.sgd(spec["lr"], momentum=spec["momentum"]), mesh=mesh)
+    state = init(model)
+    rows = tmesh.batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                            len(spec["images"]))
+    batch = (spec["images"][rows].to(model.head.weight.device),
+             spec["labels"][rows].to(model.head.weight.device))
+    losses = [step(state, batch)[1]["loss"].item()
+              for _ in range(spec["steps"])]
+    return {"losses": losses,
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def scenario_resnet_world2(inputs, out_dir):
+    """dp = 2: global-batch BatchNorm, and the local-statistics fault."""
+    return {"runs": {"global": _resnet_run(inputs, fault=False),
+                     "local_bn_init": _resnet_run(inputs, fault=True)}}
 
 
 def main() -> int:
