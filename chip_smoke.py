@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mpi_operator_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 12      # a subset (with 2 and 7)
 
 Phases, in order; any failure exits non-zero and no phase is caught and
-continued:
+continued.  ``--phases`` runs the build and the phases named (3, 4, 5,
+6, 7, 9, 10, 11, 12, 13), each with the phases it is checked against (9
+and 10 with 5, 12 with 7), and prints no kernels line.  Every run prints
+each phase's seconds on the line "phase seconds: {...}":
 
 1. card      the card's name and power limit (nvidia-smi), the torch and
              CUDA versions and `nvcc --version`.
@@ -184,7 +188,8 @@ continued:
              (rank 1 keeps its own gradient chunk instead of the
              reduced one) that must fail the check; at one card it
              prints that (b) needs two.  (c) llama2_7b at full width,
-             fsdp = world, 8 x world layers (all 32 at four cards), 1 x
+             fsdp = world, 4 x world layers (16 of 32 at four cards;
+             cut from 8 a card to pay for phase 12 (c), (d)), 1 x
              4096 tokens a rank, f32 parameters and AdamW state, bf16
              compute, built on the meta device and each rank filling
              only its shard: one warm-up step and 3 more, twice, with
@@ -213,10 +218,11 @@ continued:
              streams equal phase 5's or first differ where the one-card
              top-2 gap is below the measured logit error; on every rank
              K4' launches == decode steps x 32 and peak < 80 GB.  (b)
-             with two cards or more, mixtral_8x7b at all 32 layers, tp =
-             world, the same run: concurrent == alone, K4' launches ==
-             steps x 32 on every rank, every expert routed, peak < 80
-             GB; at one card it prints that the model needs two.  (c)
+             with two cards or more, mixtral_8x7b at TP_MOE_LAYERS (8)
+             of 32 layers (cut from 32 to pay for phase 12 (c), (d)), tp
+             = world, the same run: concurrent == alone, K4' launches ==
+             steps x layers on every rank, every expert routed, peak <
+             80 GB; at one card it prints that the model needs two.  (c)
              with two cards or more: llama2_tiny f32, 3 AdamW steps at
              tp = world (and at fsdp = 2 x tp = 2 at four cards) against
              card 0 alone at 1e-5, and a planted fault (rank 1 keeps its
@@ -240,8 +246,9 @@ continued:
              card 0 to two ranks and shrunk back at step 2 of 4: within
              1e-5 of the straight run on two ranks, each moved state
              bit-equal to the state before its move.  (b) llama2_7b at
-             full width, all 32 layers at fsdp = 2 x sp = 2 (8 layers
-             at sp = 2 on two cards), 1 x 16384 tokens a batch shard
+             full width, 16 of 32 layers at fsdp = 2 x sp = 2 (cut
+             from 32 to pay for phase 12 (c), (d); 8 layers at sp = 2
+             on two cards), 1 x 16384 tokens a batch shard
              (8192 a rank), bf16 compute, the ring on the flash kernels,
              1 warm-up + 3 steps, twice; then the ring's forward and
              backward at the layer's shape, and one K/V rotation, timed
@@ -259,7 +266,8 @@ continued:
              train_mfu (the formula of training, over the global
              tokens), peak, the ring's ms a layer and share of the step.
 12. pipeline parallel  one process per card (4 or 2; at one card it
-             prints that it needs two), NCCL.  (a) llama2_tiny f32 at 4
+             prints that it needs two), NCCL, which runs (a) and (d),
+             then (b) and (c).  (a) llama2_tiny f32 at 4
              layers, M = 4: GPipe and 1F1B at pp = 4, 1F1B at dp = 2 x
              pp = 2, interleaved 1F1B (V = 2) at fsdp = 2 x pp = 2 with
              the stages' matrices sharded (two cards: GPipe and 1F1B at
@@ -268,25 +276,43 @@ continued:
              model on card 0 (tests/test_pipeline.py's bounds), then 3
              AdamW steps at 1e-5 as phase 7 (b); a planted fault (rank 1
              files received activations under the wrong ring slot) must
-             fail.  (b) llama2_7b at full width, 8 layers a card (all
-             32 at four cards), pp = cards, M = 8 microbatches of 1 x
+             fail.  (b) llama2_7b at full width, PP_LAYERS_PER_CARD (4)
+             layers a card (16 at four cards; cut from 8 a card to pay
+             for (c) and (d)), pp = cards, M = 8 microbatches of 1 x
              4096 tokens, bf16 compute, f32 weights and AdamW, each
              stage built on the meta device and filled with the one-card
              draws for SEED: 1F1B, then interleaved 1F1B (V = 2), one
              warm-up + 3 steps, twice each; then 1F1B on phase 7 (c)'s
-             weights and global batch (M = cards), 3 steps.  Checked on
+             weights and global batch (its 4 x cards layers, M =
+             cards), 3 steps.  Checked on
              every rank: K1' launches == 2 x M x layers a stage a step
              (each F slot and each B slot's recompute), K2' and K3' ==
              M x layers a stage a step, finite losses, bit-identical
              over the two runs, peak < 80 GB; the first loss within
              1e-4 relative of phase 7 (c)'s and the next two within
-             1e-2.  Printed per rank: ms a step (and each step's),
+             1e-3.  Printed per rank: ms a step (and each step's),
              tokens/s a card, train_mfu (no credit for the recompute),
              peak, allocator retries, the F and B slots' device ms (CUDA
              events) and the idle share they leave of each step, beside
              the tables' bubble (event-driven: (P-1)/(M+P-1) for 1F1B)
              and its lock-step value (each tick as long as its busiest
-             rank).
+             rank).  (c) mixtral_8x7b at full width, PP_MOE_LAYERS of 32
+             layers (2 a stage at four cards), pp = cards, 1F1B, M = 8
+             microbatches of 1 x 4096 tokens, bf16 over f32 weights and
+             AdamW, one warm-up + 3 steps, twice: as (b), and every
+             expert routed on every stage (its layers' last forward).
+             (d) mixtral_tiny f32 at 4 layers, M = 4: 1F1B at pp = 4, at
+             dp = 2 x pp = 2 and at fsdp = 2 x pp = 2 with pp_fsdp (two
+             cards: pp = 2) against card 0 running the same chunks (each
+             MoE layer counts its capacity over one microbatch of a batch
+             shard, as the JAX stages do), at (a)'s bounds; a planted
+             fault (pp stage 1's MoE layers count their capacity over
+             every batch shard's microbatch) must fail.  Then
+             reshard_train_state of a llama2_tiny 1F1B state at pp =
+             cards, moved before step 2 of 4 onto fsdp = 2 x pp = 2 and
+             onto dp = cards: the moved state bit-equal to the state
+             before the move, the losses within 1e-5 of the straight
+             run.  Each part's seconds (rank 0) are printed.
 13. image workloads  (a) a tiny ResNet (stage sizes (1, 1, 1, 1), width
              16, 10 classes, f32, 32 x 32, 8 images from SEED) on card 0
              against the CPU: train-mode logits at 1e-4, the running
@@ -325,7 +351,7 @@ continued:
              decode step (its split and merge kernels) and its share of
              the device's busy time.
 
-Before the last line it prints the card line and one
+Then it prints the phase seconds line, the card line and one
 {"kernels": [...]} JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2137,7 +2163,9 @@ def training_repeat_phase(card: str, losses, name: str = "llama2_7b"):
 
 DIST_MAX_WORLD = 4
 DIST_PI_SAMPLES = 10_000_000
-DIST_LAYERS_PER_CARD = 8          # 8 x world layers of llama2_7b
+DIST_LAYERS_PER_CARD = 4          # (c): 4 x world layers of llama2_7b
+                                  # (16 at four cards: cut from 8 a card
+                                  # to pay for phase 12 (c), (d))
 DIST_STEPS = 4                    # one warm-up + 3 timed
 DIST_PARITY_STEPS = 3
 DIST_STEP_TOL = 1e-5              # tests/test_torch_train.py STEP_TOL
@@ -2268,7 +2296,7 @@ def dist_parity_run(world: int, fsdp: bool, fault: bool):
 
 
 def dist_full_width_run(world: int):
-    """One rank of phase (c): llama2_7b at full width, 8 x world layers,
+    """One rank of phase (c): llama2_7b at full width, 4 x world layers,
     fsdp = world through llama_param_specs, 1 x 4096 tokens a rank, bf16
     compute, f32 parameters and AdamW state.  The model is built on the
     meta device, sharded, then each rank fills only its shard with
@@ -2392,17 +2420,17 @@ def dist_parity_failures(metrics, params, ref_metrics, ref_params,
 
 
 def dist_parity_reference(world: int, preset: str = "llama2_tiny",
-                          n_layers: int = 0):
+                          n_layers: int = 0, loss_fn=None):
     """The same steps in this process on card 0, on the whole global
-    batch: metrics, parameters and the smallest |gradient| per
-    element."""
+    batch (``loss_fn``, default ``dist_loss``): metrics, parameters and
+    the smallest |gradient| per element."""
     from mpi_operator_tpu_torch.models.llama import LlamaModel
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
     cfg, weights, tokens = dist_parity_inputs(world, preset, n_layers)
     model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
     model.load_state_dict(weights)
-    init, step = build_train_step(dist_loss, adamw(DIST_LR))
+    init, step = build_train_step(loss_fn or dist_loss, adamw(DIST_LR))
     state = init(model)
     metrics, smallest = [], {n: torch.full_like(p, float("inf")) for n, p
                              in model.named_parameters()}
@@ -2420,7 +2448,7 @@ def distributed_phase(card: str):
     examples/torch_pi.py; (b) with two cards or more, llama2_tiny f32 at
     dp = world (ZeRO) and fsdp = world against card 0 alone, and a
     planted fault that must fail; (c) llama2_7b at full width, fsdp =
-    world, 8 x world layers."""
+    world, 4 x world layers."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     gc.collect()
@@ -2500,6 +2528,8 @@ TP_LOGIT_LIMIT = 5e-2             # as phase 5c: the same bf16 products,
 TP_DEADLINE_S = 900
 TP_STEPS = 4                      # one warm-up + 3 timed
 TP_DEVICE = "cuda"                # the ranks' device (a CPU dry run: "cpu")
+TP_MOE_LAYERS = 8                 # (b): of 32, cut to pay for phase 12
+                                  # (c) and (d) (PERF.md section 4)
 PR9_FSDP4 = "fsdp=4, 32 layers: 655-666 ms a step, 6,150-6,250 tokens/s a card"
 
 
@@ -2626,7 +2656,7 @@ def tp_serve(world: int, rank: int, refs, moe: bool):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = mixtral_8x7b() if moe else llama2_7b()
+    cfg = mixtral_8x7b(n_layers=TP_MOE_LAYERS) if moe else llama2_7b()
     mesh = tp_mesh(tp=world)
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(SEED),
@@ -2823,21 +2853,35 @@ def tp_rank(out_dir: str) -> int:
     rank, world = tp_group()
     refs = torch.load(os.path.join(out_dir, "tp_refs.pt"))
     result = {"rank": rank, "world": world, "card":
-              torch.cuda.current_device(), "backend": dist.get_backend()}
+              torch.cuda.current_device(), "backend": dist.get_backend(),
+              "seconds": {}}
     tensors = {}
-    serve = tp_serve(world, rank, refs, moe=False)
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        result["seconds"][name] = time.perf_counter() - t0
+        return out
+
+    serve = timed("(a) llama2_7b serving", tp_serve, world, rank, refs,
+                  moe=False)
     tensors.update(logits=serve.pop("logits"),
                    fault_logits=serve.pop("fault_logits", None))
     result["serve"] = serve
     if world >= 2:
-        result["moe"] = tp_serve(world, rank, refs, moe=True)
+        result["moe"] = timed("(b) mixtral_8x7b serving", tp_serve, world,
+                              rank, refs, moe=True)
+        t0 = time.perf_counter()
         runs = {"tp": tp_parity_run(world, 1, fault=False),
                 "tp_fault": tp_parity_run(world, 1, fault=True)}
         if world >= 4:
             runs["fsdp_tp"] = tp_parity_run(world, 2, fault=False)
+        result["seconds"]["(c) parity"] = time.perf_counter() - t0
         result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
         tensors["parity"] = {k: v[1] for k, v in runs.items()}
-        result["full_width"] = [tp_full_width_run(world) for _ in range(2)]
+        result["full_width"] = [timed(f"(c) full width run {i}",
+                                      tp_full_width_run, world)
+                                for i in range(2)]
     if rank == 0:
         torch.save(tensors, os.path.join(out_dir, "tp_tensors.pt"))
     with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
@@ -2901,10 +2945,10 @@ def stream_verdict(got, want, gaps, limit):
 
 def tp_phase(card: str, serve):
     """Phase 9: one process per card (tp_world), NCCL.  (a) llama2_7b
-    served at tp = world, all 32 layers; (b) mixtral_8x7b served at all
-    32 layers, tp = world (two cards or more); (c) training parity at
-    tp = world (and fsdp = 2 x tp = 2) against card 0 alone with a
-    planted fault, and the 7B at full width, twice."""
+    served at tp = world, all 32 layers; (b) mixtral_8x7b served at
+    TP_MOE_LAYERS of 32 layers, tp = world (two cards or more); (c)
+    training parity at tp = world (and fsdp = 2 x tp = 2) against card 0
+    alone with a planted fault, and the 7B at full width, twice."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
     gc.collect()
@@ -2945,11 +2989,12 @@ def tp_phase(card: str, serve):
         raise SystemExit(f"tensor parallel (a): streams differ from the "
                          f"serving phase's beyond a near-tie: {moved}")
     differs = sum(a != b for a, b in zip(run["alone"], serve["alone"]))
-    for label, key, layers in (("(a)", "serve", 32), ("(b)", "moe", 32)):
+    for label, key in (("(a)", "serve"), ("(b)", "moe")):
         if key not in ranks[0]:
             continue
         for r in ranks:
             s = r[key]
+            layers = s["n_layers"]
             if s["launches"] != s["decode_steps"] * layers or \
                     s["launches"] == 0 or not s["peak_bytes"] < 80e9:
                 raise SystemExit(f"tensor parallel {label} rank {r['rank']}:"
@@ -2973,11 +3018,11 @@ def tp_phase(card: str, serve):
     result = {"world": world, "launches_rank0": ranks[0]["serve"]["launches"]}
     if world < 2:
         print("tensor parallel (b) mixtral_8x7b, (c) training: need two "
-              "cards (93.4 GB of bf16 Mixtral weights do not fit one 80 GB "
-              "card); this machine shows one", flush=True)
+              "cards (tp over one card is phase 5f's serving); this "
+              "machine shows one", flush=True)
         return result
 
-    # (b) mixtral_8x7b at 32 layers.
+    # (b) mixtral_8x7b at TP_MOE_LAYERS layers.
     moe = ranks[0]["moe"]
     if moe["run"]["concurrent"] != moe["run"]["alone"]:
         raise SystemExit("tensor parallel (b): concurrent != alone")
@@ -2985,7 +3030,8 @@ def tp_phase(card: str, serve):
         raise SystemExit(f"tensor parallel (b): an expert routed nothing: "
                          f"{moe['routed_share']}")
     print("tensor parallel (b) mixtral_8x7b: " + json.dumps({
-        "card": card, "world": world, "tp": world, "n_layers": 32,
+        "card": card, "world": world, "tp": world,
+        "n_layers": moe["n_layers"],
         **{k: moe["run"][k] for k in keys},
         "pr7_16_layer_one_card_inter_token_latency_s": 0.0692,
         "routed_share_per_expert": moe["routed_share"],
@@ -3027,6 +3073,8 @@ def tp_phase(card: str, serve):
                                      "pr9": PR9_FSDP4, "ranks": stats}),
           flush=True)
     result["train_launches_rank0"] = stats[0]["launches"]
+    print("tensor parallel parts (seconds, rank 0): "
+          + json.dumps(ranks[0]["seconds"]), flush=True)
     return result
 
 
@@ -3057,9 +3105,10 @@ def sp_full_configs(world: int):
     ep rank (E/2 experts): 6.2 B with the embeddings, 50 GB a rank at
     fsdp = 2 (52.9 GB peak measured at 6 layers, so about 65 at 8).  Two
     cards, without fsdp: the 7B at 8 layers (34 GB of state) and Mixtral
-    at 4 (52 GB)."""
+    at 4 (52 GB).  The 7B runs 16 of its 32 layers at four cards: the
+    seconds it saved pay for phase 12 (c) and (d) (PERF.md section 4)."""
     four = world >= 4
-    return ({"preset": "llama2_7b", "layers": 32 if four else 8,
+    return ({"preset": "llama2_7b", "layers": 16 if four else 8,
              "mesh": dict(fsdp=2, sp=2) if four else dict(sp=2),
              "seq": 16384, "remat": True},
             {"preset": "mixtral_8x7b", "layers": 8 if four else 4,
@@ -3369,9 +3418,13 @@ def sp_rank(out_dir: str, part: str) -> int:
     faulthandler.dump_traceback_later(SP_DEADLINE_S - 30, exit=False)
     rank, world = sp_group()
     result = {"rank": rank, "world": world, "backend": dist.get_backend(),
-              "card": torch.cuda.current_device()}
+              "card": torch.cuda.current_device(), "seconds": {}}
+    t0 = time.perf_counter()
 
     def done(what):
+        nonlocal t0
+        result["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         print(f"sp rank {rank}: {what} done", flush=True)
 
     if part == "parity":
@@ -3381,10 +3434,10 @@ def sp_rank(out_dir: str, part: str) -> int:
         for kind in kinds:
             runs[kind] = sp_parity_run(world, kind, fault=False)
             runs[kind + "_fault"] = sp_parity_run(world, kind, fault=True)
-            done(kind)
+            done(f"(a) {kind}")
         result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
         reshard = sp_reshard_run(world)
-        done("reshard")
+        done("(a) reshard")
         if rank == 0:
             torch.save({"parity": {k: v[1] for k, v in runs.items()},
                         "reshard": reshard},
@@ -3396,7 +3449,8 @@ def sp_rank(out_dir: str, part: str) -> int:
             mesh = sp_mesh(**spec["mesh"])
             result["full_width"][spec["preset"]] = [
                 sp_full_width_run(world, spec, mesh) for _ in range(2)]
-            done(spec["preset"])
+            done(f"{'(c)' if spec['preset'].startswith('mixtral') else '(b)'}"
+                 f" {spec['preset']}")
             with open(path, "w") as f:         # what is done so far
                 json.dump(result, f)
     with open(path, "w") as f:
@@ -3448,7 +3502,9 @@ def sp_verdict(card: str, world: int, out_dir: str, refs):
         if parts[0]["card"] != parts[1]["card"]:
             raise SystemExit(f"sequence/expert parallel: rank {r} on cards "
                              f"{parts[0]['card']} and {parts[1]['card']}")
-        ranks.append({**parts[0], **parts[1]})
+        ranks.append({**parts[0], **parts[1],
+                      "seconds": {**parts[0]["seconds"],
+                                  **parts[1]["seconds"]}})
     tensors = torch.load(os.path.join(out_dir, "sp_tensors.pt"))
     if any(r["world"] != world or r["backend"] != "nccl"
            or r["card"] != r["rank"] for r in ranks):
@@ -3522,6 +3578,8 @@ def sp_verdict(card: str, world: int, out_dir: str, refs):
               flush=True)
         result[spec["preset"]] = {f"rank{s['rank']}": s["launches"]
                                   for s in stats}
+    print("sequence/expert parallel parts (seconds, rank 0): "
+          + json.dumps(ranks[0]["seconds"]), flush=True)
     return result
 
 
@@ -3530,14 +3588,19 @@ def sp_verdict(card: str, world: int, out_dir: str, refs):
 PP_DEADLINE_S = 900
 PP_STEPS = 4                      # one warm-up + 3 timed
 PP_CHECK_STEPS = 3                # the run held to phase 7 (c)'s losses
-PP_MICRO = 8                      # (b): M microbatches of 1 x 4096 tokens
-PP_LAYERS_PER_CARD = 8            # (b): all 32 layers of the 7B at pp = 4
-PP_PARITY_LAYERS = 4              # (a): llama2_tiny deep enough for pp = 4
+PP_MICRO = 8                      # (b), (c): M microbatches of 1 x 4096
+PP_LAYERS_PER_CARD = 4            # (b): 16 of the 7B's 32 layers at pp = 4
+PP_PARITY_LAYERS = 4              # (a), (d): tiny, deep enough for pp = 4
 PP_PARITY_M = 4
 PP_LOSS_RTOL = 2e-5               # tests/test_pipeline.py:367
 PP_GRAD_RTOL, PP_GRAD_ATOL = 2e-4, 2e-5   # tests/test_pipeline.py:378
 PP_CHECK_FIRST, PP_CHECK_NEXT = 1e-4, 1e-3   # against phase 7 (c)
 PP_B_COST = 3.0                   # a B slot: the recompute and the backward
+PP_MOE_PRESET = "mixtral_8x7b"    # (c)
+PP_MOE_LAYERS = 8                 # (c): of 32; 2 a stage, ~48 GB of state
+PP_RESHARD_AT = 2                 # (d): the move, before step 2 of
+PP_RESHARD_STEPS = 4
+PP_RESHARD_TOL = 1e-5             # (d): losses against the straight run
 
 
 def pp_world() -> int:
@@ -3547,16 +3610,36 @@ def pp_world() -> int:
 
 
 def pp_parity_kinds(world: int):
-    """(a)'s runs: name -> (mesh axes, schedule, virtual stages,
-    pp_fsdp).  The planted fault runs on the first 1F1B kind."""
+    """(a)'s runs on llama2_tiny and (d)'s on mixtral_tiny: name ->
+    (preset, mesh axes, schedule, virtual stages, pp_fsdp).  Each
+    preset's planted fault runs on ``pp_fault_kinds``' kind."""
     if world >= 4:
-        return {"gpipe_pp4": (dict(pp=4), "gpipe", 1, False),
-                "1f1b_pp4": (dict(pp=4), "1f1b", 1, False),
-                "1f1b_dp2_pp2": (dict(dp=2, pp=2), "1f1b", 1, False),
-                "interleaved_fsdp2_pp2": (dict(fsdp=2, pp=2), "1f1b", 2,
-                                          True)}
-    return {"gpipe_pp2": (dict(pp=2), "gpipe", 1, False),
-            "1f1b_pp2": (dict(pp=2), "1f1b", 1, False)}
+        return {"gpipe_pp4": ("llama2_tiny", dict(pp=4), "gpipe", 1, False),
+                "1f1b_pp4": ("llama2_tiny", dict(pp=4), "1f1b", 1, False),
+                "1f1b_dp2_pp2": ("llama2_tiny", dict(dp=2, pp=2), "1f1b", 1,
+                                 False),
+                "interleaved_fsdp2_pp2": ("llama2_tiny", dict(fsdp=2, pp=2),
+                                          "1f1b", 2, True),
+                "moe_1f1b_pp4": ("mixtral_tiny", dict(pp=4), "1f1b", 1,
+                                 False),
+                "moe_1f1b_dp2_pp2": ("mixtral_tiny", dict(dp=2, pp=2),
+                                     "1f1b", 1, False),
+                "moe_1f1b_fsdp2_pp2": ("mixtral_tiny", dict(fsdp=2, pp=2),
+                                       "1f1b", 1, True)}
+    return {"gpipe_pp2": ("llama2_tiny", dict(pp=2), "gpipe", 1, False),
+            "1f1b_pp2": ("llama2_tiny", dict(pp=2), "1f1b", 1, False),
+            "moe_1f1b_pp2": ("mixtral_tiny", dict(pp=2), "1f1b", 1, False)}
+
+
+def pp_fault_kinds(world: int):
+    """The planted faults: (a)'s wrong ring slot on the first 1F1B kind,
+    (d)'s capacity fault on the MoE kind with two batch shards (at two
+    cards: the MoE kind)."""
+    kinds = pp_parity_kinds(world)
+    return {next(k for k, v in kinds.items()
+                 if v[0] == "llama2_tiny" and v[2] == "1f1b"): "wrong_slot",
+            ("moe_1f1b_dp2_pp2" if world >= 4 else "moe_1f1b_pp2"):
+            "capacity"}
 
 
 _PP_MESHES = {}
@@ -3619,37 +3702,51 @@ def _wrong_slot(tick_ops):
     return planted
 
 
-def pp_parity_run(world: int, spec, fault: bool):
-    """Phase 12 (a), one rank: llama2_tiny f32 at PP_PARITY_LAYERS layers
-    on ``spec``'s mesh and schedule: the (loss, gradients) of one pass,
-    joined into the one-device layout, then DIST_PARITY_STEPS AdamW steps
-    of build_train_step and the joined weights after.  ``fault``: rank 1
-    files received activations under the wrong ring slot."""
+def _capacity_fault(stage, mesh) -> None:
+    """Phase 12 (d)'s planted fault: the MoE layers of this stage count
+    their capacity over the rows of every batch shard's microbatch (with
+    one batch shard: over every microbatch), not over the rows of one
+    microbatch of their own shard, as the JAX stages do."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    shards = sizes["dp"] * sizes["fsdp"]
+    for block in stage.layers.values():
+        block.feed_forward.capacity_factor *= \
+            shards if shards > 1 else PP_PARITY_M
+
+
+def pp_parity_run(world: int, spec, fault=None):
+    """Phase 12 (a) or (d), one rank: ``spec``'s tiny f32 model at
+    PP_PARITY_LAYERS layers on its mesh and schedule: the (loss,
+    gradients) of one pass, joined into the one-device layout, then
+    DIST_PARITY_STEPS AdamW steps of build_train_step and the joined
+    weights after.  ``fault``: "wrong_slot" (rank 1 files received
+    activations under the wrong ring slot) or "capacity" (pp stage 1's
+    MoE layers count their capacity over too many rows)."""
     import torch.distributed as dist
 
     from mpi_operator_tpu_torch.models.llama_pipeline import (
         LlamaStage, pipeline_loss, pipeline_loss_and_grads_1f1b)
     from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
     from mpi_operator_tpu_torch.parallel import pipeline
-    from mpi_operator_tpu_torch.parallel.mesh import batch_rows
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
-    axes, schedule, virtual, pp_fsdp = spec
-    cfg, weights, tokens = dist_parity_inputs(world,
+    preset, axes, schedule, virtual, pp_fsdp = spec
+    cfg, weights, tokens = dist_parity_inputs(world, preset,
                                               n_layers=PP_PARITY_LAYERS)
     mesh = pp_mesh(**axes)
-    rows = tokens[batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
-                             len(tokens))].cuda()
+    rows = _rows_on(mesh, tokens)
 
     def stage():
         s = LlamaStage(cfg, mesh=mesh, virtual_stages=virtual,
                        fsdp_shard=pp_fsdp, device="cuda",
                        store_dtype=torch.float32)
         s.load_full_state_dict(weights)
+        if fault == "capacity" and mesh.get_local_rank("pp") == 1:
+            _capacity_fault(s, mesh)
         return s
 
     real = pipeline.tick_ops
-    if fault and dist.get_rank() == 1:
+    if fault == "wrong_slot" and dist.get_rank() == 1:
         pipeline.tick_ops = _wrong_slot(real)
     try:
         one = stage()
@@ -3678,16 +3775,91 @@ def pp_parity_run(world: int, spec, fault: bool):
             {"grads": grads, "params": params})
 
 
+def pp_reshard_targets(world: int):
+    """(d)'s moves of a pp = world 1F1B state: name -> (mesh axes,
+    pp_fsdp)."""
+    if world >= 4:
+        return {"fsdp2_pp2": (dict(fsdp=2, pp=world // 2), True),
+                f"dp{world}": (dict(dp=world), False)}
+    return {f"dp{world}": (dict(dp=world), False)}
+
+
+def pp_reshard_run(world: int):
+    """Phase 12 (d), the re-shard of a pipeline: llama2_tiny f32 at
+    PP_PARITY_LAYERS layers, a 1F1B state at pp = world, PP_RESHARD_STEPS
+    steps straight, and moved before step PP_RESHARD_AT onto each of
+    ``pp_reshard_targets`` (every rank takes part in each move).
+    Returns, on rank 0: each run's losses and, for each move, whether
+    the moved state_dict equals the one before the move, bit for bit,
+    and the plan that took it."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
+    from mpi_operator_tpu_torch.parallel.train import (adamw,
+                                                       build_train_step,
+                                                       reshard_train_state)
+
+    cfg, weights, tokens = dist_parity_inputs(world,
+                                              n_layers=PP_PARITY_LAYERS)
+    start = pp_mesh(pp=world)
+
+    def build(axes, pp_fsdp):
+        mesh = pp_mesh(**axes)
+        if axes.get("pp", 1) > 1:
+            return mesh, build_train_step(
+                None, adamw(DIST_LR), mesh=mesh, pipeline_schedule="1f1b",
+                microbatches=PP_PARITY_M, pp_fsdp=pp_fsdp)
+        return mesh, build_train_step(dist_loss, adamw(DIST_LR), mesh=mesh)
+
+    def run(target):
+        init, step = build(dict(pp=world), False)[1]
+        stage = LlamaStage(cfg, mesh=start, device="cuda",
+                           store_dtype=torch.float32)
+        stage.load_full_state_dict(weights)
+        state, mesh, losses, moved = init(stage), start, [], None
+        for i in range(PP_RESHARD_STEPS):
+            if i == PP_RESHARD_AT and target is not None:
+                axes, pp_fsdp = target
+                before = state.state_dict()
+                mesh, (_, step) = build(axes, pp_fsdp)
+                state = reshard_train_state(
+                    state, mesh, pipeline_schedule="1f1b",
+                    microbatches=PP_PARITY_M, pp_fsdp=pp_fsdp)
+                after = state.state_dict()
+                if dist.get_rank() == 0:
+                    moved = {"equal": state.step == PP_RESHARD_AT
+                             and state_dicts_equal(before, after),
+                             "plan": type(state.plan).__name__}
+            state, m = step(state, _rows_on(mesh, tokens))
+            losses.append(m["loss"].item())
+        return {"losses": losses, "moved": moved}
+
+    out = {"straight": run(None)}
+    for name, target in pp_reshard_targets(world).items():
+        out[name] = run(target)
+    return out if dist.get_rank() == 0 else None
+
+
+def _rows_on(mesh, tokens):
+    """This rank's rows of the global batch, on its card."""
+    from mpi_operator_tpu_torch.parallel.mesh import batch_rows
+    return tokens[batch_rows(tuple(mesh.shape), mesh.get_coordinate(),
+                             len(tokens))].cuda()
+
+
 def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
-                      steps: int):
-    """Phase 12 (b), one rank: llama2_7b at full width, 8 layers a card
-    (all 32 at pp = 4), pp = world, the 1F1B schedule (interleaved at
-    ``virtual`` > 1) over ``n_micro`` microbatches of the rows of
-    ``tokens`` (every stage takes them all), f32 weights and AdamW state,
-    bf16 compute; the stage is built on the meta device and filled with
-    init_params' draws for SEED.  Per step: host ms between synchronised
-    steps, and the F and B slots' device ms (CUDA events) for the
-    pipeline's idle share."""
+                      steps: int, preset: str = "llama2_7b",
+                      n_layers: int = 0):
+    """Phase 12 (b) or (c), one rank: ``preset`` at full width and
+    ``n_layers`` layers (default: PP_LAYERS_PER_CARD a card), pp =
+    world, the 1F1B schedule (interleaved at ``virtual`` > 1) over
+    ``n_micro`` microbatches of the rows of ``tokens`` (every stage takes
+    them all), f32 weights and AdamW state, bf16 compute; the stage is
+    built on the meta device and filled with init_params' draws for SEED.
+    Per step: host ms between synchronised steps, and the F and B slots'
+    device ms (CUDA events) for the pipeline's idle share; for MoE the
+    routed share of each expert over the stage's layers' last
+    forward."""
     import torch.distributed as dist
 
     from mpi_operator_tpu_torch.models import llama
@@ -3697,8 +3869,8 @@ def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
     from mpi_operator_tpu_torch.parallel import pipeline
     from mpi_operator_tpu_torch.parallel.train import adamw, build_train_step
 
-    cfg = dataclasses.replace(llama.llama2_7b(),
-                              n_layers=PP_LAYERS_PER_CARD * world)
+    cfg = dataclasses.replace(getattr(llama, preset)(),
+                              n_layers=n_layers or PP_LAYERS_PER_CARD * world)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3736,7 +3908,8 @@ def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
     each = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     step_ms = (stamps[-1] - stamps[1]) * 1e3 / (steps - 1)
     fwd, bwd, n_ticks, *_ = pipeline.schedule(world, n_micro, virtual)
-    out = {"n_layers": cfg.n_layers, "pp": world, "virtual_stages": virtual,
+    out = {"preset": preset, "n_layers": cfg.n_layers, "pp": world,
+           "virtual_stages": virtual,
            "microbatches": n_micro, "tokens_per_step": rows.numel(),
            "stage": state.model.stage, "layers": state.model.layer_ids,
            "local_params": local_params, "init_s": init_s,
@@ -3744,6 +3917,8 @@ def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
            "tokens_per_s_per_card": rows.numel() / (step_ms / 1e3) / world,
            "train_mfu": train_flops(cfg, rows.shape[0], rows.shape[1])
            / (step_ms / 1e3) / (world * PEAK_OPS[torch.bfloat16]),
+           "train_flops_per_step": train_flops(cfg, rows.shape[0],
+                                               rows.shape[1]),
            "busy_ms": busy,
            "idle_share": [1 - b / s for b, s in zip(busy[1:], each[1:])],
            "schedule_bubble": table_bubble(fwd, bwd, world, virtual,
@@ -3754,6 +3929,12 @@ def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
            "alloc_retries": torch.cuda.memory_stats().get(
                "num_alloc_retries", 0),
            "peak_bytes": torch.cuda.max_memory_allocated()}
+    if cfg.n_experts > 1:
+        experts = torch.arange(cfg.n_experts, device=rows.device)
+        hits = sum((block.feed_forward.last_routing[0][..., None]
+                    == experts).sum((0, 1))
+                   for block in state.model.layers.values())
+        out["routed_share"] = (hits / hits.sum()).tolist()
     if virtual == 1:
         out["bubble_formula"] = (world - 1) / (n_micro + world - 1)
     del state, metrics
@@ -3761,10 +3942,13 @@ def pp_full_width_run(world: int, virtual: int, n_micro: int, tokens,
     return out
 
 
-def pp_rank(out_dir: str, part: str) -> int:
-    """A child of phase 12: ``part`` "parity" runs (a) and its planted
-    fault; "full" runs (b): the 7B under 1F1B and interleaved 1F1B, each
-    twice, and the run on phase 7 (c)'s weights and batch."""
+def pp_rank(out_dir: str) -> int:
+    """A child of phase 12: (a) and (d) (parity, the planted faults, the
+    re-shard of a pipeline state), then in the same process, on the
+    communicators and the warm card these leave, (b), the 7B under 1F1B
+    and interleaved 1F1B, each twice, and the run on phase 7 (c)'s
+    weights and batch, then (c), mixtral_8x7b under 1F1B, twice.  Each
+    part's seconds are kept."""
     import faulthandler
 
     import torch.distributed as dist
@@ -3772,35 +3956,54 @@ def pp_rank(out_dir: str, part: str) -> int:
     faulthandler.dump_traceback_later(PP_DEADLINE_S - 30, exit=False)
     rank, world = sp_group()
     result = {"rank": rank, "world": world, "backend": dist.get_backend(),
-              "card": torch.cuda.current_device()}
-    path = os.path.join(out_dir, f"pp_{part}_rank{rank}.json")
-    if part == "parity":
-        kinds = pp_parity_kinds(world)
-        runs = {k: pp_parity_run(world, spec, fault=False)
-                for k, spec in kinds.items()}
-        fault = next(k for k, v in kinds.items() if v[1] == "1f1b")
-        runs[fault + "_fault"] = pp_parity_run(world, kinds[fault],
-                                               fault=True)
-        result["parity"] = {k: v[0] for k, v in runs.items()}
-        if rank == 0:
-            torch.save({k: v[1] for k, v in runs.items()},
-                       os.path.join(out_dir, "pp_tensors.pt"))
-    else:
-        seq = 4096
-        tokens = np.random.default_rng(SEED).integers(0, 32000,
-                                                      (PP_MICRO, seq))
-        result["full_width"] = {}
-        for name, virtual in (("1f1b", 1), ("interleaved", 2)):
-            result["full_width"][name] = [
-                pp_full_width_run(world, virtual, PP_MICRO, tokens, PP_STEPS)
-                for _ in range(2)]
-            print(f"pp rank {rank}: {name} done", flush=True)
-            with open(path, "w") as f:         # what is done so far
-                json.dump(result, f)
-        # Phase 7 (c)'s global batch: one row a card, as M = world.
-        check = np.random.default_rng(SEED).integers(0, 32000, (world, seq))
-        result["phase7_check"] = pp_full_width_run(world, 1, world, check,
-                                                   PP_CHECK_STEPS)
+              "card": torch.cuda.current_device(), "seconds": {}}
+    path = os.path.join(out_dir, f"pp_rank{rank}.json")
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        result["seconds"][name] = time.perf_counter() - t0
+        print(f"pp rank {rank}: {name} done", flush=True)
+        return out
+
+    kinds, faults = pp_parity_kinds(world), pp_fault_kinds(world)
+    runs = {}
+    for name, spec in kinds.items():
+        label = "(d) moe parity" if spec[0] == "mixtral_tiny" else \
+            "(a) parity"
+        runs[name] = timed(f"{label} {name}", pp_parity_run, world, spec)
+        if name in faults:
+            runs[name + "_fault"] = timed(
+                f"{label} {name} fault", pp_parity_run, world, spec,
+                faults[name])
+    result["parity"] = {k: v[0] for k, v in runs.items()}
+    reshard = timed("(d) reshard", pp_reshard_run, world)
+    if rank == 0:
+        torch.save({"runs": {k: v[1] for k, v in runs.items()},
+                    "reshard": reshard},
+                   os.path.join(out_dir, "pp_tensors.pt"))
+    del runs, reshard
+    gc.collect()
+
+    seq = 4096
+    tokens = np.random.default_rng(SEED).integers(0, 32000, (PP_MICRO, seq))
+    result["full_width"] = {}
+    for name, virtual in (("1f1b", 1), ("interleaved", 2)):
+        result["full_width"][name] = [
+            timed(f"(b) {name} run {i}", pp_full_width_run, world,
+                  virtual, PP_MICRO, tokens, PP_STEPS)
+            for i in range(2)]
+        with open(path, "w") as f:             # what is done so far
+            json.dump(result, f)
+    # Phase 7 (c)'s global batch: one row a card, as M = world.
+    check = np.random.default_rng(SEED).integers(0, 32000, (world, seq))
+    result["phase7_check"] = timed(
+        "(b) phase 7 (c) check", pp_full_width_run, world, 1, world,
+        check, PP_CHECK_STEPS, "llama2_7b", DIST_LAYERS_PER_CARD * world)
+    result["full_width"]["moe_1f1b"] = [
+        timed(f"(c) {PP_MOE_PRESET} run {i}", pp_full_width_run, world,
+              1, PP_MICRO, tokens, PP_STEPS, PP_MOE_PRESET, PP_MOE_LAYERS)
+        for i in range(2)]
     with open(path, "w") as f:
         json.dump(result, f)
     dist.barrier()
@@ -3813,9 +4016,11 @@ def pp_rank(out_dir: str, part: str) -> int:
 def pp_phase(card: str, phase7_losses):
     """Phase 12: one process per card (4 or 2), NCCL.  (a) parity of
     llama2_tiny through GPipe, 1F1B and interleaved 1F1B against card 0
-    alone, with a planted fault; (b) llama2_7b at full width, 8 layers a
-    card, under 1F1B and interleaved 1F1B, and held to phase 7 (c)'s
-    losses on its weights and batch."""
+    alone, with a planted fault; (b) llama2_7b at full width under 1F1B
+    and interleaved 1F1B, and held to phase 7 (c)'s losses on its
+    weights and batch; (c) mixtral_8x7b at full width under 1F1B; (d) mixtral_tiny's
+    parity against card 0 with a planted capacity fault, and the
+    re-shard of a 1F1B state."""
     import tempfile
     world = pp_world()
     if world < 2:
@@ -3830,33 +4035,57 @@ def pp_phase(card: str, phase7_losses):
     refs = pp_references(world)
     gc.collect()
     torch.cuda.empty_cache()
-    for part in ("parity", "full"):
-        run_ranks([sys.executable, os.path.abspath(__file__), "pp-rank",
-                   out_dir, part], world, f"pipeline parallel ({part})",
-                  PP_DEADLINE_S, out_dir)
+    run_ranks([sys.executable, os.path.abspath(__file__), "pp-rank",
+               out_dir], world, "pipeline parallel", PP_DEADLINE_S, out_dir)
     return pp_verdict(card, world, out_dir, refs, phase7_losses)
 
 
+def pp_chunk_loss(rows: int):
+    """The loss of a pipeline whose microbatches of each batch shard hold
+    ``rows`` rows, on one card: the mean over the global batch's chunks
+    of ``rows`` rows of each chunk's loss.  The model's MoE layers then
+    count their capacity over each chunk, as a pipeline stage's over one
+    microbatch of its shard."""
+    def loss(model, batch):
+        chunks = batch.split(rows)
+        return sum(dist_loss(model, c) for c in chunks) / len(chunks)
+    return loss
+
+
 def pp_references(world: int):
-    """Card 0 alone on (a)'s weights and global batch: the sequential
-    model's loss and gradients, and DIST_PARITY_STEPS AdamW steps."""
+    """Card 0 alone on (a)'s and (d)'s weights and global batch, per
+    preset and (for MoE) per microbatch size: the loss and gradients of
+    one pass and DIST_PARITY_STEPS AdamW steps.  The dense loss is the
+    sequential model's; the MoE loss the mean over the chunks each
+    pipeline microbatch holds (``pp_chunk_loss``)."""
     from mpi_operator_tpu_torch.models.llama import LlamaModel
-    cfg, weights, tokens = dist_parity_inputs(world,
-                                              n_layers=PP_PARITY_LAYERS)
-    model = LlamaModel(cfg, device="cuda", store_dtype=torch.float32)
-    model.load_state_dict(weights)
-    loss = dist_loss(model, tokens.cuda())
-    loss.backward()
-    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
-    del model
-    return {"loss": loss.item(), "grads": grads,
-            "steps": dist_parity_reference(world,
-                                           n_layers=PP_PARITY_LAYERS)}
+    refs, done = {}, {}
+    for name, (preset, axes, *_) in pp_parity_kinds(world).items():
+        moe = preset == "mixtral_tiny"
+        cfg, weights, tokens = dist_parity_inputs(world, preset,
+                                                  n_layers=PP_PARITY_LAYERS)
+        shards = axes.get("dp", 1) * axes.get("fsdp", 1)
+        rows = len(tokens) // shards // PP_PARITY_M if moe else 0
+        if (preset, rows) not in done:
+            loss_fn = pp_chunk_loss(rows) if moe else dist_loss
+            model = LlamaModel(cfg, device="cuda",
+                               store_dtype=torch.float32)
+            model.load_state_dict(weights)
+            loss = loss_fn(model, tokens.to("cuda"))
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            del model
+            done[(preset, rows)] = {
+                "loss": loss.item(), "grads": grads,
+                "steps": dist_parity_reference(world, preset,
+                                               PP_PARITY_LAYERS, loss_fn)}
+        refs[name] = done[(preset, rows)]
+    return refs
 
 
 def pp_grad_failures(loss, grads, ref_loss, ref_grads):
-    """What in one pass differs from the sequential model beyond the JAX
-    tests' bounds."""
+    """What in one pass differs from the one-card reference beyond the
+    JAX tests' bounds."""
     bad = []
     if abs(loss - ref_loss) > PP_LOSS_RTOL * abs(ref_loss):
         bad.append(f"loss {loss} vs {ref_loss}")
@@ -3867,74 +4096,55 @@ def pp_grad_failures(loss, grads, ref_loss, ref_grads):
     return bad
 
 
+def pp_full_width_verdict(card: str, world: int, ranks, name: str,
+                          label: str):
+    """(b) or (c)'s checks on every rank and its printed line: launches
+    exact (K1' 2 x M x layers a stage a step, K2' and K3' M x layers a
+    stage), finite and bit-identical losses over the two runs, peak
+    below 80 GB, and for MoE every expert routed on every stage."""
+    stats = []
+    for r in ranks:
+        first, again = r["full_width"][name]
+        per = PP_MICRO * first["n_layers"] // world
+        want = {"flash_fwd": 2 * per * PP_STEPS,
+                "flash_bwd_dq": per * PP_STEPS,
+                "flash_bwd_dkv": per * PP_STEPS}
+        if first["launches"] != want or \
+                not all(np.isfinite(first["losses"])) or \
+                not first["peak_bytes"] < 80e9 or \
+                again["losses"] != first["losses"] or \
+                min(first.get("routed_share", [1])) <= 0:
+            raise SystemExit(
+                f"pipeline parallel {label} rank {r['rank']}: launches "
+                f"{first['launches']} (want {want}), {first} / repeat "
+                f"{again['losses']}")
+        stats.append({**first, "rank": r["rank"], "launches_want": want,
+                      "losses_repeat": again["losses"],
+                      "repeat_step_ms": again["step_ms"]})
+    s = stats[0]
+    print(f"pipeline parallel {label} {s['preset']} full width, "
+          f"{s['n_layers']} of 32 layers, pp={world}, {name} "
+          f"(V={s['virtual_stages']}), M={PP_MICRO} x 1 x 4096 tokens: "
+          + json.dumps({"card": card, "world": world, "ranks": stats}),
+          flush=True)
+    return {f"rank{s['rank']}": s["launches"] for s in stats}
+
+
 def pp_verdict(card: str, world: int, out_dir: str, refs, phase7_losses):
     """Phase 12's checks and printed results."""
-    ranks = []
-    for r in range(world):
-        parts = [json.load(open(os.path.join(out_dir,
-                                             f"pp_{part}_rank{r}.json")))
-                 for part in ("parity", "full")]
-        ranks.append({**parts[0], **parts[1]})
+    ranks = [json.load(open(os.path.join(out_dir, f"pp_rank{r}.json")))
+             for r in range(world)]
     if any(r["world"] != world or r["backend"] != "nccl"
            or r["card"] != r["rank"] for r in ranks):
         raise SystemExit(f"pipeline parallel: ranks formed {ranks}")
-    tensors = torch.load(os.path.join(out_dir, "pp_tensors.pt"))
+    pp_parity_verdict(card, world, ranks, out_dir, refs)
 
-    # (a) parity and the planted fault.
-    ref_metrics, ref_params, smallest = refs["steps"]
-    verdict = {}
-    for name, t in tensors.items():
-        # The joined gradients and weights are rank 0's (every rank holds
-        # the same); each rank's loss and metrics are its own.
-        verdict[name] = pp_grad_failures(
-            ranks[0]["parity"][name]["loss"], t["grads"], refs["loss"],
-            refs["grads"]) + [f for r in ranks for f in dist_parity_failures(
-                r["parity"][name]["metrics"], t["params"], ref_metrics,
-                ref_params, smallest)] + [
-            f"rank {r['rank']} loss {r['parity'][name]['loss']}"
-            for r in ranks if r["parity"][name]["loss"]
-            != ranks[0]["parity"][name]["loss"]]
-    if any(v for k, v in verdict.items() if not k.endswith("_fault")) or \
-            not all(v for k, v in verdict.items() if k.endswith("_fault")):
-        raise SystemExit(f"pipeline parallel (a) parity: {verdict}")
-    print("pipeline parallel (a) parity: " + json.dumps({
-        "card": card, "world": world, "layers": PP_PARITY_LAYERS,
-        "microbatches": PP_PARITY_M,
-        "held_at": {"loss_rtol": PP_LOSS_RTOL, "grad_rtol": PP_GRAD_RTOL,
-                    "grad_atol": PP_GRAD_ATOL, "steps": DIST_STEP_TOL},
-        "runs": [k for k in verdict if not k.endswith("_fault")],
-        "loss_rel_err": {k: abs(ranks[0]["parity"][k]["loss"] - refs["loss"])
-                         / abs(refs["loss"]) for k in verdict},
-        "planted_faults_caught": {k: v[:2] for k, v in verdict.items()
-                                  if k.endswith("_fault")}}), flush=True)
-
-    # (b) full width.
+    # (b) and (c) full width.
     result = {"world": world}
     for name in ("1f1b", "interleaved"):
-        stats = []
-        for r in ranks:
-            first, again = r["full_width"][name]
-            per = PP_MICRO * first["n_layers"] // world
-            want = {"flash_fwd": 2 * per * PP_STEPS,
-                    "flash_bwd_dq": per * PP_STEPS,
-                    "flash_bwd_dkv": per * PP_STEPS}
-            if first["launches"] != want or \
-                    not all(np.isfinite(first["losses"])) or \
-                    not first["peak_bytes"] < 80e9 or \
-                    again["losses"] != first["losses"]:
-                raise SystemExit(
-                    f"pipeline parallel (b) {name} rank {r['rank']}: "
-                    f"launches {first['launches']} (want {want}), {first} "
-                    f"/ repeat {again['losses']}")
-            stats.append({**first, "rank": r["rank"], "launches_want": want,
-                          "losses_repeat": again["losses"],
-                          "repeat_step_ms": again["step_ms"]})
-        print(f"pipeline parallel (b) llama2_7b full width, "
-              f"{stats[0]['n_layers']} layers, pp={world}, {name} "
-              f"(V={stats[0]['virtual_stages']}), M={PP_MICRO} x 1 x 4096 "
-              f"tokens: " + json.dumps({"card": card, "world": world,
-                                        "ranks": stats}), flush=True)
-        result[name] = {f"rank{s['rank']}": s["launches"] for s in stats}
+        result[name] = pp_full_width_verdict(card, world, ranks, name, "(b)")
+    result["moe_1f1b"] = pp_full_width_verdict(card, world, ranks,
+                                               "moe_1f1b", "(c)")
 
     # Held to phase 7 (c) on its weights and its global batch.
     check = [r["phase7_check"] for r in ranks]
@@ -3952,7 +4162,67 @@ def pp_verdict(card: str, world: int, out_dir: str, refs, phase7_losses):
         "rel_diff": diffs, "limits": [PP_CHECK_FIRST, PP_CHECK_NEXT],
         "step_ms": [c["step_ms"] for c in check],
         "peak_bytes": [c["peak_bytes"] for c in check]}), flush=True)
+    print("pipeline parallel parts (seconds, rank 0): "
+          + json.dumps(ranks[0]["seconds"]), flush=True)
     return result
+
+
+def pp_parity_verdict(card: str, world: int, ranks, out_dir: str, refs):
+    """(a) and (d)'s checks and printed results: parity of every run
+    against card 0, each planted fault caught, and the re-shard."""
+    tensors = torch.load(os.path.join(out_dir, "pp_tensors.pt"))
+    verdict = {}
+    for name, t in tensors["runs"].items():
+        ref = refs[name.removesuffix("_fault")]
+        ref_metrics, ref_params, smallest = ref["steps"]
+        # The joined gradients and weights are rank 0's (every rank holds
+        # the same); each rank's loss and metrics are its own.
+        verdict[name] = pp_grad_failures(
+            ranks[0]["parity"][name]["loss"], t["grads"], ref["loss"],
+            ref["grads"]) + [f for r in ranks for f in dist_parity_failures(
+                r["parity"][name]["metrics"], t["params"], ref_metrics,
+                ref_params, smallest)] + [
+            f"rank {r['rank']} loss {r['parity'][name]['loss']}"
+            for r in ranks if r["parity"][name]["loss"]
+            != ranks[0]["parity"][name]["loss"]]
+    if any(v for k, v in verdict.items() if not k.endswith("_fault")) or \
+            not all(v for k, v in verdict.items() if k.endswith("_fault")):
+        raise SystemExit(f"pipeline parallel (a)/(d) parity: {verdict}")
+    for label, moe in (("(a)", False), ("(d)", True)):
+        names = [k for k in verdict if k.startswith("moe_") == moe]
+        print(f"pipeline parallel {label} parity: " + json.dumps({
+            "card": card, "world": world, "layers": PP_PARITY_LAYERS,
+            "preset": "mixtral_tiny" if moe else "llama2_tiny",
+            "microbatches": PP_PARITY_M,
+            "held_at": {"loss_rtol": PP_LOSS_RTOL,
+                        "grad_rtol": PP_GRAD_RTOL,
+                        "grad_atol": PP_GRAD_ATOL, "steps": DIST_STEP_TOL},
+            "runs": [k for k in names if not k.endswith("_fault")],
+            "loss_rel_err": {
+                k: abs(ranks[0]["parity"][k]["loss"]
+                       - refs[k.removesuffix("_fault")]["loss"])
+                / abs(refs[k.removesuffix("_fault")]["loss"])
+                for k in names},
+            "planted_faults_caught": {k: verdict[k][:2] for k in names
+                                      if k.endswith("_fault")}}),
+            flush=True)
+    reshard = tensors["reshard"]
+    straight = reshard["straight"]["losses"]
+    moves = {}
+    for name in pp_reshard_targets(world):
+        run = reshard[name]
+        err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                      straight))
+        moves[name] = {"losses": run["losses"], "max_rel_err": err,
+                       **run["moved"]}
+        if not (err <= PP_RESHARD_TOL and run["moved"]["equal"]):
+            raise SystemExit(f"pipeline parallel (d) reshard {name}: "
+                             f"{moves[name]} vs straight {straight}")
+    print("pipeline parallel (d) reshard: " + json.dumps({
+        "card": card, "world": world, "from": f"pp={world}, 1f1b",
+        "at_step": f"{PP_RESHARD_AT} of {PP_RESHARD_STEPS}",
+        "straight_losses": straight, "held_at": PP_RESHARD_TOL,
+        "moves": moves}), flush=True)
 
 
 # -- phase 13: image workloads ------------------------------------------------
@@ -4485,6 +4755,35 @@ FLASH_REPLACES = {
 }
 
 
+# The phases that --phases names, and what each needs from another: a
+# phase checks its results against these phases' (9 and 10: phase 5's
+# streams and server; 12: phase 7 (c)'s losses).
+PHASE_IDS = (3, 4, 5, 6, 7, 9, 11, 12, 13, 10)
+PHASE_NEEDS = {9: (5,), 10: (5,), 12: (7,)}
+
+
+def chosen_phases(argv):
+    """The phases of ``--phases 5,9,12`` with what they need (every
+    phase when the flag is absent); the build phase always runs."""
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default="",
+                        help="a comma-separated subset of "
+                             f"{','.join(map(str, PHASE_IDS))} (default: "
+                             "all, as the smoke is run); each runs with the "
+                             "phases it is checked against")
+    args = parser.parse_args(argv)
+    if not args.phases:
+        return set(PHASE_IDS)
+    picked = {int(p) for p in args.phases.split(",")}
+    bad = picked - set(PHASE_IDS)
+    if bad:
+        parser.error(f"no phase {sorted(bad)}; phases: {PHASE_IDS}")
+    for p in list(picked):
+        picked.update(PHASE_NEEDS.get(p, ()))
+    return picked
+
+
 def main() -> int:
     if sys.argv[1:2] == ["distributed-rank"]:
         return distributed_rank(sys.argv[2])
@@ -4493,14 +4792,24 @@ def main() -> int:
     if sys.argv[1:2] == ["sp-rank"]:
         return sp_rank(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["pp-rank"]:
-        return pp_rank(sys.argv[2], sys.argv[3])
+        return pp_rank(sys.argv[2])
     if sys.argv[1:2] == ["image-rank"]:
         return image_rank(sys.argv[2])
+    phases = chosen_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs the card",
               file=sys.stderr)
         return 1
     from mpi_operator_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
 
     card = card_line()
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
@@ -4508,53 +4817,80 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[-1]
     print(f"card: {card} | torch {torch.__version__} | CUDA "
           f"{torch.version.cuda} | {nvcc}", flush=True)
+    print(f"phases: {sorted(phases)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_phase()
-    kernels = kernel_phase()
-    flash = flash_phase()
-    rms = rmsnorm_phase()
-    parity_phase()
-    train_parity_phase()
-    train_parity_phase("mixtral_tiny")
-    example_launches = train_example_phase()
-    moe_example_launches = train_example_phase(moe_data=True)
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    from mpi_operator_tpu_torch.models.quant import quantize_model
+    timed("2 build", build_phase)
+    if 3 in phases:
+        kernels = timed("3 kernels K4'", kernel_phase)
+        flash = timed("3 kernels K1'-K3'", flash_phase)
+        rms = timed("3 kernels K5'", rmsnorm_phase)
+    if 4 in phases:
+        timed("4 parity", parity_phase)
+        timed("4 train parity", train_parity_phase)
+        timed("4 train parity moe", train_parity_phase, "mixtral_tiny")
+        example_launches = timed("4 train example", train_example_phase)
+        moe_example_launches = timed("4 train example moe",
+                                     train_example_phase, True)
+    if 5 in phases:
+        from mpi_operator_tpu_torch.models.quant import quantize_model
 
-    model = serving_model()
-    serve = serving_phase(card, model)
-    spec = speculative_phase(card, model)
-    chunked = chunked_phase(card, model, serve)
-    logit_prompt = serve["prompts"][3]
-    bf16_logits = int8_logits(model, logit_prompt)
-    qmodel = quantize_model(model)
-    del model                       # the bf16 weights are freed here
-    gc.collect()
-    torch.cuda.empty_cache()
-    int8 = int8_phase(card, qmodel, bf16_logits, logit_prompt, serve)
-    del qmodel
-    gc.collect()
-    torch.cuda.empty_cache()
-    model = serving_model()         # the bf16 7B again, from SEED
-    disagg = disagg_phase(card, model, serve)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe_serve = moe_serving_phase(card)
-    flash_launches, losses = training_phase(card)
-    training_repeat_phase(card, losses)
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe_flash_launches, moe_losses = training_phase(card, "mixtral_8x7b")
-    training_repeat_phase(card, moe_losses, "mixtral_8x7b")
-    distributed = distributed_phase(card)
-    tp = tp_phase(card, serve)
-    sp = sp_phase(card)
-    pp = pp_phase(card, distributed["losses"])
-    image_phase(card)
-    k4_profile = serving_profile_phase(serve["prompts"])
+        model = serving_model()
+        serve = timed("5 serving", serving_phase, card, model)
+        spec = timed("5b speculation", speculative_phase, card, model)
+        chunked = timed("5c chunked", chunked_phase, card, model, serve)
+        t0 = time.perf_counter()
+        logit_prompt = serve["prompts"][3]
+        bf16_logits = int8_logits(model, logit_prompt)
+        qmodel = quantize_model(model)
+        del model                   # the bf16 weights are freed here
+        free()
+        int8 = int8_phase(card, qmodel, bf16_logits, logit_prompt, serve)
+        del qmodel
+        free()
+        seconds["5d int8"] = time.perf_counter() - t0
+        model = serving_model()     # the bf16 7B again, from SEED
+        disagg = timed("5e disagg", disagg_phase, card, model, serve)
+        del model
+        free()
+        moe_serve = timed("5f moe serving", moe_serving_phase, card)
+    if 6 in phases:
+        flash_launches, losses = timed("6 training", training_phase, card)
+        timed("6 training repeat", training_repeat_phase, card, losses)
+        free()
+        moe_flash_launches, moe_losses = timed(
+            "6b moe training", training_phase, card, "mixtral_8x7b")
+        timed("6b moe training repeat", training_repeat_phase, card,
+              moe_losses, "mixtral_8x7b")
+    if 7 in phases:
+        distributed = timed("7 distributed", distributed_phase, card)
+    if 9 in phases:
+        tp = timed("9 tensor parallel", tp_phase, card, serve)
+    if 11 in phases:
+        sp = timed("11 sequence/expert parallel", sp_phase, card)
+    if 12 in phases:
+        pp = timed("12 pipeline parallel", pp_phase, card,
+                   distributed["losses"])
+    if 13 in phases:
+        timed("13 image workloads", image_phase, card)
+    if 10 in phases:
+        k4_profile = timed("10 profile", serving_profile_phase,
+                           serve["prompts"])
+    seconds["total"] = time.perf_counter() - t_start
+    print("phase seconds: " + json.dumps(seconds), flush=True)
+    if phases != set(PHASE_IDS):
+        print(card)
+        print(f"chip_smoke: phases {sorted(phases)} passed; the kernels "
+              f"line needs every phase", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     main_case = kernels["llama2_7b"]
     entry = {
@@ -4612,8 +4948,9 @@ def main() -> int:
         other[f"sp_training_{rank}"] = counts
     if "mixtral_8x7b" in sp:
         other["ep_training_rank0"] = sp["mixtral_8x7b"]["rank0"]
-    # Phase 12 (two cards or more): the 7B's stages on every pp rank.
-    for name in ("1f1b", "interleaved"):
+    # Phase 12 (two cards or more): the 7B's and (c) Mixtral's stages on
+    # every pp rank.
+    for name in ("1f1b", "interleaved", "moe_1f1b"):
         for rank, counts in pp.get(name, {}).items():
             other[f"pp_{name}_{rank}"] = counts
     entries = [entry] + [flash_entry(name, flash, flash_launches, other)

@@ -41,7 +41,8 @@ forward recomputed in its backward slot), --microbatches M (the batch
 shard's rows split M ways), --virtual-stages V (with 1f1b: V chunks a
 rank, the interleaved schedule) and --pp-fsdp (the stage weights and
 their AdamW moments sharded over fsdp) are the JAX example's flags, with
-its refusals.  pp with tp, sp or ep, and MoE under pp, are refused.
+its refusals.  A Mixtral config trains over pp too (each stage holds its
+blocks' experts whole).  pp with tp, sp or ep is refused.
 """
 
 import argparse
@@ -125,11 +126,6 @@ def main() -> int:
                 f"--pp {args.pp} with --fused-xent: the pipeline's head is "
                 f"the last stage's next_token_loss of its microbatches; "
                 f"drop --fused-xent (and --xent-chunk)")
-        if args.config.startswith("mixtral"):
-            raise SystemExit(
-                f"--pp {args.pp} with --config {args.config}: MoE under "
-                f"pipeline parallelism is not ported yet: ROADMAP.md queue "
-                f"1 item 3.6")
 
     import numpy as np
     import torch

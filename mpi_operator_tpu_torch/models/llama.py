@@ -520,13 +520,13 @@ class LlamaModel(nn.Module):
     Its 'dp' and 'fsdp' axes are the training step's; under 'sp' the
     training forward takes this rank's token columns and runs ring
     attention, under 'ep' each MoE layer holds its experts' share (see
-    the module docstring).  Over 'pp' the model is whole, as the JAX
-    model is under a pp mesh: a pipeline rank builds only its stage
-    (``models/llama_pipeline.LlamaStage``, from this module's
+    the module docstring).  Over 'pp' the model is whole, dense or MoE,
+    as the JAX model is under a pp mesh: a pipeline rank builds only its
+    stage (``models/llama_pipeline.LlamaStage``, from this module's
     ``LlamaBlock``, ``RMSNorm`` and ``_linear``); pp with tp, sp or ep
-    raises ValueError, an MoE config under pp NotImplementedError.  A
-    KV-head count that tp does not divide raises ValueError: KV-head
-    replication is not ported."""
+    raises ValueError.  A KV-head count that tp does not divide raises
+    ValueError: KV heads are not replicated over tp, in either
+    package."""
 
     def __init__(self, config: LlamaConfig, device=None, store_dtype=None,
                  mesh=None):
@@ -631,9 +631,9 @@ def _check_tp(cfg: LlamaConfig, tp: int) -> None:
         return
     if cfg.kv_heads % tp:
         raise ValueError(
-            f"kv_heads {cfg.kv_heads} not divisible by tp={tp}: "
-            f"replicating KV heads over tp is not ported yet (ROADMAP.md "
-            f"queue 1 item 3)")
+            f"kv_heads {cfg.kv_heads} not divisible by tp={tp}: KV heads "
+            f"are not replicated over tp (nor in the JAX package's "
+            f"server)")
     for what, n in (("n_heads", cfg.n_heads), ("ffn_dim", cfg.ffn_dim),
                     ("vocab_size", cfg.vocab_size)):
         if n % tp:

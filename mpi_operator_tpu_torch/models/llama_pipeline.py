@@ -37,7 +37,7 @@ from ..parallel.pipeline import (from_last_stage, merge_microbatches,
                                  pipeline_apply, pipeline_interleaved_1f1b,
                                  split_microbatches, stage_param_fsdp_dims,
                                  sum_over_batch_)
-from ..parallel.tensor import MOE_UNDER_PP, refuse_pp_mix
+from ..parallel.tensor import refuse_pp_mix
 from .llama import (LlamaBlock, LlamaConfig, RMSNorm, _linear,
                     next_token_loss)
 
@@ -79,7 +79,16 @@ class LlamaStage(nn.Module):
     global layer ids; chunk v is global stage v*P + p), the embedding
     when p == 0 and the final norm and head when p == P - 1, under
     ``LlamaModel``'s parameter names.  pp with tp, sp or ep raises
-    ValueError; an MoE config NotImplementedError.
+    ValueError.
+
+    An MoE config's blocks hold their router and expert stacks whole
+    (``feed_forward.router.weight`` [E, D], ``w1``/``w3`` [E, D, F],
+    ``w2`` [E, F, D]) and are built without a mesh, as the JAX stages
+    run ``LlamaBlock(config)`` inside ``shard_map``: each MoE layer
+    counts its capacity over the rows it is given, one microbatch of its
+    batch shard, with no exchange between ranks.  The load-balancing
+    value is not added to the loss (the JAX stages apply the block
+    without the ``losses`` collection).
 
     ``fsdp_shard`` (pp x fsdp): each genuine matrix of the blocks is
     held as this rank's chunk over the mesh's fsdp axis, along the dim
@@ -100,12 +109,6 @@ class LlamaStage(nn.Module):
             n_stages, n_fsdp = sizes["pp"], sizes["fsdp"]
             stage = mesh.get_local_rank("pp") if n_stages > 1 else 0
             fsdp_rank = mesh.get_local_rank("fsdp") if n_fsdp > 1 else 0
-        if config.n_experts > 1:
-            item, why = MOE_UNDER_PP["pp"]
-            raise NotImplementedError(
-                f"LlamaStage over a mesh with pp={n_stages} is not ported "
-                f"yet: ROADMAP.md queue 1 item {item} (multi-GPU "
-                f"parallelism, {why})")
         self.config, self.mesh = config, mesh
         self.n_stages, self.stage = n_stages, stage
         self.virtual_stages = virtual_stages

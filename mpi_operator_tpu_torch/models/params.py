@@ -270,11 +270,15 @@ def _init_stage_(stage, generator: torch.Generator):
                 p.fill_(1.0)
             continue
         shape = tuple(meta.shape)
-        std = 1.0 if name == "tok_embeddings.weight" else \
-            1.0 / math.sqrt(shape[1])
-        full = torch.randn(shape, generator=generator,
-                           device=generator.device,
-                           dtype=torch.float32).mul_(std)
+        if meta.dim() == 3:              # an MoE expert stack [E, in, out]
+            full = init_expert_stack_(torch.empty(
+                shape, device=generator.device), generator)
+        else:
+            std = 1.0 if name == "tok_embeddings.weight" else \
+                1.0 / math.sqrt(shape[1])
+            full = torch.randn(shape, generator=generator,
+                               device=generator.device,
+                               dtype=torch.float32).mul_(std)
         if p is not None:
             p.copy_(stage.fsdp_part(name, full))
     return stage
@@ -291,8 +295,9 @@ def gather_stage_state_dict(stage, tensors: Optional[dict] = None,
     moments.  A collective over the stage's fsdp and pp groups: every
     rank calls it and every rank gets the whole, on ``device``; with
     ``dst`` (a global rank) only that rank does, one tensor at a time,
-    and the others get {}.  Every matrix shares one type and every norm
-    scale another (a stage holds both kinds), so the receivers know what
+    and the others get {}.  Every matrix shares one type, and the norm
+    scales and MoE routers another (``param_dtype``; every stage holds
+    blocks, so every stage holds both kinds), so the receivers know what
     each message holds."""
     from ..parallel.pipeline import _gather_fsdp, _Place
     from .llama_pipeline import layer_owner
@@ -305,7 +310,11 @@ def gather_stage_state_dict(stage, tensors: Optional[dict] = None,
     # run on every rank of the owning stage).
     moves = dst is None or place.group is None or \
         dst in dist.get_process_group_ranks(place.group)
-    kinds = {n.endswith(".scale"): t.dtype for n, t in tensors.items()}
+
+    def kind(name):
+        return name.endswith((".scale", ".router.weight"))
+
+    kinds = {kind(n): t.dtype for n, t in tensors.items()}
     whole = LlamaModel(cfg, device="meta")
     out = {}
     for name, meta in whole.named_parameters():
@@ -318,8 +327,8 @@ def gather_stage_state_dict(stage, tensors: Optional[dict] = None,
                 t = _gather_fsdp(t, d, place)
             buf = t.to(place.device).contiguous()
         elif moves:
-            buf = torch.empty(meta.shape, dtype=kinds[name.endswith(
-                ".scale")], device=place.device)
+            buf = torch.empty(meta.shape, dtype=kinds[kind(name)],
+                              device=place.device)
         if not moves:
             continue
         if place.n > 1:

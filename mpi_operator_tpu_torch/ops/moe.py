@@ -77,10 +77,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.tensor import (MOE_UNDER_PP, ExpertParallel,
-                               SequenceParallel, TensorParallel, copy_to_ep,
-                               copy_to_tp, reduce_from_ep, reduce_from_tp,
-                               refuse_axes)
+from ..parallel.tensor import (ExpertParallel, SequenceParallel,
+                               TensorParallel, copy_to_ep, copy_to_tp,
+                               reduce_from_ep, reduce_from_tp)
 
 
 class MoEMLP(nn.Module):
@@ -91,10 +90,13 @@ class MoEMLP(nn.Module):
     matmul weights are bf16), and the expert stacks ``w1``/``w3``
     [E, D, F] and ``w2`` [E, F, D] in ``store_dtype``, cast to ``dtype``
     at every use as flax casts its params; F/tp hidden units of each
-    under a ``mesh`` with tp > 1, E/ep experts with ep > 1.  A mesh with
-    pp > 1 raises NotImplementedError (ROADMAP.md queue 1 item 3.6: MoE
-    under pipeline parallelism), an object that is not a mesh
-    TypeError."""
+    under a ``mesh`` with tp > 1, E/ep experts with ep > 1.  The JAX
+    layer takes any mesh and constrains only its expert buffers over
+    'ep'; so does this one: a mesh's pp axis changes nothing (a pipeline
+    stage builds its layers without a mesh, so each counts its capacity
+    over the rows of one microbatch of its batch shard, as the JAX
+    stages inside ``shard_map`` do).  An object that is not a mesh
+    raises TypeError."""
 
     # Token-chunk size of drop-free dispatch (the JAX NO_DROP_CHUNK): the
     # [T, E, C] one-hots stay linear in T instead of [T, E, T].
@@ -105,10 +107,6 @@ class MoEMLP(nn.Module):
                  dtype=torch.bfloat16, store_dtype=None,
                  param_dtype=torch.float32, mesh=None, device=None):
         super().__init__()
-        if mesh is not None:
-            refuse_axes(mesh, "MoEMLP",
-                        allowed=("dp", "fsdp", "ep", "tp", "sp"),
-                        pointers=MOE_UNDER_PP)
         self.tp = tp = TensorParallel.of(mesh)
         self.ep = ep = ExpertParallel.of(mesh)
         # The axes that shard the tokens: the columns over sp, the rows

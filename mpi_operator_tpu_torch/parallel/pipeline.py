@@ -333,7 +333,11 @@ def stage_param_fsdp_dims(params: dict, n_fsdp: int) -> dict:
     scales) is a few KB, and an all-gather and reduce-scatter of its own
     would cost more than it saves.  JAX's stacked leaves carry a leading
     stage dim that is never sharded; a stage here holds each layer's
-    tensors as they are, so a dim indexes the tensor itself."""
+    tensors as they are, so a dim indexes the tensor itself.  The rule
+    needs no case of its own for MoE blocks: an expert stack ([E, D, F]
+    or [E, F, D]) and a router ([E, D]) are cut along E when the axis
+    divides it (the JAX rule may pick another dim of its stacked leaf;
+    the gathered tensors are the same)."""
     def dim(shape):
         if n_fsdp <= 1 or sum(s > 1 for s in shape) < 2:
             return -1

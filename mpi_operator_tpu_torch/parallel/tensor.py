@@ -38,10 +38,6 @@ import torch.distributed as dist
 
 from .mesh import AXIS_NAMES
 
-# Where a refused MoE layer under 'pp' waits (ROADMAP.md queue 1).
-MOE_UNDER_PP = {"pp": ("3.6", "MoE under pipeline parallelism")}
-
-
 def axis_sizes(mesh) -> dict:
     """{axis: size} of a six-axis mesh (``parallel.mesh.create_mesh``);
     TypeError for anything else."""
@@ -52,20 +48,17 @@ def axis_sizes(mesh) -> dict:
     return dict(zip(AXIS_NAMES, tuple(mesh.shape)))
 
 
-def refuse_axes(mesh, what: str, allowed=AXIS_NAMES,
-                pointers=None) -> dict:
+def refuse_axes(mesh, what: str, allowed=AXIS_NAMES) -> dict:
     """The mesh's axis sizes; NotImplementedError naming the ROADMAP
-    item of any axis above 1 that ``what`` does not take (``pointers``:
-    {axis: (item, why)}; item 3 otherwise)."""
+    item (queue 1 item 3) of any axis above 1 that ``what`` does not
+    take."""
     sizes = axis_sizes(mesh)
     for axis, n in sizes.items():
         if n > 1 and axis not in allowed:
-            item, why = (pointers or {}).get(axis,
-                                             ("3", f"'{axis}' in {what}"))
             raise NotImplementedError(
                 f"{what} over a mesh with {axis}={n} is not ported yet: "
-                f"ROADMAP.md queue 1 item {item} (multi-GPU parallelism, "
-                f"{why})")
+                f"ROADMAP.md queue 1 item 3 (multi-GPU parallelism, "
+                f"'{axis}' in {what})")
     return sizes
 
 

@@ -25,7 +25,8 @@ Under sequence parallelism over ``sp`` the parameters are replicated
 over sp and each sp rank's loss is its share of the global mean
 (``models.llama.next_token_loss``), so the gradients are summed over sp
 while dp and fsdp keep their mean, and the reported loss is the sp sum.
-:func:`reshard_train_state` moves a live state onto another mesh.
+:func:`reshard_train_state` moves a live state onto another mesh, a
+pipeline's too.
 
 Over ``pp`` (:class:`_PipelinePlan`) each rank trains its
 ``models.llama_pipeline.LlamaStage`` through the schedule the caller
@@ -663,7 +664,8 @@ class _PipelinePlan:
     once a step, their f32 gradients reduce-scattered.  The loss is the
     last stage's on every rank, the gradient norm the global one (every
     leaf once: a chunk's squares summed over fsdp, the stages' over pp),
-    and a checkpoint is the one-device state dict on rank 0 (every rank
+    and a checkpoint is the one-device state dict on the mesh's lowest
+    rank (rank 0 of a mesh over the whole group; every rank of the mesh
     calls ``TrainState.state_dict()``; a restore cuts it onto the
     stages)."""
 
@@ -748,14 +750,16 @@ class _PipelinePlan:
         pass
 
     def state_dict(self, state) -> dict:
-        """The one-device model and optimizer state on rank 0, on the
-        host (empty elsewhere; every rank takes part): the stages'
-        tensors joined over pp and fsdp one at a time, the optimizer's
-        entries re-keyed by the one-device parameter index."""
+        """The one-device model and optimizer state on the mesh's lowest
+        rank, on the host (empty elsewhere; every rank of the mesh takes
+        part): the stages' tensors joined over pp and fsdp one at a
+        time, the optimizer's entries re-keyed by the one-device
+        parameter index."""
         from ..models.llama import LlamaModel
         from ..models.params import gather_stage_state_dict
         stage, opt = self.stage, state.optimizer
-        model = gather_stage_state_dict(stage, dst=0)
+        dst = int(self.mesh.mesh.min())
+        model = gather_stage_state_dict(stage, dst=dst)
         names = [n for n, _ in LlamaModel(stage.config,
                                           device="meta").named_parameters()]
         own = {id(p): n for n, p in stage.named_parameters()}
@@ -765,9 +769,9 @@ class _PipelinePlan:
         moments = [k for k, v in first.items() if torch.is_tensor(v)
                    and v.dim()]
         joined = {k: gather_stage_state_dict(stage, {
-            own[id(p)]: entry[k] for p, entry in opt.state.items()}, dst=0)
-            for k in moments}
-        if dist.get_rank() != 0:
+            own[id(p)]: entry[k] for p, entry in opt.state.items()},
+            dst=dst) for k in moments}
+        if dist.get_rank() != dst:
             return {}
         optim = {"state": {i: {k: (joined[k][n] if k in joined else
                                    (v.clone() if torch.is_tensor(v) else v))
@@ -1084,43 +1088,59 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
+def _llama_build(model):
+    """What rebuilds a Llama model or pipeline stage on another mesh:
+    (its class, config and storage type), or None for another model."""
+    from ..models.llama import LlamaModel
+    from ..models.llama_pipeline import LlamaStage
+    cls = _model_class(model)
+    if not issubclass(cls, (LlamaModel, LlamaStage)):
+        return None
+    held = model.tok_embeddings if hasattr(model, "tok_embeddings") else \
+        model.output if hasattr(model, "output") else \
+        next(iter(model.layers.children())).attention.wq
+    return cls, model.config, held.weight.dtype
+
+
 def reshard_train_state(state: Optional[TrainState], mesh,
                         param_specs=None, shard_update: bool = False,
-                        model=None) -> Optional[TrainState]:
+                        model=None, pipeline_schedule: str = "gpipe",
+                        microbatches: int = 4, virtual_stages: int = 1,
+                        pp_fsdp: bool = False) -> Optional[TrainState]:
     """Move a live TrainState onto another mesh (the gang after an
     elastic resize) at the SAME step: counterpart of the JAX
     ``reshard_train_state``.  Pure data movement, no arithmetic:
 
     - the old plan gathers the state into the one-device format
-      (``TrainState.state_dict()``, a collective over the old mesh);
+      (``TrainState.state_dict()``, a collective over the old mesh,
+      entered by its ranks only);
     - the lowest rank that holds it broadcasts it, with what builds the
-      model and the optimizer (their classes, the model's config and
-      storage type, the optimizer's hyperparameters), over the default
-      group, which spans both meshes;
-    - every rank of the new mesh builds the model on the meta device
-      (``cls(config, device="meta", store_dtype=, mesh=mesh)``: its tp
-      and ep shards; or takes ``model``, a fresh model of its own for
-      the new mesh, which a model without a ``config`` needs), places
-      it through the new mesh's plan (``param_specs`` and
-      ``shard_update`` as ``build_train_step`` takes them; the flat
-      gradient schedule) and loads the state through that plan's
-      ``load_state_dict``.
+      model and the optimizer (the model's config and storage type, the
+      optimizer's class and hyperparameters), over the default group,
+      which spans both meshes;
+    - every rank of the new mesh builds the model on the meta device:
+      with pp > 1 in the new mesh its ``LlamaStage``
+      (``virtual_stages``, ``fsdp_shard=pp_fsdp``), else a
+      ``LlamaModel`` (its tp and ep shards), whichever the old state
+      held; or it takes ``model``, a fresh model of its own for the new
+      mesh, which a model that is not a Llama needs.  It places the
+      model through the new mesh's plan (``param_specs``,
+      ``shard_update`` and the pipeline arguments as
+      ``build_train_step`` takes them; the flat gradient schedule) and
+      loads the state through that plan's ``load_state_dict``, the
+      optimizer's entries keyed by ``LlamaModel``'s parameter order on
+      both sides.
 
     Every rank of the default group calls it: ``state`` is the live
     state on the ranks of the old mesh and None elsewhere (ranks outside
     the old mesh hold nothing until the grow), ``mesh`` the new mesh
     (``parallel.mesh.create_mesh(..., ranks=)``), built by every rank.
     Returns the moved state on the ranks of the new mesh, None on the
-    others.  ``build_train_step``'s step function on the new mesh steps
-    it (it runs the state's plan).  A new mesh that is not the whole
-    group cannot take the FSDP2 plan with ``shard_update`` and dp > 1:
-    that plan forms a group of its own, which every rank must join."""
-    if isinstance(getattr(state, "plan", None), _PipelinePlan) or \
-            _axis_sizes(mesh)["pp"] > 1:
-        raise NotImplementedError(
-            "reshard_train_state of a pipeline (pp > 1) is not ported yet: "
-            "ROADMAP.md queue 1 item 3.6 (multi-GPU parallelism, what the "
-            "pipeline slice left)")
+    others.  ``build_train_step``'s step function on the new mesh (with
+    the same pipeline arguments) steps it: it runs the state's plan.  A
+    new mesh that is not the whole group cannot take the FSDP2 plan with
+    ``shard_update`` and dp > 1: that plan forms a group of its own,
+    which every rank must join."""
     rank, world = dist.get_rank(), dist.get_world_size()
     payload = state.state_dict() if state is not None else None
     holds = bool(payload) and bool(payload.get("model"))
@@ -1139,10 +1159,7 @@ def reshard_train_state(state: Optional[TrainState], mesh,
         return ("tensor", tuple(t.shape), t.dtype)
 
     if rank == src:
-        old = state.model
-        meta = [{"model": (_model_class(old), old.config,
-                           old.tok_embeddings.weight.dtype)
-                 if hasattr(old, "config") else None,
+        meta = [{"model": _llama_build(state.model),
                  "optimizer": (type(state.optimizer),
                                state.optimizer.defaults),
                  "tree": _map_tensors(payload, keep)}]
@@ -1164,18 +1181,38 @@ def reshard_train_state(state: Optional[TrainState], mesh,
         raise NotImplementedError(
             "reshard_train_state onto a part of the group with FSDP2 and "
             "shard_update over dp > 1 (that plan forms a group of its own)")
+    from ..models.llama import LlamaModel
+    from ..models.llama_pipeline import LlamaStage
     if model is None:
         if meta["model"] is None:
-            raise ValueError("reshard_train_state: a model without a "
-                             "config needs model= on the new mesh")
+            raise ValueError("reshard_train_state: a model that is not a "
+                             "LlamaModel or LlamaStage needs model= on the "
+                             "new mesh")
         cls, config, store = meta["model"]
-        model = cls(config, device="meta", store_dtype=store, mesh=mesh)
+        if sizes["pp"] > 1:
+            model = LlamaStage(config, mesh=mesh,
+                               virtual_stages=virtual_stages,
+                               fsdp_shard=pp_fsdp, device="meta",
+                               store_dtype=store)
+        else:
+            cls = LlamaModel if issubclass(cls, LlamaStage) else cls
+            model = cls(config, device="meta", store_dtype=store, mesh=mesh)
     optim_cls, defaults = meta["optimizer"]
     accepted = inspect.signature(optim_cls.__init__).parameters
     kwargs = {k: v for k, v in defaults.items() if k in accepted}
-    plan = _mesh_plan(mesh, param_specs, shard_update, False, "fsdp")
+    plan = _mesh_plan(mesh, param_specs, shard_update, False, "fsdp",
+                      pipeline={"schedule": pipeline_schedule,
+                                "microbatches": microbatches,
+                                "virtual_stages": virtual_stages,
+                                "pp_fsdp": pp_fsdp})
     new = _init_state(plan, model, lambda params: optim_cls(params, **kwargs))
-    names = [n for n, p in new.model.named_parameters() if p.requires_grad]
+    if isinstance(plan, _PipelinePlan):
+        # The stage's optimizer entries are keyed by the one-device index.
+        names = [n for n, _ in LlamaModel(new.model.config,
+                                          device="meta").named_parameters()]
+    else:
+        names = [n for n, p in new.model.named_parameters()
+                 if p.requires_grad]
     payload["optimizer"] = _rekey_optimizer(
         payload["optimizer"], names, isinstance(plan, _ShardedPlan))
     new.load_state_dict(payload)

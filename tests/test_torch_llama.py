@@ -269,18 +269,24 @@ def test_out_of_slice_paths_raise():
     assert tm(torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     # MoE is ported (tests/test_torch_mixtral.py), over tp too
     # (tests/test_torch_tensor_parallel.py) and over 'ep'
-    # (tests/test_torch_expert_parallel.py); int8 weights with MoE and
-    # an MoE layer over a 'pp' axis (ROADMAP.md queue 1 item 3.6) still
-    # raise, and a mesh must be a DeviceMesh.
+    # (tests/test_torch_expert_parallel.py) and over 'pp'
+    # (tests/test_torch_moe_pipeline.py: the layer on a pp mesh computes
+    # what it computes alone); int8 weights with MoE still raise, and a
+    # mesh must be a DeviceMesh.
     assert tl.LlamaModel(tl.llama2_tiny(n_experts=4), device="cpu")(
         torch.zeros((1, 4), dtype=torch.int32)).shape == (1, 4, 256)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.LlamaModel(tl.llama2_tiny(n_experts=4, weight_dtype="int8"),
                       device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="mesh with pp=2.*queue 1 item 3.6"):
-        MoEMLP(128, 256, 4, mesh=types.SimpleNamespace(
-            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
+    x = torch.randn(1, 4, 128, generator=torch.Generator().manual_seed(0))
+    alone = MoEMLP(128, 256, 4, device="cpu")
+    on_pp = MoEMLP(128, 256, 4, device="cpu", mesh=types.SimpleNamespace(
+        mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
+    with torch.no_grad():
+        for p in alone.parameters():
+            p.normal_(generator=torch.Generator().manual_seed(p.numel()))
+    on_pp.load_state_dict(alone.state_dict())
+    assert torch.equal(on_pp(x), alone(x))
     with pytest.raises(TypeError, match="DeviceMesh"):
         MoEMLP(128, 256, 4, mesh=object())
     # Weight-only int8 is ported (tests/test_torch_quant.py): the matmul

@@ -244,9 +244,19 @@ def test_share_weights_and_init_params_of_an_moe_model():
 def test_int8_and_mesh_still_raise_for_moe():
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.mixtral_tiny(weight_dtype="int8")
-    # tp and ep are ported (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_expert_parallel.py); MoE under 'pp' is not
-    # (ROADMAP.md queue 1 item 3.6).
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        MoEMLP(8, 16, 4, mesh=types.SimpleNamespace(
-            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
+    # tp, ep and pp are ported (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_expert_parallel.py, tests/test_torch_moe_pipeline.py):
+    # on a pp mesh the layer holds every expert and computes what it
+    # computes alone.
+    alone = MoEMLP(8, 16, 4, dtype=torch.float32, device="cpu")
+    on_pp = MoEMLP(8, 16, 4, dtype=torch.float32, device="cpu",
+                   mesh=types.SimpleNamespace(mesh_dim_names=AXIS_NAMES,
+                                              shape=(1, 1, 2, 1, 1, 1)))
+    gen = torch.Generator().manual_seed(4)
+    weights = {n: torch.randn(t.shape, generator=gen)
+               for n, t in alone.state_dict().items()}
+    alone.load_state_dict(weights)
+    on_pp.load_state_dict(weights)
+    assert on_pp.w1.shape == (4, 8, 16)
+    x = torch.randn(3, 5, 8, generator=gen)
+    assert torch.equal(on_pp(x), alone(x))

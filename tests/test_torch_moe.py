@@ -177,12 +177,21 @@ def test_expert_stack_init_is_truncated_lecun_normal():
 
 
 def test_mesh_raises_and_load_balancing_before_forward():
-    # Over 'pp' MoE is not ported (ROADMAP.md queue 1 item 3.6; 'ep' is:
-    # tests/test_torch_expert_parallel.py); anything but a DeviceMesh is
-    # refused.
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tmoe.MoEMLP(DIM, FFN, E, mesh=types.SimpleNamespace(
-            mesh_dim_names=AXIS_NAMES, shape=(1, 1, 2, 1, 1, 1)))
+    # Over 'pp' the layer computes what it computes alone (as over 'ep':
+    # tests/test_torch_expert_parallel.py, tests/test_torch_moe_pipeline.py);
+    # anything but a DeviceMesh is refused.
+    alone = tmoe.MoEMLP(DIM, FFN, E, dtype=torch.float32, device="cpu")
+    on_pp = tmoe.MoEMLP(DIM, FFN, E, dtype=torch.float32, device="cpu",
+                        mesh=types.SimpleNamespace(
+                            mesh_dim_names=AXIS_NAMES,
+                            shape=(1, 1, 2, 1, 1, 1)))
+    gen = torch.Generator().manual_seed(6)
+    weights = {n: torch.randn(t.shape, generator=gen)
+               for n, t in alone.state_dict().items()}
+    alone.load_state_dict(weights)
+    on_pp.load_state_dict(weights)
+    x = torch.randn(2, 6, DIM, generator=gen)
+    assert torch.equal(on_pp(x), alone(x))
     with pytest.raises(TypeError, match="DeviceMesh"):
         tmoe.MoEMLP(DIM, FFN, E, mesh=object())
     assert tmoe.MoEMLP(DIM, FFN, E, device="cpu").load_balancing is None

@@ -568,15 +568,28 @@ def test_pp_with_tp_sp_or_ep_raises(axis):
 
 
 def test_moe_under_pp_raises_naming_its_roadmap_item():
+    """MoE under pp is ported (tests/test_torch_moe_pipeline.py): a stage,
+    the whole model and the layer build on a pp mesh, the stage with its
+    blocks' expert stacks whole, and the layer computes what it computes
+    without a mesh."""
     mesh = _fake_mesh(pp=2)
-    for call in (lambda: tlp.LlamaStage(tl.mixtral_tiny(), mesh=mesh,
-                                        device="cpu"),
-                 lambda: tl.LlamaModel(tl.mixtral_tiny(), device="cpu",
-                                       mesh=mesh),
-                 lambda: MoEMLP(128, 256, 4, mesh=mesh)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 3.6"):
-            call()
+    cfg = tl.mixtral_tiny()
+    stage = tlp.LlamaStage(cfg, mesh=mesh, device="cpu")
+    assert stage.layers["0"].feed_forward.w1.shape == (
+        cfg.n_experts, cfg.dim, cfg.ffn_dim)
+    whole = tl.LlamaModel(cfg, device="cpu", mesh=mesh)
+    assert whole.layers[1].feed_forward.w2.shape == (
+        cfg.n_experts, cfg.ffn_dim, cfg.dim)
+    alone = MoEMLP(128, 256, 4, dtype=torch.float32, device="cpu")
+    on_pp = MoEMLP(128, 256, 4, dtype=torch.float32, device="cpu",
+                   mesh=mesh)
+    gen = torch.Generator().manual_seed(1)
+    weights = {n: torch.randn(t.shape, generator=gen)
+               for n, t in alone.state_dict().items()}
+    alone.load_state_dict(weights)
+    on_pp.load_state_dict(weights)
+    x = torch.randn(2, 8, 128, generator=gen)
+    assert torch.equal(on_pp(x), alone(x))
 
 
 def test_build_train_step_refusals_under_pp():

@@ -268,18 +268,22 @@ def test_train_example_over_two_sp_processes_with_data(tmp_path):
     assert "mesh dp" not in logs[1]
 
 
-def test_train_example_refuses_pp_naming_its_roadmap_item():
-    """pp is ported (tests/test_torch_pipeline.py); what is left of it
-    exits before forming a group: MoE under pp names its ROADMAP item,
-    and --pp beside --sp is refused."""
+def test_train_example_refuses_pp_naming_its_roadmap_item(tmp_path):
+    """pp is ported (tests/test_torch_pipeline.py), with MoE too
+    (tests/test_torch_moe_pipeline.py): the example trains mixtral_tiny
+    over two stages; --pp beside --sp still exits before forming a
+    group."""
     import subprocess
-    for flags, message in (
-            (["--config", "mixtral-tiny", "--pp", "2"],
-             "ROADMAP.md queue 1 item 3.6"),
-            (["--config", "tiny", "--pp", "2", "--sp", "2"],
-             "combine --pp with --dp and --fsdp")):
-        done = subprocess.run([sys.executable, TRAIN_EXAMPLE, "--device",
-                               "cpu", *flags],
-                              capture_output=True, text=True, timeout=120)
-        assert done.returncode != 0
-        assert message in done.stderr
+    logs = join(launch([sys.executable, TRAIN_EXAMPLE, "--config",
+                        "mixtral-tiny", "--device", "cpu", "--steps", "2",
+                        "--pp", "2", "--seq-len", "32", "--batch", "2",
+                        "--microbatches", "2"], 2, str(tmp_path)),
+                str(tmp_path))
+    assert "mesh dp=1 fsdp=1 pp=2 ep=1 tp=1 sp=1 schedule=gpipe " \
+        "processes=2" in logs[0], logs[0]
+    assert np.isfinite(float(logs[0].split("loss=")[1].split()[0]))
+    done = subprocess.run([sys.executable, TRAIN_EXAMPLE, "--device", "cpu",
+                           "--config", "tiny", "--pp", "2", "--sp", "2"],
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode != 0
+    assert "combine --pp with --dp and --fsdp" in done.stderr

@@ -325,8 +325,9 @@ def _fake_mesh(**axes):
 def test_axes_past_tp_still_raise_with_their_pointer(axis):
     """pp is ported for training (tests/test_torch_pipeline.py), beside dp
     and fsdp only: beside tp the model, the step and the batch iterator
-    refuse it (ValueError); serving over pp still waits for item 3 and an
-    MoE layer under pp for item 3.6 (NotImplementedError)."""
+    refuse it (ValueError); serving over pp still waits for item 3
+    (NotImplementedError).  An MoE layer takes a pp mesh
+    (tests/test_torch_moe_pipeline.py): it holds every expert whole."""
     from mpi_operator_tpu_torch.ops.moe import MoEMLP
     from mpi_operator_tpu_torch.serving import InferenceServer
     from mpi_operator_tpu_torch.utils.data import global_batch_iterator
@@ -345,8 +346,8 @@ def test_axes_past_tp_still_raise_with_their_pointer(axis):
             call()
     with pytest.raises(NotImplementedError, match="queue 1 item 3 "):
         InferenceServer(model, mesh=mesh, max_batch_slots=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.6"):
-        MoEMLP(128, 256, 4, mesh=mesh)
+    layer = MoEMLP(128, 256, 4, mesh=mesh, device="cpu")
+    assert layer.w1.shape == (4, 128, 256) and layer.tp.size == 1
 
 
 def test_global_batch_iterator_takes_tp():
@@ -359,7 +360,8 @@ def test_global_batch_iterator_takes_tp():
 
 def test_kv_heads_tp_and_roles_refusals():
     with pytest.raises(ValueError, match="kv_heads 2 not divisible by "
-                                         "tp=4.*queue 1 item 3"):
+                                         "tp=4: KV heads are not "
+                                         "replicated"):
         tl.LlamaModel(tl.llama2_tiny(n_kv_heads=2), device="meta",
                       mesh=_fake_mesh(tp=4))
     from mpi_operator_tpu_torch.serving import InferenceServer

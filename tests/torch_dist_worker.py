@@ -1,7 +1,7 @@
 """One rank of a gloo process group for tests/test_torch_distributed.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
-tests/test_torch_expert_parallel.py, tests/test_torch_pipeline.py and
-tests/test_torch_resnet.py.
+tests/test_torch_expert_parallel.py, tests/test_torch_pipeline.py,
+tests/test_torch_moe_pipeline.py and tests/test_torch_resnet.py.
 
     JAX_COORDINATOR_ADDRESS=127.0.0.1:PORT JAX_PROCESS_ID=r \\
     JAX_NUM_PROCESSES=n python tests/torch_dist_worker.py SCENARIO DIR [cuda]
@@ -785,15 +785,24 @@ def _pp_mesh(**axes):
     return tmesh.create_mesh(tmesh.MeshConfig(**{"dp": 1, **axes}), DEVICE)
 
 
-def _pp_stage(inputs, mesh, virtual_stages=1, fsdp_shard=False, config=None):
-    """This rank's LlamaStage of the test's 4-layer llama2_tiny weights."""
+def _pp_model(inputs, moe=False):
+    """The preset and the keys of the test's inputs: the 4-layer
+    llama2_tiny ("pp_"), or with ``moe`` mixtral_tiny ("moe_")."""
+    return (tl.mixtral_tiny, "moe") if moe else (tl.llama2_tiny, "pp")
+
+
+def _pp_stage(inputs, mesh, virtual_stages=1, fsdp_shard=False, config=None,
+              moe=False):
+    """This rank's LlamaStage of the test's 4-layer llama2_tiny (or
+    mixtral_tiny) weights."""
     from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
-    cfg = tl.llama2_tiny(**{**inputs["pp_config"], **(config or {})})
+    preset, key = _pp_model(inputs, moe)
+    cfg = preset(**{**inputs[f"{key}_config"], **(config or {})})
     stage = LlamaStage(cfg, mesh=mesh, virtual_stages=virtual_stages,
                        fsdp_shard=fsdp_shard,
                        device=None if DEVICE == "cuda" else "cpu",
                        store_dtype=torch.float32)
-    stage.load_full_state_dict(inputs["pp_weights"])
+    stage.load_full_state_dict(inputs[f"{key}_weights"])
     return stage
 
 
@@ -819,30 +828,33 @@ def _pp_mlp(inputs, n_stages):
             "x_grad": micro.grad}
 
 
-def _pp_1f1b(inputs, mesh, m, virtual_stages=1, fsdp_shard=False):
+def _pp_1f1b(inputs, mesh, m, virtual_stages=1, fsdp_shard=False,
+             moe=False, stage=None):
     """pipeline_loss_and_grads_1f1b on this rank's rows; the loss and
     every stage's gradients joined into the one-device dict."""
     from mpi_operator_tpu_torch.models.llama_pipeline import (
         pipeline_loss_and_grads_1f1b)
     from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
-    stage = _pp_stage(inputs, mesh, virtual_stages, fsdp_shard)
+    if stage is None:
+        stage = _pp_stage(inputs, mesh, virtual_stages, fsdp_shard, moe=moe)
+    key = _pp_model(inputs, moe)[1]
     loss, grads = pipeline_loss_and_grads_1f1b(
-        stage, _rows(mesh, inputs["pp_tokens"]), mesh, m,
+        stage, _rows(mesh, inputs[f"{key}_tokens"]), mesh, m,
         virtual_stages=virtual_stages, fsdp_shard=fsdp_shard)
     return {"loss": loss.item(), "grads": gather_stage_state_dict(
         stage, grads)}
 
 
-def _pp_train(inputs, mesh, steps=3, **build):
+def _pp_train(inputs, mesh, steps=3, moe=False, **build):
     """``steps`` AdamW steps of build_train_step over ``mesh``: metrics
     and the one-device parameters after."""
     from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
     stage = _pp_stage(inputs, mesh, build.get("virtual_stages", 1),
-                      build.get("pp_fsdp", False))
+                      build.get("pp_fsdp", False), moe=moe)
     init, step = ttrain.build_train_step(None, ttrain.adamw(LR), mesh=mesh,
                                          **build)
     state = init(stage)
-    batch = _rows(mesh, inputs["pp_tokens"])
+    batch = _rows(mesh, inputs[f"{_pp_model(inputs, moe)[1]}_tokens"])
     metrics = []
     for _ in range(steps):
         state, m = step(state, batch)
@@ -974,6 +986,224 @@ def scenario_pp_cuda(inputs, out_dir):
     return {"runs": runs, "stage": mesh.get_local_rank("pp"),
             "layers_per_stage": inputs["pp_config"]["n_layers"]
             // dist.get_world_size()}
+
+
+# -- MoE pipelines, re-sharding a pipeline (test_torch_moe_pipeline.py) --
+
+def _moe_layers(stage):
+    return [block.feed_forward for block in stage.layers.values()]
+
+
+def _moe_gpipe(inputs, mesh, m, fsdp_shard=False):
+    """pipeline_loss (GPipe, autograd) on this rank's rows of the MoE
+    batch; the loss and the gradients averaged over the batch ranks by
+    the GPipe plan's own reduction, and joined."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import pipeline_loss
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    stage = _pp_stage(inputs, mesh, fsdp_shard=fsdp_shard, moe=True)
+    plan = ttrain._PipelinePlan(mesh, "gpipe", m, 1, fsdp_shard)
+    plan.place(stage)
+    loss = pipeline_loss(stage, _rows(mesh, inputs["moe_tokens"]), mesh, m,
+                         fsdp_shard=fsdp_shard)
+    loss.backward()
+    plan.reduce(list(stage.parameters()))
+    loss = plan.grads.all_reduce_(loss.detach()) / plan.world
+    return {"loss": loss.item(), "grads": gather_stage_state_dict(
+        stage, {n: p.grad for n, p in stage.named_parameters()})}
+
+
+def _moe_capacity_fault(inputs, mesh, m):
+    """1F1B on dp = 2 x pp = 2 where the MoE layers of pp stage 1 count
+    their capacity over the microbatch of every batch shard (dp x its
+    rows), not over their own rows."""
+    stage = _pp_stage(inputs, mesh, moe=True)
+    if mesh.get_local_rank("pp") == 1:
+        shards = dict(zip(mesh.mesh_dim_names, mesh.shape))["dp"]
+        for layer in _moe_layers(stage):
+            layer.capacity_factor *= shards
+    return _pp_1f1b(inputs, mesh, m, moe=True, stage=stage)
+
+
+def _moe_recompute(inputs, mesh, m, planted):
+    """1F1B at pp = world: each MoE layer's routing (expert indices) in
+    the F slots (no autograd) and in the B slots' recompute, in order;
+    ``planted`` moves every recomputed assignment to the next expert."""
+    from mpi_operator_tpu_torch.ops.moe import MoEMLP
+    real = MoEMLP.forward
+    seen = {}
+
+    def recorded(layer, x, no_drop=False):
+        slot = "B" if torch.is_grad_enabled() else "F"
+        topk = torch.topk
+        if planted and slot == "B":
+            def topk_(t, k, dim=-1):
+                idx = (topk(t, k, dim=dim)[1] + 1) % t.shape[-1]
+                return torch.gather(t, dim, idx), idx
+            torch.topk = topk_
+        try:
+            out = real(layer, x, no_drop)
+        finally:
+            torch.topk = topk
+        seen.setdefault((id(layer), slot), []).append(
+            layer.last_routing[0].clone())
+        return out
+
+    MoEMLP.forward = recorded
+    try:
+        stage = _pp_stage(inputs, mesh, moe=True)
+        out = _pp_1f1b(inputs, mesh, m, moe=True, stage=stage)
+    finally:
+        MoEMLP.forward = real
+    layers = _moe_layers(stage)
+    out["routing_equal"] = all(
+        len(seen[(id(x), "F")]) == m and
+        all(torch.equal(a, b) for a, b in zip(seen[(id(x), "F")],
+                                             seen[(id(x), "B")]))
+        for x in layers)
+    return out
+
+
+def _moe_pp_case(inputs, mesh, moe, **build):
+    """This rank's model and step for one leg of a re-shard run: a
+    LlamaStage and the pipeline step over a pp mesh, else a LlamaModel
+    (its ep shard) and the plain step, both from the test's weights."""
+    from mpi_operator_tpu_torch.models.params import shard_state_dict
+    preset, key = _pp_model(inputs, moe)
+    cfg = preset(**inputs[f"{key}_config"])
+    if dict(zip(mesh.mesh_dim_names, mesh.shape))["pp"] > 1:
+        init, step = ttrain.build_train_step(None, ttrain.adamw(LR),
+                                             mesh=mesh, **build)
+        model = _pp_stage(inputs, mesh, build.get("virtual_stages", 1),
+                          build.get("pp_fsdp", False), moe=moe)
+        return init, step, model
+    init, step = ttrain.build_train_step(
+        _loss, ttrain.adamw(LR), mesh=mesh,
+        param_specs=tl.llama_param_specs(cfg), **build)
+    model = tl.LlamaModel(cfg, device="cpu", store_dtype=torch.float32,
+                          mesh=mesh)
+    model.load_state_dict(shard_state_dict(inputs[f"{key}_weights"], cfg,
+                                           model.tp, model.ep))
+    return init, step, model
+
+
+def _snapshot(state):
+    """A copy of ``state.state_dict()`` (a collective) that later steps
+    leave as it is: a plan may hand out its live tensors."""
+    if state is None:
+        return None
+    return ttrain._map_tensors(state.state_dict(),
+                               lambda t: t.detach().cpu().clone())
+
+
+def _pp_reshard(inputs, legs, switch_at, steps=4, moe=False):
+    """``steps`` AdamW steps of the test's batch, begun on the first of
+    ``legs`` ((mesh, build kwargs), each mesh built by every rank) and
+    moved by reshard_train_state onto the second before step
+    ``switch_at`` (no move with one leg).  On the lowest rank of the last
+    mesh: every step's (loss, grad_norm), the one-device state before
+    and right after the move, and the one-device state at the end."""
+    def member(mesh):
+        return mesh.get_coordinate() is not None
+
+    preset, key = _pp_model(inputs, moe)
+    specs = tl.llama_param_specs(preset(**inputs[f"{key}_config"]))
+    (mesh, build), state, step = legs[0], None, None
+    if member(mesh):
+        init, step, model = _moe_pp_case(inputs, mesh, moe, **build)
+        state = init(model)
+    metrics, before, after = [], None, None
+    for i in range(steps):
+        if i == switch_at and len(legs) > 1:
+            before = _snapshot(state)
+            mesh, build = legs[1]
+            state = ttrain.reshard_train_state(state, mesh,
+                                               param_specs=specs, **build)
+            if state is not None:
+                after = _snapshot(state)
+                step = _moe_pp_case(inputs, mesh, moe, **build)[1]
+        if state is not None:
+            state, m = step(state, _rows(mesh, inputs[f"{key}_tokens"]))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    if state is None:
+        return None
+    final = state.state_dict()
+    if dist.get_rank() != int(mesh.mesh.min()):
+        return {"member": True}
+    return {"member": True, "metrics": metrics, "before": before,
+            "after": after, "final": final,
+            "plan": type(state.plan).__name__,
+            "model": type(state.model).__name__}
+
+
+def scenario_moe_pp_world2(inputs, out_dir):
+    """mixtral_tiny at pp = 2: GPipe, 1F1B and interleaved 1F1B, three
+    AdamW steps of 1F1B, the routing of the 1F1B recompute (and a planted
+    change of it); llama2_tiny moved from pp = 2 to fsdp = 2 at step 2
+    of 4 (and its straight run)."""
+    pp2 = _pp_mesh(pp=2)
+    fsdp2 = _pp_mesh(fsdp=2)
+    f1b = {"pipeline_schedule": "1f1b", "microbatches": 4}
+    out = {"gpipe": _moe_gpipe(inputs, pp2, 4),
+           "1f1b": _pp_1f1b(inputs, pp2, 4, moe=True),
+           "interleaved": _pp_1f1b(inputs, pp2, 4, virtual_stages=2,
+                                   moe=True),
+           "steps_1f1b": _strip(_pp_train(inputs, pp2, moe=True, **f1b)),
+           "recompute": _moe_recompute(inputs, pp2, 4, planted=False),
+           "recompute_fault": _moe_recompute(inputs, pp2, 4, planted=True),
+           "reshard_pp_fsdp": _pp_reshard(inputs, [(pp2, f1b), (fsdp2, {})],
+                                          2),
+           "straight_pp": _pp_reshard(inputs, [(pp2, f1b)], None)}
+    return out
+
+
+def scenario_moe_pp_world4(inputs, out_dir):
+    """mixtral_tiny at pp = 4, dp = 2 x pp = 2 and fsdp = 2 x pp = 2 with
+    pp_fsdp (1F1B, GPipe, three AdamW steps), the planted capacity fault;
+    the stage init of the fsdp shards; llama2_tiny grown from dp = 2 (two
+    ranks) to dp = 2 x pp = 2, mixtral_tiny moved from pp = 4 to fsdp = 2
+    x pp = 2 with pp_fsdp (and its straight run), and mixtral_tiny shrunk
+    from dp = 2 x pp = 2 to ep = 2 (two ranks), each at step 2 of 4."""
+    from mpi_operator_tpu_torch.models.llama_pipeline import LlamaStage
+    from mpi_operator_tpu_torch.models.params import gather_stage_state_dict
+    pp4 = _pp_mesh(pp=4)
+    dp2 = _pp_mesh(dp=2, pp=2)
+    fsdp2 = _pp_mesh(fsdp=2, pp=2)
+    out = {"1f1b_pp4": _pp_1f1b(inputs, pp4, 4, moe=True),
+           "1f1b_dp2": _pp_1f1b(inputs, dp2, 2, moe=True),
+           "1f1b_fsdp2": _pp_1f1b(inputs, fsdp2, 2, fsdp_shard=True,
+                                  moe=True),
+           "gpipe_fsdp2": _moe_gpipe(inputs, fsdp2, 2, fsdp_shard=True),
+           "1f1b_dp2_fault": _moe_capacity_fault(inputs, dp2, 2),
+           "steps_1f1b_dp2": _strip(_pp_train(
+               inputs, dp2, moe=True, pipeline_schedule="1f1b",
+               microbatches=2)),
+           "steps_gpipe_fsdp2": _strip(_pp_train(
+               inputs, fsdp2, moe=True, microbatches=2, pp_fsdp=True))}
+    stage = LlamaStage(tl.mixtral_tiny(**inputs["moe_config"]), mesh=fsdp2,
+                       fsdp_shard=True, device="meta",
+                       store_dtype=torch.float32)
+    stage.to_empty(device="cpu")
+    init_params_(stage, torch.Generator().manual_seed(7))
+    out["init_fsdp"] = {"dims": dict(stage.fsdp_dims),
+                        "joined": gather_stage_state_dict(stage)}
+    two = tmesh.create_mesh(tmesh.MeshConfig(dp=2), "cpu", ranks=[0, 1])
+    ep2 = tmesh.create_mesh(tmesh.MeshConfig(dp=1, ep=2), "cpu",
+                            ranks=[0, 1])
+    gpipe2 = {"microbatches": 2}
+    out["reshard_grow"] = _pp_reshard(inputs, [(two, {}), (dp2, gpipe2)], 2)
+    out["straight_dp2"] = _pp_reshard(inputs, [(two, {})], None)
+    out["reshard_shrink"] = _pp_reshard(inputs, [(dp2, gpipe2), (ep2, {})],
+                                        2, moe=True)
+    # Two rows a microbatch on both meshes: the same capacity, the same
+    # function before and after the move.
+    pp4_f1b = {"pipeline_schedule": "1f1b", "microbatches": 4}
+    fsdp2_f1b = {"pipeline_schedule": "1f1b", "microbatches": 2,
+                 "pp_fsdp": True}
+    out["reshard_pp4_fsdp2"] = _pp_reshard(
+        inputs, [(pp4, pp4_f1b), (fsdp2, fsdp2_f1b)], 2, moe=True)
+    out["straight_pp4"] = _pp_reshard(inputs, [(pp4, pp4_f1b)], None,
+                                      moe=True)
+    return out
 
 
 # -- the image workloads ---------------------------------------------------
