@@ -199,7 +199,29 @@ each phase's seconds on the line "phase seconds: {...}":
              per card, train_mfu, peak memory, allocator retries, and
              whether the two runs' losses are bit-identical.  Checked:
              K1'/K2'/K3' launches == 4 x layers on each rank, finite
-             losses, peak < 80 GB.
+             losses, peak < 80 GB.  (d) in the same processes: the
+             checkpoint data plane.  llama2_7b at full width with one
+             layer a card (world layers), fsdp = world, 1 x 4096 tokens
+             a rank, bf16 over f32 state: 2 steps, a save of step 2
+             through ckpt.ManifestCheckpointManager into a directory
+             store in a temp dir (each rank its own range of the
+             one-device stream; at one card one process writes 4
+             shards), 2 more steps (the straight run), then
+             restore_resharded onto dp = 2 x fsdp = 2 (four cards; dp =
+             2 at two, the same mesh at one) and the same 2 steps; the
+             store is removed after.  Checked: the per-leaf sha256 of
+             each rank's range after the restore equals the one before
+             the save; the restored run's losses within 1e-3 relative of
+             the straight run's (bit-equal at one card); K1'/K2'/K3'
+             launches == 6 steps x layers on each rank; each rank's host
+             peak (/proc/self/statm on a thread) during the save within
+             its range and during the restore within its new shard, plus
+             the largest leaf plus 1 GB; and a planted restore in which
+             rank 1 (rank 0 at one card) reads every leaf one row off
+             must change a digest.  Printed per rank: the free disk, the
+             save's seconds on the step path (snapshot) and off it
+             (write), the restore's, GB written and read and their GB/s,
+             host peaks and bounds, launches, and the part's seconds.
 9. tensor parallel  one process per card (4, 2 or 1), NCCL, each
              forming its group from the operator's env.  First, in this
              process on card 0, the one-card references: the 7B from
@@ -2362,10 +2384,276 @@ def dist_full_width_run(world: int):
             "peak_bytes": peak, "launches": launches}
 
 
+DIST_CKPT_CHUNK_BYTES = 16 << 20   # (d): 16 MiB chunks, ~200 a rank
+DIST_CKPT_LOSS_TOL = 1e-3          # (d) at two cards or more: phase 12
+                                   # (b)'s bound against phase 7 (c)
+DIST_CKPT_HOST_SLACK = 1 << 30     # (d): host bound = range + leaf + 1 GB
+
+
+class HostPeak:
+    """This process's resident set, sampled from /proc/self/statm on a
+    thread every 2 ms: the growth of its peak over the resident set at
+    start (``growth``, after ``stop``)."""
+
+    def __init__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        self.growth = self.peak - self.base
+        return self.growth
+
+
+def ckpt_range_digests(layout, lo: int, buf) -> dict:
+    """sha256 of each leaf's bytes inside a rank's range ``[lo, lo +
+    len(buf))`` of the one-device stream, by leaf index (hashed on 8
+    threads)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    view, pieces, off = memoryview(buf), {}, 0
+    for i, entry in enumerate(layout):
+        a, b = max(off, lo), min(off + entry["nbytes"], lo + len(view))
+        if a < b:
+            pieces[i] = view[a - lo:b - lo]
+        off += entry["nbytes"]
+    with ThreadPoolExecutor(8) as pool:
+        hashes = pool.map(lambda v: hashlib.sha256(v).hexdigest(),
+                          pieces.values())
+        return dict(zip(pieces, hashes))
+
+
+def ckpt_state_digests(state, mgr, buf) -> dict:
+    """:func:`ckpt_range_digests` of the range of ``state``'s stream that
+    ``mgr`` writes on this rank, copied into ``buf`` first (a collective
+    over the state's mesh: every leaf is gathered)."""
+    from mpi_operator_tpu_torch.ckpt.manager import state_layout, stream_range
+    leaves, layout = state_layout(state)
+    lo, hi = mgr.shard_range(sum(e["nbytes"] for e in layout))
+    return ckpt_range_digests(layout, lo, stream_range(leaves, layout, lo,
+                                                       hi, buf))
+
+
+def ckpt_shifted_rows(real):
+    """A planted fault: ``read_leaf_rows`` that reads the rows of every
+    leaf of two rows or more (all of them where it reads the whole leaf)
+    one row later."""
+    def read(fetch, off, entry, rows=None):
+        if not entry["shape"] or entry["shape"][0] < 2:
+            return real(fetch, off, entry, rows)
+        r0, r1 = rows if rows is not None else (0, entry["shape"][0])
+        return real(fetch, off, entry, (r0 + 1, r1 + 1))
+    return read
+
+
+def local_state_bytes(state) -> int:
+    """Bytes of this rank's parameters and optimizer entries."""
+    total = 0
+    for t in list(state.model.parameters()) + [
+            v for e in state.optimizer.state.values() for v in e.values()
+            if torch.is_tensor(v)]:
+        t = t.to_local() if hasattr(t, "to_local") else t
+        total += t.numel() * t.element_size()
+    return total
+
+
+def dist_ckpt_run(world: int):
+    """One rank of phase (d): llama2_7b at full width with ``world``
+    layers, fsdp = world, 1 x 4096 tokens a rank, bf16 compute over f32
+    state; 2 steps, a save of step 2 through ManifestCheckpointManager
+    into a directory store (each rank its own range; one process and 4
+    shards at one card), 2 more steps (the straight run), then
+    restore_resharded onto dp = 2 x fsdp = 2 (four cards; dp = 2 at two,
+    the same mesh at one) and the same 2 steps; then a restore in which
+    this rank, if it is rank 1 (rank 0 at one card), reads every leaf one
+    row off.  Returns the losses, the per-leaf digests of this rank's
+    range before the save, after the restore and after the planted one,
+    the seconds, bytes and host peaks, and the K1'-K3' launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.ckpt import BlobStore, manager as ckpt
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.models.params import init_params_
+    from mpi_operator_tpu_torch.ops import attention as fa
+    from mpi_operator_tpu_torch.parallel.mesh import (MeshConfig,
+                                                      batch_rows,
+                                                      create_mesh)
+    from mpi_operator_tpu_torch.parallel.train import (TrainState, adamw,
+                                                       build_train_step)
+    from mpi_operator_tpu_torch.telemetry.metrics import Registry
+
+    def free_device():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_part = time.perf_counter()
+    stamps = {}
+
+    def mark(name):
+        stamps[name] = time.perf_counter() - t_part - sum(stamps.values())
+
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(llama.llama2_7b(), n_layers=world)
+    specs = llama.llama_param_specs(cfg)
+    seq = cfg.max_seq_len
+    free_device()
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                  (world, seq))
+
+    def stepper(mesh):
+        _, step = build_train_step(dist_loss, adamw(DIST_LR), mesh=mesh,
+                                   param_specs=specs)
+        rows = torch.as_tensor(tokens[batch_rows(
+            tuple(mesh.shape), mesh.get_coordinate(), world)],
+            device="cuda")
+        return lambda state: step(state, rows)
+
+    def run(step, state, n):
+        losses = []
+        for _ in range(n):
+            state, metrics = step(state)
+            losses.append(metrics["loss"].item())
+        return state, losses
+
+    mesh = create_mesh(MeshConfig(dp=1, fsdp=world))
+    init, _ = build_train_step(dist_loss, adamw(DIST_LR), mesh=mesh,
+                               param_specs=specs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = init(llama.LlamaModel(cfg, device="meta",
+                                  store_dtype=cfg.param_dtype),
+                 init_weights=lambda m: init_params_(m, gen))
+    step = stepper(mesh)
+    mark("init")
+    for kernel in fa.LAUNCHES:
+        fa.LAUNCHES[kernel] = 0
+    state, first = run(step, state, 2)
+    mark("steps 1-2")
+
+    # One store for every rank: rank 0's temp dir.
+    root = [tempfile.mkdtemp(prefix="chip-smoke-ckpt-") if rank == 0
+            else None]
+    dist.broadcast_object_list(root, src=0)
+    root = root[0]
+    out = {"disk_free_gb": shutil.disk_usage(root).free / 1e9,
+           "store": root}
+    try:
+        store = BlobStore(root=root)
+        registry = Registry()
+        mgr = ckpt.ManifestCheckpointManager(
+            store, "smoke/llama2_7b", every=2,
+            num_shards=4 if world == 1 else world,
+            chunk_bytes=DIST_CKPT_CHUNK_BYTES, registry=registry)
+        snaps = []
+        real_snapshot = mgr.snapshot
+
+        def kept(state):
+            snaps.append(real_snapshot(state))
+            return snaps[-1]
+
+        mgr.snapshot = kept
+        dist.barrier()
+        mark("store")
+        peak = HostPeak()
+        t0 = time.perf_counter()
+        if not mgr.maybe_save(state, 2):
+            raise SystemExit("distributed (d): no save at step 2")
+        out["snapshot_s"] = time.perf_counter() - t0
+        state, straight = run(step, state, 2)
+        mgr.drain()
+        out["host_peak_save"] = peak.stop()
+        layout, total, data = snaps.pop()
+        lo, hi = mgr.shard_range(total)
+        out["range_bytes"] = hi - lo
+        out["total_bytes"] = total
+        out["largest_leaf"] = max(e["nbytes"] for e in layout)
+        out["write_s"] = registry.get(
+            "mpi_operator_ckpt_write_seconds").sum
+        out["bytes_written"] = store.counters["bytes_written"]
+        mark("save, steps 3-4")
+        out["before"] = ckpt_range_digests(layout, lo, data)
+        # The snapshot's page-locked buffer carries the later digests.
+        digest_buf = torch.from_numpy(data)
+        del data
+        mark("digest before")
+
+        # What the restores build from: the model and optimizer on the
+        # meta device.
+        meta = llama.LlamaModel(cfg, device="meta",
+                                store_dtype=cfg.param_dtype)
+        target = TrainState(0, meta, adamw(DIST_LR)(meta.parameters()))
+        new_mesh = mesh if world == 1 else create_mesh(
+            MeshConfig(dp=2, fsdp=world // 2))
+        new_step = stepper(new_mesh)
+        restores, real_read = {}, ckpt.read_leaf_rows
+        mark("restore set-up")
+        for planted in (False, True):
+            tag = "planted " if planted else ""
+            if planted and rank == (1 if world > 1 else 0):
+                ckpt.read_leaf_rows = ckpt_shifted_rows(real_read)
+            read0 = store.counters["bytes_read"]
+            dist.barrier()
+            peak = HostPeak()
+            t0 = time.perf_counter()
+            try:
+                moved = mgr.restore_resharded(target, new_mesh,
+                                              param_specs=specs)
+                torch.cuda.synchronize()
+            finally:
+                ckpt.read_leaf_rows = real_read
+            restores[planted] = {
+                "restore_s": time.perf_counter() - t0,
+                "host_peak": peak.stop(),
+                "shard_bytes": local_state_bytes(moved),
+                "bytes_read": store.counters["bytes_read"] - read0,
+                "plan": type(moved.plan).__name__}
+            mark(tag + "restore")
+            restores[planted]["digests"] = ckpt_state_digests(
+                moved, mgr, digest_buf)
+            mark(tag + "digest")
+            if not planted:
+                del state
+                free_device()
+                moved, out["restored"] = run(new_step, moved, 2)
+                mark("restored steps 3-4")
+            del moved
+            free_device()
+    finally:
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    out.update({"n_layers": cfg.n_layers, "world": world,
+                "num_shards": mgr.num_shards, "first": first,
+                "straight": straight, "restore": restores[False],
+                "planted": restores[True],
+                "launches": dict(fa.LAUNCHES), "steps": 6,
+                "part_s": time.perf_counter() - t_part})
+    mark("clean-up")
+    out["stages_s"] = stamps
+    out["after"] = out["restore"].pop("digests")
+    out["planted_digests"] = out["planted"].pop("digests")
+    return out
+
+
 def distributed_rank(out_dir: str) -> int:
     """A child of the distributed phase: phase (b) when there are two
     cards or more, then phase (c) twice (the determinism check across
-    two runs at this world size)."""
+    two runs at this world size), then phase (d)."""
     import torch.distributed as dist
 
     from mpi_operator_tpu_torch.bootstrap import initialize_from_env
@@ -2394,6 +2682,7 @@ def distributed_rank(out_dir: str) -> int:
             torch.save({k: v[1] for k, v in runs.items()},
                        os.path.join(out_dir, "parity.pt"))
     result["full_width"] = [dist_full_width_run(world) for _ in range(2)]
+    result["ckpt"] = dist_ckpt_run(world)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
@@ -2448,7 +2737,9 @@ def distributed_phase(card: str):
     examples/torch_pi.py; (b) with two cards or more, llama2_tiny f32 at
     dp = world (ZeRO) and fsdp = world against card 0 alone, and a
     planted fault that must fail; (c) llama2_7b at full width, fsdp =
-    world, 4 x world layers."""
+    world, 4 x world layers; (d) the checkpoint data plane: llama2_7b,
+    world layers, saved per rank and restored onto another mesh
+    (:func:`dist_ckpt_run`, :func:`ckpt_report`)."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     gc.collect()
@@ -2517,8 +2808,71 @@ def distributed_phase(card: str):
           f"{stats[0]['n_layers']} layers, 1 x 4096 tokens a rank: "
           + json.dumps({"card": card, "world": world, "ranks": stats}),
           flush=True)
+    ckpt = ckpt_report(card, [r["ckpt"] for r in ranks])
     return {"world": world, "launches_rank0": stats[0]["launches"],
-            "losses": stats[0]["losses"]}
+            "losses": stats[0]["losses"],
+            "ckpt_launches_rank0": ckpt["ranks"][0]["launches"]}
+
+
+def ckpt_report(card: str, runs):
+    """Phase 7 (d)'s checks over every rank's :func:`dist_ckpt_run`, and
+    its line."""
+    bad, ranks = [], []
+    for rank, c in enumerate(runs):
+        want = c["steps"] * c["n_layers"]
+        if any(n != want for n in c["launches"].values()):
+            bad.append(f"rank {rank} launches {c['launches']} != {want}")
+        if c["after"] != c["before"]:
+            bad.append(f"rank {rank}: restored digests differ")
+        losses = c["first"] + c["straight"] + c["restored"]
+        if not all(np.isfinite(losses)):
+            bad.append(f"rank {rank}: losses {losses}")
+        for got, want in zip(c["restored"], c["straight"]):
+            if (got != want) if c["world"] == 1 else \
+                    abs(got - want) > DIST_CKPT_LOSS_TOL * abs(want):
+                bad.append(f"rank {rank}: restored loss {got} vs {want}")
+        slack = c["largest_leaf"] + DIST_CKPT_HOST_SLACK
+        bounds = {"save": c["range_bytes"] + slack,
+                  "restore": c["restore"]["shard_bytes"] + slack}
+        for what, peak in (("save", c["host_peak_save"]),
+                           ("restore", c["restore"]["host_peak"])):
+            if peak > bounds[what]:
+                bad.append(f"rank {rank}: host peak {peak} during the "
+                           f"{what} > {bounds[what]}")
+        gb = 1e9
+        ranks.append({
+            "rank": rank, "disk_free_gb": c["disk_free_gb"],
+            "snapshot_s": c["snapshot_s"], "write_s": c["write_s"],
+            "restore_s": c["restore"]["restore_s"],
+            "written_gb": c["bytes_written"] / gb,
+            "write_gb_per_s": c["bytes_written"] / gb / c["write_s"],
+            "read_gb": c["restore"]["bytes_read"] / gb,
+            "read_gb_per_s": c["restore"]["bytes_read"] / gb
+            / c["restore"]["restore_s"],
+            "range_gb": c["range_bytes"] / gb,
+            "restore_plan": c["restore"]["plan"],
+            "host_peak_save_gb": c["host_peak_save"] / gb,
+            "host_bound_save_gb": bounds["save"] / gb,
+            "host_peak_restore_gb": c["restore"]["host_peak"] / gb,
+            "host_bound_restore_gb": bounds["restore"] / gb,
+            "losses": losses, "launches": c["launches"],
+            "part_s": c["part_s"], "stages_s": c["stages_s"]})
+    if not any(c["planted_digests"] != c["before"] for c in runs):
+        bad.append("the planted row-offset restore left every digest "
+                   "equal")
+    c = runs[0]
+    if bad:
+        print("distributed (d) checkpoint FAILED: " + json.dumps(
+            {"card": card, "ranks": ranks}), flush=True)
+        raise SystemExit(f"distributed (d) checkpoint: {bad}")
+    print(f"distributed (d) checkpoint: llama2_7b full width, "
+          f"{c['n_layers']} layers, fsdp={c['world']}, saved as "
+          f"{c['num_shards']} shards of {c['total_bytes'] / 1e9:.3f} GB, "
+          f"restored onto {c['restore']['plan']}: digests equal, planted "
+          f"fault caught; part seconds (max over ranks) "
+          f"{max(r['part_s'] for r in ranks):.1f}: "
+          + json.dumps({"card": card, "ranks": ranks}), flush=True)
+    return {"ranks": ranks}
 
 
 # -- phase 9: tensor parallel ---------------------------------------------------
@@ -4939,7 +5293,8 @@ def main() -> int:
     other = {"train_example_tiny": example_launches,
              "train_example_mixtral_tiny_data": moe_example_launches,
              "moe_training": moe_flash_launches,
-             "fsdp_training_rank0": distributed["launches_rank0"]}
+             "fsdp_training_rank0": distributed["launches_rank0"],
+             "fsdp_ckpt_restored_rank0": distributed["ckpt_launches_rank0"]}
     if "train_launches_rank0" in tp:       # two cards or more
         other["tp_training_rank0"] = tp["train_launches_rank0"]
     # Phase 11 (two cards or more): the ring's launches on every sp rank,

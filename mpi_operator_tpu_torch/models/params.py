@@ -300,7 +300,6 @@ def gather_stage_state_dict(stage, tensors: Optional[dict] = None,
     blocks, so every stage holds both kinds), so the receivers know what
     each message holds."""
     from ..parallel.pipeline import _gather_fsdp, _Place
-    from .llama_pipeline import layer_owner
     if tensors is None:
         tensors = dict(stage.named_parameters())
     cfg = stage.config
@@ -318,25 +317,42 @@ def gather_stage_state_dict(stage, tensors: Optional[dict] = None,
     whole = LlamaModel(cfg, device="meta")
     out = {}
     for name, meta in whole.named_parameters():
-        owner = layer_owner(name, cfg.n_layers, stage.n_stages,
-                            stage.virtual_stages)
-        if owner == stage.stage:
-            t = tensors[name].detach()
-            d = stage.fsdp_dims.get(name, -1)
-            if d >= 0:
-                t = _gather_fsdp(t, d, place)
-            buf = t.to(place.device).contiguous()
-        elif moves:
-            buf = torch.empty(meta.shape, dtype=kinds[kind(name)],
-                              device=place.device)
-        if not moves:
-            continue
-        if place.n > 1:
-            dist.broadcast(buf, src=place.global_rank(owner),
-                           group=place.group)
-        if keep:
-            out[name] = buf.to(device)
+        if moves:
+            buf = gather_stage_tensor(stage, name, tensors.get(name),
+                                      meta.shape, kinds[kind(name)], place)
+            if keep:
+                out[name] = buf.to(device)
+        elif name in tensors and stage.fsdp_dims.get(name, -1) >= 0:
+            # The owning stage's fsdp gather runs on all its ranks.
+            _gather_fsdp(tensors[name].detach(), stage.fsdp_dims[name],
+                         place)
     return out
+
+
+def gather_stage_tensor(stage, name: str, tensor, shape, dtype, place
+                        ) -> torch.Tensor:
+    """One tensor of :func:`gather_stage_state_dict`: parameter ``name``'s
+    one-device value (``shape``, ``dtype``) on every rank of this rank's
+    pp group, on ``place.device``.  ``tensor`` is this stage's (its fsdp
+    chunk under ``fsdp_shard``) when the stage holds ``name``, else
+    unused.  A collective over the owning stage's fsdp group and the pp
+    group (``place``: ``parallel.pipeline._Place(stage.mesh)``)."""
+    from ..parallel.pipeline import _gather_fsdp
+    from .llama_pipeline import layer_owner
+    cfg = stage.config
+    owner = layer_owner(name, cfg.n_layers, stage.n_stages,
+                        stage.virtual_stages)
+    if owner == stage.stage:
+        t = tensor.detach()
+        d = stage.fsdp_dims.get(name, -1)
+        if d >= 0:
+            t = _gather_fsdp(t, d, place)
+        buf = t.to(place.device).contiguous()
+    else:
+        buf = torch.empty(shape, dtype=dtype, device=place.device)
+    if place.n > 1:
+        dist.broadcast(buf, src=place.global_rank(owner), group=place.group)
+    return buf
 
 
 # Configuration fields that shape no tensor: a model that differs from

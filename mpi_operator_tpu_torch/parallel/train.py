@@ -76,6 +76,156 @@ class TrainState:
             self.optimizer.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
 
+    def leaves(self, entry_keys=None) -> list:
+        """The one-device state as :class:`Leaf` s, one tensor at a time,
+        in the checkpoint stream's order (``ckpt.manager``): the step
+        (int64), the parameters in ``LlamaModel.named_parameters()``
+        order (the model's own order for another model), each
+        parameter's optimizer entries (``entry_keys``: (key, whether it
+        is parameter-shaped) pairs, default those the optimizer holds,
+        by key), then the model's persistent buffers.  Global shapes
+        and order do not depend on the mesh.  Under a plan, every rank
+        of the mesh calls each leaf's ``gather`` in this order (the
+        plan's gathers are collectives); ``load`` fills only this rank's
+        part and touches no other rank."""
+        io = self.plan if self.plan is not None else _LocalLeaves()
+        if entry_keys is None:
+            entry_keys = _held_entry_keys(self.optimizer)
+        out = [Leaf("step", (), torch.int64,
+                    lambda: torch.tensor(self.step, dtype=torch.int64),
+                    lambda read: setattr(self, "step", int(read())))]
+        params = io.leaf_params(self)
+        for name, shape, dtype in params:
+            out.append(Leaf(f"model.{name}", shape, dtype,
+                            _bind(io.gather_leaf, self, name, None),
+                            _bind(io.load_leaf, self, name, None, True)))
+        for name, shape, _ in params:
+            for key, shaped in entry_keys:
+                out.append(Leaf(
+                    f"optimizer.{name}.{key}", shape if shaped else (),
+                    io.entry_dtype(self, name, key),
+                    _bind(io.gather_leaf, self, name, key),
+                    _bind(io.load_leaf, self, name, key, shaped)))
+        for name, buf in _persistent_buffers(self.model):
+            out.append(Leaf(f"buffer.{name}", tuple(buf.shape), buf.dtype,
+                            buf.detach, _bind(_load_whole, buf)))
+        return out
+
+
+@dataclass
+class Leaf:
+    """One tensor of the one-device state (``TrainState.leaves``): its
+    name, global shape and type (None: not held yet, as a fresh
+    optimizer's entries), ``gather()`` -> the whole tensor on this
+    rank's device, and ``load(read)``, which fills this rank's part from
+    ``read(rows=None)``: the whole one-device tensor on the host, or only
+    its rows ``(r0, r1)`` of dim 0 where the rank holds a contiguous
+    stretch of them."""
+    name: str
+    shape: tuple
+    dtype: Optional[torch.dtype]
+    gather: Callable[[], torch.Tensor]
+    load: Callable[[Callable], None]
+
+
+def _bind(fn, *args):
+    return lambda *rest: fn(*args, *rest)
+
+
+def _held_entry_keys(optimizer) -> list:
+    """(key, parameter-shaped) of the tensors in one optimizer entry, by
+    key ([] before the first step)."""
+    entry = next(iter(optimizer.state.values()), {})
+    return sorted((k, v.dim() > 0) for k, v in entry.items()
+                  if torch.is_tensor(v))
+
+
+def optimizer_entry_keys(optimizer) -> list:
+    """:func:`_held_entry_keys` of one step of ``optimizer``'s class and
+    hyperparameters on a 2-element parameter (on the CPU): what a fresh
+    optimizer will hold."""
+    accepted = inspect.signature(type(optimizer).__init__).parameters
+    kwargs = {k: v for k, v in optimizer.defaults.items()
+              if k in accepted and k not in ("fused", "capturable")}
+    p = torch.nn.Parameter(torch.zeros(2))
+    p.grad = torch.zeros(2)
+    probe = type(optimizer)([p], **kwargs)
+    probe.step()
+    return _held_entry_keys(probe)
+
+
+def _persistent_buffers(model):
+    for prefix, module in model.named_modules():
+        for name, buf in module._buffers.items():
+            if buf is not None and \
+                    name not in module._non_persistent_buffers_set:
+                yield (f"{prefix}.{name}" if prefix else name), buf
+
+
+@torch.no_grad()
+def _load_whole(dst: torch.Tensor, read) -> None:
+    dst.copy_(read())
+
+
+def _entry_value(value: torch.Tensor, param, optimizer) -> torch.Tensor:
+    """An optimizer entry placed as ``Optimizer.load_state_dict`` places
+    it: a scalar stays on the host unless the optimizer is fused or
+    capturable, anything else goes to the parameter's device."""
+    if value.dim() == 0 and not any(
+            g.get("fused") or g.get("capturable")
+            for g in optimizer.param_groups):
+        return value.clone()
+    return value.to(param.device, copy=True)
+
+
+def _dtensor_rows(param) -> Optional[tuple]:
+    """Rows (r0, r1) of dim 0 that this rank holds of a DTensor that is
+    sharded on dim 0 only (FSDP2's ``Shard(0)``, the ``torch.chunk``
+    split), else None."""
+    from torch.distributed.tensor import Shard
+    start, length = 0, param.shape[0] if param.dim() else 0
+    for mesh_dim, placement in enumerate(param.placements):
+        if not isinstance(placement, Shard):
+            continue
+        if placement.dim != 0:
+            return None
+        n = param.device_mesh.size(mesh_dim)
+        k = param.device_mesh.get_local_rank(mesh_dim)
+        size = -(-length // n)
+        start += min(k * size, length)
+        length = max(0, min(size, length - k * size))
+    return start, start + length
+
+
+class _LocalLeaves:
+    """:meth:`TrainState.leaves` of a state on one device (no plan)."""
+
+    @staticmethod
+    def _param(state, name):
+        return dict(state.model.named_parameters())[name]
+
+    def leaf_params(self, state):
+        return [(n, tuple(p.shape), p.dtype)
+                for n, p in state.model.named_parameters()]
+
+    def entry_dtype(self, state, name, key):
+        value = state.optimizer.state.get(self._param(state, name), {}).get(
+            key)
+        return value.dtype if torch.is_tensor(value) else None
+
+    def gather_leaf(self, state, name, key):
+        p = self._param(state, name)
+        return (p if key is None else state.optimizer.state[p][key]).detach()
+
+    @torch.no_grad()
+    def load_leaf(self, state, name, key, shaped, read):
+        p = self._param(state, name)
+        if key is None:
+            p.copy_(read())
+        else:
+            state.optimizer.state[p][key] = _entry_value(read(), p,
+                                                         state.optimizer)
+
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4
@@ -229,6 +379,15 @@ class _Layout:
             return value
         return self.ep.chunk(self.tp.chunk(value, d), e).clone()
 
+    def full_shape(self, name, shape) -> tuple:
+        """The one-device shape of a parameter-shaped chunk's ``shape``."""
+        d, e = self.dims.get(name, (None, None))
+        shape = list(shape)
+        for dim, par in ((d, self.tp), (e, self.ep)):
+            if dim is not None:
+                shape[dim] *= par.size
+        return tuple(shape)
+
 
 def _buckets(sizes, cap: int = BUCKET_ELEMENTS):
     """Consecutive index groups of ``sizes`` whose sums stay within
@@ -333,6 +492,7 @@ class _ReplicatedPlan:
     def __init__(self, mesh, zero: bool, hier: bool, ici_axis: str,
                  specs=None):
         sizes = _axis_sizes(mesh)
+        self.full_mesh = mesh
         self.device = _mesh_device(mesh)
         self.world = sizes["dp"] * sizes["fsdp"]       # batch ranks
         self.grads = _AxesGroup(mesh, ("dp", "fsdp", "sp"))
@@ -456,32 +616,20 @@ class _ReplicatedPlan:
     def state_dict(self, state) -> dict:
         """The full state, as one device's optimizer over
         ``model.parameters()`` would hold it: ZeRO chunks of the moments
-        are all-gathered (every rank takes part)."""
+        are all-gathered, tp and ep shards joined (every rank takes
+        part)."""
         optim = state.optimizer.state_dict()
         # Its per-parameter entries are the optimizer's live dicts: the
         # gathers below replace tensors in copies of them.
-        optim["state"] = {i: dict(e) for i, e in optim["state"].items()}
-        if self.zero:
-            group, n = self.scatter
-            for i, master in self.masters.items():
-                layout, k = self._chunk_layout(i)
-                d = layout.dims[k]
-                for key, value in optim["state"].get(i, {}).items():
-                    if torch.is_tensor(value) and \
-                            value.shape == master.shape:
-                        full = value.new_empty(
-                            (n * value.shape[0],) + tuple(value.shape[1:]))
-                        dist.all_gather_into_tensor(full, value.contiguous(),
-                                                    group=group)
-                        optim["state"][i][key] = full.movedim(0, d)
+        optim["state"] = {
+            i: {key: (self.gather_leaf(state, self.layout.names[i], key)
+                      if torch.is_tensor(value) and value.dim() else value)
+                for key, value in e.items()}
+            for i, e in optim["state"].items()}
         model = state.model.state_dict()
         if self.layout.sharded:
             lay = self.layout
             model = {k: lay.gather(k, v) for k, v in model.items()}
-            for i, entry in optim["state"].items():
-                for key, value in entry.items():
-                    if torch.is_tensor(value) and value.dim():
-                        entry[key] = lay.gather(i, value)
         return {"model": model, "optimizer": optim}
 
     @torch.no_grad()
@@ -514,6 +662,60 @@ class _ReplicatedPlan:
                 optim["state"][i] = entry
         state.optimizer.load_state_dict(optim)
 
+    # -- one tensor at a time (TrainState.leaves) ---------------------------
+    def leaf_params(self, state):
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        return [(n, self.layout.full_shape(n, p.shape), p.dtype)
+                for n, p in zip(self.layout.names, params)]
+
+    def _holder(self, state, i):
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        return params[i], self.masters.get(i, params[i])
+
+    def entry_dtype(self, state, name, key):
+        _, holder = self._holder(state, self.layout.names.index(name))
+        value = state.optimizer.state.get(holder, {}).get(key)
+        return value.dtype if torch.is_tensor(value) else None
+
+    @torch.no_grad()
+    def gather_leaf(self, state, name, key):
+        """The whole tensor on every rank: a ZeRO chunk all-gathered over
+        the scatter group, a tp or ep shard over its group."""
+        i = self.layout.names.index(name)
+        param, holder = self._holder(state, i)
+        t = param if key is None else state.optimizer.state[holder][key]
+        if key is not None and i in self.masters and t.dim():
+            group, n = self.scatter
+            layout, k = self._chunk_layout(i)
+            full = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+            dist.all_gather_into_tensor(full, t.contiguous(), group=group)
+            t = full.movedim(0, layout.dims[k])
+        if self.layout.sharded and t.dim():
+            t = self.layout.gather(i, t)
+        return t.detach()
+
+    @torch.no_grad()
+    def load_leaf(self, state, name, key, shaped, read):
+        i = self.layout.names.index(name)
+        param, holder = self._holder(state, i)
+        value = read()
+        if self.layout.sharded and value.dim():
+            value = self.layout.cut(i, value)
+        d = None                              # the ZeRO chunk's dim
+        if i in self.masters:
+            group, n = self.scatter
+            layout, k = self._chunk_layout(i)
+            d, rank = layout.dims[k], dist.get_rank(group)
+        if key is None:
+            param.copy_(value)
+            if d is not None:
+                holder.copy_(_chunk(param, d, n, rank))
+            return
+        if d is not None and value.dim():
+            value = _chunk(value, d, n, rank)
+        state.optimizer.state[holder][key] = _entry_value(
+            value.contiguous(), holder, state.optimizer)
+
 
 class _ShardedPlan:
     """Parameters sharded over ``fsdp`` with FSDP2 ``fully_shard``: one
@@ -532,6 +734,7 @@ class _ShardedPlan:
     def __init__(self, mesh, zero: bool, specs=None):
         from torch.distributed.device_mesh import DeviceMesh
         sizes = _axis_sizes(mesh)
+        self.full_mesh = mesh
         self.device = _mesh_device(mesh)
         self.world = sizes["dp"] * sizes["fsdp"]       # batch ranks
         self.grads = _AxesGroup(mesh, ("dp", "fsdp", "sp"))
@@ -606,21 +809,17 @@ class _ShardedPlan:
     @torch.no_grad()
     def _tp_state_dict(self, state) -> dict:
         """get_state_dict's full form (optimizer state keyed by parameter
-        name), one tensor at a time: each FSDP2 shard made whole over
-        fsdp, then over tp and ep, and kept (on the host) by rank 0
-        alone."""
-        from torch.distributed.tensor import DTensor
+        name), one tensor at a time (:meth:`gather_leaf`), kept (on the
+        host) by rank 0 alone."""
+        keep = dist.get_rank() == 0
 
-        lay, keep = self.layout, dist.get_rank() == 0
-
-        def full(name, t):
-            t = t.full_tensor() if isinstance(t, DTensor) else t
-            t = lay.gather(name, t) if t.dim() else t
-            return t.detach().cpu() if keep else None
+        def full(name, key):
+            t = self.gather_leaf(state, name, key)
+            return t.cpu() if keep else None
 
         opt = state.optimizer
         names = {id(p): n for n, p in state.model.named_parameters()}
-        model = {n: full(n, p) for n, p in state.model.named_parameters()}
+        model = {n: full(n, None) for n in names.values()}
         optim = {"state": {}, "param_groups": []}
         for group in opt.param_groups:
             optim["param_groups"].append(
@@ -628,7 +827,7 @@ class _ShardedPlan:
                  "params": [names[id(p)] for p in group["params"]]})
             for p in group["params"]:
                 optim["state"][names[id(p)]] = {
-                    k: full(names[id(p)], v) if torch.is_tensor(v) else v
+                    k: full(names[id(p)], k) if torch.is_tensor(v) else v
                     for k, v in opt.state.get(p, {}).items()}
         if not keep:
             return {}
@@ -649,6 +848,57 @@ class _ShardedPlan:
         set_state_dict(state.model, state.optimizer,
                        model_state_dict=model, optim_state_dict=optim,
                        options=StateDictOptions(full_state_dict=True))
+
+    # -- one tensor at a time (TrainState.leaves) ---------------------------
+    def leaf_params(self, state):
+        return [(n, self.layout.full_shape(n, p.shape), p.dtype)
+                for n, p in state.model.named_parameters()
+                if p.requires_grad]
+
+    def entry_dtype(self, state, name, key):
+        p = dict(state.model.named_parameters())[name]
+        value = state.optimizer.state.get(p, {}).get(key)
+        return value.dtype if torch.is_tensor(value) else None
+
+    @torch.no_grad()
+    def gather_leaf(self, state, name, key):
+        """The whole tensor on every rank: FSDP2's shard made whole
+        (``full_tensor``, an all-gather over the plan's mesh), then over
+        tp and ep."""
+        from torch.distributed.tensor import DTensor
+        p = dict(state.model.named_parameters())[name]
+        t = p if key is None else state.optimizer.state[p][key]
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        if self.layout.sharded and t.dim():
+            t = self.layout.gather(name, t)
+        return t.detach()
+
+    @torch.no_grad()
+    def load_leaf(self, state, name, key, shaped, read):
+        """This rank's FSDP2 shard of the leaf: with no tp or ep, only
+        its rows are read."""
+        from torch.distributed.tensor import DTensor
+        from ..models.params import _local_part
+        p = dict(state.model.named_parameters())[name]
+        if not shaped:
+            state.optimizer.state[p][key] = _entry_value(
+                read(), p.to_local(), state.optimizer)
+            return
+        rows = None if self.layout.sharded else _dtensor_rows(p)
+        if rows is not None:
+            local = read(rows)
+        else:
+            value = read()
+            if self.layout.sharded:
+                value = self.layout.cut(name, value)
+            local = _local_part(value, p)
+        if key is None:
+            p.to_local().copy_(local)
+        else:
+            state.optimizer.state[p][key] = DTensor.from_local(
+                local.to(p.device, copy=True).contiguous(), p.device_mesh,
+                p.placements, run_check=False, shape=p.shape,
+                stride=p.stride())
 
 
 class _PipelinePlan:
@@ -680,7 +930,7 @@ class _PipelinePlan:
             raise ValueError("virtual_stages > 1 runs the interleaved 1F1B "
                              "schedule: pass pipeline_schedule='1f1b'")
         sizes = _axis_sizes(mesh)
-        self.mesh = mesh
+        self.mesh = self.full_mesh = mesh
         self.device = _mesh_device(mesh)
         self.world = sizes["dp"] * sizes["fsdp"]        # batch ranks
         self.grads = _AxesGroup(mesh, ("dp", "fsdp"))
@@ -802,6 +1052,72 @@ class _PipelinePlan:
                   for g in optim["param_groups"]]
         state.optimizer.load_state_dict({"state": entries,
                                          "param_groups": groups})
+
+    # -- one tensor at a time (TrainState.leaves) ---------------------------
+    @staticmethod
+    def _kind(name) -> bool:
+        # The two storage kinds of a stage (models.params's join).
+        return name.endswith((".scale", ".router.weight"))
+
+    def leaf_params(self, state):
+        from ..models.llama import LlamaModel
+        if getattr(self, "_shapes", None) is None:
+            self._shapes = [(n, tuple(p.shape)) for n, p in LlamaModel(
+                self.stage.config, device="meta").named_parameters()]
+        kinds = {self._kind(n): p.dtype
+                 for n, p in self.stage.named_parameters()}
+        return [(n, shape, kinds[self._kind(n)]) for n, shape in self._shapes]
+
+    def _own_entry(self, state, key, name):
+        """This stage's optimizer entry ``key`` of parameter ``name`` when
+        the stage holds it, else of one of its parameters of the same
+        storage kind (every stage holds both kinds)."""
+        own = dict(self.stage.named_parameters())
+        p = own[name] if name in own else next(
+            q for n, q in own.items() if self._kind(n) == self._kind(name))
+        value = state.optimizer.state.get(p, {}).get(key)
+        return value if torch.is_tensor(value) else None
+
+    def entry_dtype(self, state, name, key):
+        value = self._own_entry(state, key, name)
+        return value.dtype if value is not None else None
+
+    @torch.no_grad()
+    def gather_leaf(self, state, name, key):
+        """The whole tensor on every rank: the owning stage's fsdp chunks
+        gathered, then broadcast over pp; a scalar entry (AdamW's step)
+        is the same for every parameter and is this stage's own."""
+        from ..models.params import gather_stage_tensor
+        from .pipeline import _Place
+        own = dict(self.stage.named_parameters())
+        shape, dtype = next((s, d) for n, s, d in self.leaf_params(state)
+                            if n == name)
+        tensor = own.get(name)
+        if key is not None:
+            value = self._own_entry(state, key, name)
+            if not value.dim():
+                return value.detach().clone()
+            tensor, dtype = (value if name in own else None), value.dtype
+        if getattr(self, "_place", None) is None:
+            self._place = _Place(self.mesh)
+        return gather_stage_tensor(self.stage, name, tensor, shape, dtype,
+                                   self._place)
+
+    @torch.no_grad()
+    def load_leaf(self, state, name, key, shaped, read):
+        """Only the stage that holds ``name`` reads it (its fsdp part)."""
+        own = dict(self.stage.named_parameters())
+        if name not in own:
+            return
+        p = own[name]
+        value = read()
+        if value.dim():
+            value = self.stage.fsdp_part(name, value)
+        if key is None:
+            p.copy_(value)
+        else:
+            state.optimizer.state[p][key] = _entry_value(
+                value.contiguous(), p, state.optimizer)
 
 
 def _init_state(plan, model, optimizer, init_weights=None) -> TrainState:
@@ -1173,22 +1489,54 @@ def reshard_train_state(state: Optional[TrainState], mesh,
         payload = _map_tensors(meta["tree"], fresh)
     for t in tensors:
         dist.broadcast(t.to(comm) if rank == src else t, src=src)
+    new = state_on_mesh(mesh, meta["model"], meta["optimizer"],
+                        param_specs, shard_update, model, pipeline_schedule,
+                        microbatches, virtual_stages, pp_fsdp)
+    if new is None:
+        return None
+    if isinstance(new.plan, _PipelinePlan):
+        # The stage's optimizer entries are keyed by the one-device index.
+        from ..models.llama import LlamaModel
+        names = [n for n, _ in LlamaModel(new.model.config,
+                                          device="meta").named_parameters()]
+    else:
+        names = [n for n, p in new.model.named_parameters()
+                 if p.requires_grad]
+    payload["optimizer"] = _rekey_optimizer(
+        payload["optimizer"], names, isinstance(new.plan, _ShardedPlan))
+    new.load_state_dict(payload)
+    return new
+
+
+def state_on_mesh(mesh, build, optimizer, param_specs=None,
+                  shard_update: bool = False, model=None,
+                  pipeline_schedule: str = "gpipe", microbatches: int = 4,
+                  virtual_stages: int = 1, pp_fsdp: bool = False
+                  ) -> Optional[TrainState]:
+    """A step-0 TrainState on ``mesh`` for a state to be loaded into, as
+    :func:`reshard_train_state` and ``ckpt``'s ``restore_resharded`` make
+    it (None off the mesh): the model built on the meta device from
+    ``build`` (what ``_llama_build`` gives: with pp > 1 in the mesh a
+    ``LlamaStage``, else a ``LlamaModel``) or ``model``, placed and
+    allocated by the mesh's plan (the arguments as ``build_train_step``
+    takes them), left unfilled, with ``optimizer`` ((class,
+    hyperparameters)) over it holding no entries yet."""
     if mesh.get_coordinate() is None:
         return None
     sizes = _axis_sizes(mesh)
-    if mesh.mesh.numel() != world and shard_update and sizes["dp"] > 1 \
-            and param_specs is not None and sizes["fsdp"] > 1:
+    if mesh.mesh.numel() != dist.get_world_size() and shard_update and \
+            sizes["dp"] > 1 and param_specs is not None and \
+            sizes["fsdp"] > 1:
         raise NotImplementedError(
-            "reshard_train_state onto a part of the group with FSDP2 and "
-            "shard_update over dp > 1 (that plan forms a group of its own)")
+            "a state on a part of the group with FSDP2 and shard_update "
+            "over dp > 1 (that plan forms a group of its own)")
     from ..models.llama import LlamaModel
     from ..models.llama_pipeline import LlamaStage
     if model is None:
-        if meta["model"] is None:
-            raise ValueError("reshard_train_state: a model that is not a "
-                             "LlamaModel or LlamaStage needs model= on the "
-                             "new mesh")
-        cls, config, store = meta["model"]
+        if build is None:
+            raise ValueError("a model that is not a LlamaModel or "
+                             "LlamaStage needs model= on the new mesh")
+        cls, config, store = build
         if sizes["pp"] > 1:
             model = LlamaStage(config, mesh=mesh,
                                virtual_stages=virtual_stages,
@@ -1197,7 +1545,7 @@ def reshard_train_state(state: Optional[TrainState], mesh,
         else:
             cls = LlamaModel if issubclass(cls, LlamaStage) else cls
             model = cls(config, device="meta", store_dtype=store, mesh=mesh)
-    optim_cls, defaults = meta["optimizer"]
+    optim_cls, defaults = optimizer
     accepted = inspect.signature(optim_cls.__init__).parameters
     kwargs = {k: v for k, v in defaults.items() if k in accepted}
     plan = _mesh_plan(mesh, param_specs, shard_update, False, "fsdp",
@@ -1205,18 +1553,8 @@ def reshard_train_state(state: Optional[TrainState], mesh,
                                 "microbatches": microbatches,
                                 "virtual_stages": virtual_stages,
                                 "pp_fsdp": pp_fsdp})
-    new = _init_state(plan, model, lambda params: optim_cls(params, **kwargs))
-    if isinstance(plan, _PipelinePlan):
-        # The stage's optimizer entries are keyed by the one-device index.
-        names = [n for n, _ in LlamaModel(new.model.config,
-                                          device="meta").named_parameters()]
-    else:
-        names = [n for n, p in new.model.named_parameters()
-                 if p.requires_grad]
-    payload["optimizer"] = _rekey_optimizer(
-        payload["optimizer"], names, isinstance(plan, _ShardedPlan))
-    new.load_state_dict(payload)
-    return new
+    return _init_state(plan, model, lambda params: optim_cls(params,
+                                                             **kwargs))
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ under a mesh: FSDP2 shards and ZeRO chunks), every rank calls it, and
 only rank 0 snapshots it to host memory and writes the one directory.
 Every rank restores from that directory (``load_state_dict`` places the
 full state back onto its shards), so the directory must be shared.
-Sharded, manifest-based checkpoints are ROADMAP.md queue 1 item 5.
+Sharded, manifest-based checkpoints, in which each rank writes and reads
+only its own part, are ``ckpt/`` (``ManifestCheckpointManager``).
 
 Saves and restores are ``checkpoint_save`` / ``checkpoint_restore``
 spans.

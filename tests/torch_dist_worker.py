@@ -1,7 +1,8 @@
 """One rank of a gloo process group for tests/test_torch_distributed.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
 tests/test_torch_expert_parallel.py, tests/test_torch_pipeline.py,
-tests/test_torch_moe_pipeline.py and tests/test_torch_resnet.py.
+tests/test_torch_moe_pipeline.py, tests/test_torch_resnet.py and
+tests/test_torch_ckpt_resharded.py.
 
     JAX_COORDINATOR_ADDRESS=127.0.0.1:PORT JAX_PROCESS_ID=r \\
     JAX_NUM_PROCESSES=n python tests/torch_dist_worker.py SCENARIO DIR [cuda]
@@ -1204,6 +1205,100 @@ def scenario_moe_pp_world4(inputs, out_dir):
     out["straight_pp4"] = _pp_reshard(inputs, [(pp4, pp4_f1b)], None,
                                       moe=True)
     return out
+
+
+# -- the checkpoint data plane (test_torch_ckpt_resharded.py) -------------
+
+CKPT_CHUNK_BYTES = 1 << 14
+
+
+def _leaf_dict(state):
+    """The one-device state leaf by leaf (``TrainState.leaves``, a
+    collective over the state's mesh) on the mesh's lowest rank, None on
+    the others."""
+    leaves = {leaf.name: leaf.gather().detach().cpu().clone()
+              for leaf in state.leaves()}
+    lowest = int(state.plan.full_mesh.mesh.min())
+    return leaves if dist.get_rank() == lowest else None
+
+
+def _ckpt_case(inputs, out_dir, job, old, new, fault=False):
+    """Two AdamW steps of the test's llama2_tiny on ``old`` ((mesh, build
+    kwargs)), a per-rank save of step 2 into the job's directory store,
+    restore_resharded onto ``new``, two more steps.  ``fault``: a second
+    save (job ``JOB-fault``) in which rank 1 writes rank 0's range, also
+    restored.  On every rank: its range, what its store uploaded and
+    read; on the lowest rank also the leaves before the save, after the
+    restore(s) and after the last step, and every step's metrics."""
+    from mpi_operator_tpu_torch.ckpt import (BlobStore,
+                                             ManifestCheckpointManager)
+    from mpi_operator_tpu_torch.ckpt.manifest import shard_ranges
+    tokens = inputs["pp_tokens"]
+    (mesh, build), (new_mesh, new_build) = old, new
+    init, step, model = _moe_pp_case(inputs, mesh, False, **build)
+    state = init(model)
+    metrics = []
+    for _ in range(2):
+        state, m = step(state, _rows(mesh, tokens))
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    store = BlobStore(root=os.path.join(out_dir, "store"))
+    out = {"before": _leaf_dict(state)}
+    jobs = [job] + [f"{job}-fault"] * fault
+    for name in jobs:
+        mgr = ManifestCheckpointManager(store, name, every=2,
+                                        chunk_bytes=CKPT_CHUNK_BYTES)
+        if name.endswith("-fault") and dist.get_rank() == 1:
+            mgr.shard_range = lambda total: shard_ranges(total,
+                                                         mgr.world)[0]
+        written = dict(store.counters)
+        assert mgr.maybe_save(state, 2)
+        mgr.drain()
+        out[f"save {name}"] = {
+            "range": mgr.shard_range(store.read_manifest(name, 2)
+                                     ["total_bytes"]),
+            **{k: store.counters[k] - written[k] for k in
+               ("puts", "bytes_written", "bytes_deduped")}}
+    specs = tl.llama_param_specs(tl.llama2_tiny(**inputs["pp_config"]))
+    for name in jobs:
+        mgr = ManifestCheckpointManager(store, name,
+                                        chunk_bytes=CKPT_CHUNK_BYTES)
+        read = store.counters["bytes_read"]
+        moved = mgr.restore_resharded(state, new_mesh, param_specs=specs,
+                                      **new_build)
+        out[f"restore {name}"] = {
+            "bytes_read": store.counters["bytes_read"] - read,
+            "plan": type(moved.plan).__name__,
+            "leaves": _leaf_dict(moved)}
+        if name == job:
+            restored = moved
+    step = _moe_pp_case(inputs, new_mesh, False, **new_build)[1]
+    for _ in range(2):
+        restored, m = step(restored, _rows(new_mesh, tokens))
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    out["final"] = _leaf_dict(restored)
+    out["metrics"] = metrics
+    return out
+
+
+def scenario_ckpt_world2(inputs, out_dir):
+    """fsdp = 2 -> dp = 2 with ZeRO (and the neighbour's-range fault),
+    pp = 2 (1F1B) -> fsdp = 2."""
+    fsdp2, dp2, pp2 = _pp_mesh(fsdp=2), _pp_mesh(dp=2), _pp_mesh(pp=2)
+    return {"fsdp2_dp2": _ckpt_case(inputs, out_dir, "ckpt/fsdp2",
+                                    (fsdp2, {}),
+                                    (dp2, {"shard_update": True}),
+                                    fault=True),
+            "pp2_fsdp2": _ckpt_case(inputs, out_dir, "ckpt/pp2",
+                                    (pp2, {"pipeline_schedule": "1f1b",
+                                           "microbatches": 2}),
+                                    (fsdp2, {}))}
+
+
+def scenario_ckpt_world4(inputs, out_dir):
+    """tp = 2 x fsdp = 2 -> fsdp = 4."""
+    return {"tp2_fsdp2_fsdp4": _ckpt_case(
+        inputs, out_dir, "ckpt/tp2fsdp2", (_pp_mesh(tp=2, fsdp=2), {}),
+        (_pp_mesh(fsdp=4), {}))}
 
 
 # -- the image workloads ---------------------------------------------------
