@@ -253,9 +253,35 @@ each phase's seconds on the line "phase seconds: {...}":
              layers (tp = 2 with 16 layers at two cards), 1 x 4096 tokens
              a batch shard, 1 warm-up + 3 steps, twice: K1'-K3' launches
              == 4 x layers on every rank, the two runs' losses
-             bit-identical, peak < 80 GB.  Printed: TTFT, inter-token
+             bit-identical, peak < 80 GB.  (d) with four cards, in the
+             same processes: disaggregated prefill/decode across two tp
+             groups of one world, ranks 0-1 a prefill replica and ranks
+             2-3 a decode replica (create_mesh(ranks=)), llama2_7b at 32
+             layers in bf16 from SEED on each, 512-block pools, 8 slots,
+             page 16; rank 0 drives /prefill with the decode replica as
+             destination, then 32 greedy new tokens on the decode
+             replica, for the 100-, 700- and 2,000-token prompts (bf16
+             pools) and, on a second pair over the same models, the
+             700-token prompt (int8 pools).  A page carries every KV
+             head: the prefill ranks gather theirs to rank 0, the decode
+             replica's rank 0 scatters each rank its chunk.  Checked:
+             every full page imported, none rejected; a second ship
+             all deduped; the decode replica hit every page (it
+             prefilled only the tail); on ranks 2 and 3 the imported
+             pool rows are that rank's head chunk of the wire pages
+             (digests, scales too); the decode replica's logits over
+             the imported pages (prefill_logits after the stop) within
+             5e-2 of one card, its streams equal phase 5's or first
+             differ below that error; K4' launches == decode steps x 32
+             on ranks 2 and 3 and none on ranks 0 and 1; peak < 80 GB;
+             and a planted fault, the decode replica installing each
+             rank the other's head chunk (the 300-token prompt), must
+             fail the rows and exceed 5e-2.  At fewer than four cards it
+             prints that it needs four.  Printed: TTFT, inter-token
              latency, tokens/s, peak per rank; ms a step, tokens/s a
-             card and train_mfu.
+             card and train_mfu; per prompt the handoff's seconds
+             (export gather, codec, push, import scatter) and GB/s, the
+             decode replica's TTFT and tokens/s, and (d)'s seconds.
 11. sequence / expert parallel  one process per card (4 or 2; at one
              card it prints that it needs two), NCCL.  (a) llama2_tiny
              f32, 3 AdamW steps at sp = world through ring attention on
@@ -382,6 +408,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -529,9 +556,14 @@ PAGED_CASES = [
     ("f32_gqa", 4, 8, 2, 64, 16, 64, torch.float32, [1024, 700, 17, 1],
      False, False, None),
     # The shard shapes of tensor-parallel serving (phase 9): a rank's
-    # query and KV heads of llama2_7b at tp 4, mixtral_8x7b at tp 4 and 2.
+    # query and KV heads of llama2_7b at tp 4 and 2 (the decode replica
+    # of (d), bf16 and int8 pools), mixtral_8x7b at tp 4 and 2.
     ("llama2_7b_tp4", 8, 8, 8, 128, 16, 256, torch.bfloat16, MIXED7, False,
      True, None),
+    ("llama2_7b_tp2", 8, 16, 16, 128, 16, 256, torch.bfloat16, MIXED7, False,
+     True, None),
+    ("llama2_7b_tp2_int8", 8, 16, 16, 128, 16, 256, torch.bfloat16, MIXED7,
+     True, True, None),
     ("mixtral_tp4", 8, 8, 2, 128, 16, 256, torch.bfloat16, MIXED7, False,
      True, None),
     ("mixtral_tp2", 8, 16, 4, 128, 16, 256, torch.bfloat16, MIXED7, False,
@@ -2885,6 +2917,9 @@ TP_DEVICE = "cuda"                # the ranks' device (a CPU dry run: "cpu")
 TP_MOE_LAYERS = 8                 # (b): of 32, cut to pay for phase 12
                                   # (c) and (d) (PERF.md section 4)
 PR9_FSDP4 = "fsdp=4, 32 layers: 655-666 ms a step, 6,150-6,250 tokens/s a card"
+TP_DISAGG_FAULT_LEN = 300         # (d): the planted fault's prompt
+TP_DISAGG_INT8_LEN = 700          # (d): the int8 pools' prompt
+TP_DISAGG_BUDGET_S = 120          # (d): printed beside its seconds
 
 
 def tp_world() -> int:
@@ -3199,9 +3234,198 @@ def tp_full_width_run(world: int):
             "peak_bytes": peak, "launches": launches}
 
 
+def head_chunk_digests(pages, tp: int):
+    """Per rank r of a tp group, one digest of head chunk r (dim 1) of
+    every wire leaf of ``pages``, page by page, leaves by path."""
+    hashes = [hashlib.blake2b(digest_size=16) for _ in range(tp)]
+    for page in pages:
+        for path in sorted(page["leaves"]):
+            for r, part in enumerate(page["leaves"][path].chunk(tp, dim=1)):
+                hashes[r].update(part.contiguous().view(torch.uint8)
+                                 .numpy().tobytes())
+    return [h.hexdigest() for h in hashes]
+
+
+def pool_rows_digest(batcher, digests) -> str:
+    """One digest of this rank's pool rows of the pages ``digests`` name,
+    in the order of ``head_chunk_digests``."""
+    by_digest = {d: b for b, d in batcher._block_digest.items()}
+    idx = torch.tensor([by_digest[d] for d in digests],
+                       device=batcher.device)
+    rows = {path: leaf.index_select(0, idx).cpu()
+            for path, leaf in batcher._pool_leaves()}
+    h = hashlib.blake2b(digest_size=16)
+    for i in range(len(digests)):
+        for path in sorted(rows):
+            h.update(rows[path][i].contiguous().view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
+    """One prefill/decode pair of (d): ranks 0-1 the prefill replica,
+    ranks 2-3 the decode replica, each a tp = 2 server over ``model``
+    with ``kv`` pools.  Rank 0 drives every prompt through /prefill (the
+    decode replica as destination) and 32 greedy tokens on the decode
+    replica; with ``fault_prompt`` a second ship is all dedup, then the
+    decode replica's rank 0 scatters the chunks swapped for that prompt.
+    Rank 0 re-exports the pages and takes each rank's head-chunk digest;
+    the decode ranks, after the stop, their rows' digests and their
+    last-position logits over the imported pages."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
+
+    role = "decode" if rank >= 2 else "prefill"
+    pa.LAUNCHES = 0
+    server = InferenceServer(model, mesh=mesh, role=role, max_batch_slots=8,
+                             kv_page_size=16, kv_cache_blocks=DISAGG_BLOCKS,
+                             kv_cache_dtype=kv, model_name="llama2_7b",
+                             device=TP_DEVICE, tp_timeout_s=600).start()
+    urls = [None] * dist.get_world_size()
+    dist.all_gather_object(urls, server.url if server.is_leader else None,
+                           group=coord)
+    ship = list(prompts) + ([fault_prompt] if fault_prompt else [])
+    out = {"kv_cache_dtype": kv, "prompts": []}
+    if rank == 0:
+        for prompt in prompts:
+            out["prompts"].append(tp_disagg_handoff(urls, prompt))
+        if fault_prompt:
+            again = post(urls[0] + "/prefill", {
+                "tokens": prompts[0], "transfer": {"url": urls[2]}})
+            out["reship"] = {k: again[k] for k in (
+                "shipped", "deduped", "imported", "rejected")}
+    dist.barrier(group=coord)
+    if fault_prompt and rank == 2:
+        real = server._batcher._head_chunks
+        server._batcher._head_chunks = lambda rows: real(rows)[::-1]
+    dist.barrier(group=coord)
+    if rank == 0:
+        if fault_prompt:
+            out["fault"] = tp_disagg_handoff(urls, fault_prompt)
+        t0 = time.perf_counter()
+        out["wire"] = []
+        for prompt in ship:
+            pages = server._batcher.export_kv_pages(
+                prefix_page_digests(prompt, 16))
+            out["wire"].append({"pages": len(pages),
+                                "raw_kv_bytes": page_bytes(pages),
+                                "chunks": head_chunk_digests(pages, 2)})
+        out["wire_digest_s"] = time.perf_counter() - t0
+    dist.barrier(group=coord)
+    if fault_prompt and rank == 2:
+        del server._batcher._head_chunks
+    if TP_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    out.update(launches=pa.LAUNCHES,
+               decode_steps=server.telemetry["dispatches_total"].value,
+               prefix_hit_blocks=server.batcher_stats()["prefix"][
+                   "hit_blocks"],
+               page_record_bytes=server.mirror.page_record_bytes,
+               exchange_ms_per_turn=(server.mirror.seconds * 1e3
+                                     / max(1, server.mirror.turns)))
+    if server.is_leader:
+        server.stop()
+    else:
+        server.join(timeout=TP_DEADLINE_S)
+        server.stop()
+    logits = None
+    if rank >= 2:
+        out["rows"] = [pool_rows_digest(server._batcher,
+                                        prefix_page_digests(p, 16))
+                       for p in ship]
+        logits = torch.stack([server.prefill_logits(p)
+                              for p in ship]).float().cpu()
+    del server
+    gc.collect()
+    if TP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out, logits
+
+
+def tp_disagg_handoff(urls, prompt):
+    """Rank 0 of (d): one prompt's /prefill into the decode replica and
+    its 32-token SSE stream there."""
+    t0 = time.perf_counter()
+    reply = post(urls[0] + "/prefill", {
+        "tokens": prompt, "transfer": {"url": urls[2], "have": []}})
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events, ttft = read_sse(urls[2] + "/generate", {
+        "tokens": [prompt], "max_new_tokens": SERVE_NEW_TOKENS,
+        "stream": True})
+    stream_s = time.perf_counter() - t0
+    got = [e["token"] for e in events if "token" in e]
+    sec = reply["seconds"]
+    return {"prompt_len": len(prompt), "digests": len(reply["digests"]),
+            **{k: reply[k] for k in ("shipped", "deduped", "imported",
+                                     "rejected", "bytes")},
+            "prefill_s": prefill_s, "export_gather_s": sec["export"],
+            "codec_s": sec["encode"] + sec["wire_decode"],
+            "encode_s": sec["encode"], "push_s": sec["push"],
+            "receiver_wire_decode_s": sec["wire_decode"],
+            "import_scatter_s": sec["import"],
+            "handoff_s": sec["export"] + sec["encode"] + sec["push"],
+            "stream": got, "decode_ttft_s": ttft,
+            "decode_tokens_per_s": len(got) / stream_s}
+
+
+def tp_disagg(world: int, rank: int, refs, out_dir: str):
+    """Phase 9 (d), one rank of four: two tp = 2 groups of one world
+    (ranks 0-1 prefill, 2-3 decode), llama2_7b at 32 layers drawn as
+    each rank's shard of the SEED weights; the bf16 round over
+    DISAGG_PROMPT_LENS with the planted fault, then the int8 round over
+    the 700-token prompt on new servers over the same models.  The
+    decode ranks' logits go to ``out_dir`` from rank 2."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.models.llama import llama2_7b
+    from mpi_operator_tpu_torch.models.params import init_params
+    from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    t_start = time.perf_counter()
+    gc.collect()
+    if TP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # Host hand-offs (URLs, barriers) beside the servers' own groups.
+    coord = dist.new_group(backend="gloo")
+    meshes = [create_mesh(MeshConfig(dp=1, tp=2), TP_DEVICE, ranks=r)
+              for r in ([0, 1], [2, 3])]
+    cfg = llama2_7b()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(
+        SEED), device=TP_DEVICE, mesh=meshes[rank // 2])
+    out = {"init_s": time.perf_counter() - t0, "n_layers": cfg.n_layers,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+    by_len = dict(zip(SERVE_PROMPT_LENS, refs["prompts"]))
+    bf16, logits = tp_disagg_round(
+        rank, meshes[rank // 2], model, "auto",
+        [by_len[n] for n in DISAGG_PROMPT_LENS], by_len[TP_DISAGG_FAULT_LEN],
+        coord)
+    int8, int8_logits = tp_disagg_round(rank, meshes[rank // 2], model,
+                                        "int8", [by_len[TP_DISAGG_INT8_LEN]],
+                                        None, coord)
+    out.update(bf16=bf16, int8=int8)
+    if rank == 2:
+        torch.save({"bf16": logits, "int8": int8_logits},
+                   os.path.join(out_dir, "tp_disagg_logits.pt"))
+    del model
+    gc.collect()
+    if TP_DEVICE == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    dist.barrier(group=coord)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def tp_rank(out_dir: str) -> int:
     """A child of phase 9: (a) always; (b) and (c) with two cards or
-    more."""
+    more; (d) with four."""
     import torch.distributed as dist
 
     rank, world = tp_group()
@@ -3236,6 +3460,9 @@ def tp_rank(out_dir: str) -> int:
         result["full_width"] = [timed(f"(c) full width run {i}",
                                       tp_full_width_run, world)
                                 for i in range(2)]
+    if world >= 4:
+        result["disagg"] = timed("(d) disagg", tp_disagg, world, rank, refs,
+                                 out_dir)
     if rank == 0:
         torch.save(tensors, os.path.join(out_dir, "tp_tensors.pt"))
     with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
@@ -3297,12 +3524,126 @@ def stream_verdict(got, want, gaps, limit):
     return None if len(got) == len(want) else len(got)
 
 
+def tp_disagg_verdict(card: str, ranks, out_dir: str, ref_logits, gaps,
+                      serve):
+    """Phase 9 (d)'s checks over the four ranks' reports; prints them and
+    returns the decode ranks' K4' launches."""
+    d = [r["disagg"] for r in ranks]
+    logits = torch.load(os.path.join(out_dir, "tp_disagg_logits.pt"))
+    at = {n: SERVE_PROMPT_LENS.index(n) for n in SERVE_PROMPT_LENS}
+    failures, report = [], {}
+    for name, lens in (("bf16", DISAGG_PROMPT_LENS),
+                       ("int8", (TP_DISAGG_INT8_LEN,))):
+        lead = d[0][name]
+        fault = name == "bf16"
+        ship = list(lens) + ([TP_DISAGG_FAULT_LEN] if fault else [])
+        handoffs = lead["prompts"] + ([lead["fault"]] if fault else [])
+        for row in handoffs:
+            if not (row["shipped"] == row["imported"] == row["digests"] > 0
+                    and row["rejected"] == 0):
+                failures.append(f"{name} {row['prompt_len']}: handoff "
+                                f"{ {k: row[k] for k in ('digests', 'shipped', 'imported', 'deduped', 'rejected')} }")
+        if fault and not (lead["reship"]["deduped"]
+                          == lead["reship"]["shipped"]
+                          == handoffs[0]["digests"]
+                          and lead["reship"]["imported"] == 0):
+            failures.append(f"bf16: a second ship was not all dedup: "
+                            f"{lead['reship']}")
+        hits = sum(row["digests"] for row in handoffs)
+        for r in (2, 3):
+            if d[r][name]["prefix_hit_blocks"] != hits:
+                failures.append(f"{name} rank {r}: {d[r][name]['prefix_hit_blocks']}"
+                                f" prefix hits, {hits} pages imported "
+                                f"(a page prefilled again?)")
+        rows_equal = {}
+        for i, n in enumerate(ship):
+            chunks = lead["wire"][i]["chunks"]
+            held = [d[2][name]["rows"][i], d[3][name]["rows"][i]]
+            rows_equal[n] = [h == c for h, c in zip(held, chunks)]
+            planted = fault and n == TP_DISAGG_FAULT_LEN
+            if planted == any(rows_equal[n]) or \
+                    (not planted and not all(rows_equal[n])):
+                failures.append(f"{name} {n}: pool rows equal to the "
+                                f"rank's head chunk {rows_equal[n]}"
+                                f"{' under the planted fault' if planted else ''}")
+        errs = {n: logit_err(logits[name][i][None],
+                             ref_logits[at[n]][None])
+                for i, n in enumerate(ship)}
+        err = max(errs[n] for n in lens)
+        if not err <= TP_LOGIT_LIMIT:
+            failures.append(f"{name}: logits over the imported pages differ"
+                            f" from one card by {err} (limit "
+                            f"{TP_LOGIT_LIMIT})")
+        if fault and not errs[TP_DISAGG_FAULT_LEN] > TP_LOGIT_LIMIT:
+            failures.append(f"bf16: the planted fault's logits differ by "
+                            f"{errs[TP_DISAGG_FAULT_LEN]}, within "
+                            f"{TP_LOGIT_LIMIT}")
+        moved = {}
+        for row in handoffs:
+            n = row["prompt_len"]
+            moved[n] = stream_verdict(row["stream"], serve["alone"][at[n]],
+                                      gaps[at[n]], err)
+            if n != TP_DISAGG_FAULT_LEN and (
+                    moved[n] is not None
+                    or len(row["stream"]) != SERVE_NEW_TOKENS):
+                failures.append(f"{name} {n}: the decode stream leaves "
+                                f"phase 5's at {moved[n]}, beyond a "
+                                f"near-tie")
+        for r in range(4):
+            x = d[r][name]
+            want = x["decode_steps"] * d[r]["n_layers"] if r >= 2 else 0
+            if x["launches"] != want or (r >= 2 and not want) or \
+                    (r < 2 and x["decode_steps"]):
+                failures.append(f"{name} rank {r}: K4' launches "
+                                f"{x['launches']}, decode steps "
+                                f"{x['decode_steps']}")
+        raw = sum(w["raw_kv_bytes"] for w in lead["wire"][:len(handoffs)])
+        report[name] = {
+            "logit_err": err, "logit_err_per_prompt": errs,
+            "stream_first_departure": moved, "rows_equal": rows_equal,
+            "prompts": [{**{k: v for k, v in row.items() if k != "stream"},
+                         "raw_kv_bytes": w["raw_kv_bytes"],
+                         "handoff_gb_per_s": w["raw_kv_bytes"]
+                         / row["handoff_s"] / 1e9,
+                         "scatter_bytes_sent_by_rank2": w["raw_kv_bytes"] / 2}
+                        for row, w in zip(handoffs, lead["wire"])],
+            "handoff_gb_per_s": raw / sum(r["handoff_s"] for r in handoffs)
+            / 1e9,
+            "reship": lead.get("reship"),
+            "wire_digest_s": lead["wire_digest_s"],
+            "per_rank": [{k: d[r][name][k] for k in (
+                "launches", "decode_steps", "prefix_hit_blocks",
+                "page_record_bytes", "exchange_ms_per_turn")}
+                for r in range(4)]}
+    for r in range(4):
+        if not d[r].get("peak_bytes", 0) < 80e9:
+            failures.append(f"rank {r}: peak {d[r].get('peak_bytes')}")
+    seconds = [x["seconds"] for x in d]
+    print("tensor parallel (d) disaggregated llama2_7b, prefill tp = 2 "
+          "(ranks 0-1) -> decode tp = 2 (ranks 2-3): " + json.dumps({
+              "card": card, "n_layers": d[0]["n_layers"], "slots": 8,
+              "page_size": 16, "kv_cache_blocks": DISAGG_BLOCKS,
+              "logit_limit": TP_LOGIT_LIMIT, **report,
+              "peak_bytes": [x.get("peak_bytes") for x in d],
+              "init_s": [x["init_s"] for x in d],
+              "seconds": seconds, "budget_s": TP_DISAGG_BUDGET_S}),
+          flush=True)
+    if failures:
+        raise SystemExit("tensor parallel (d): " + "; ".join(failures))
+    print(f"tensor parallel (d): {max(seconds):.1f} s (budget "
+          f"{TP_DISAGG_BUDGET_S} s); {card}", flush=True)
+    return {f"{name}_rank{r}": d[r][name]["launches"]
+            for name in ("bf16", "int8") for r in (2, 3)}
+
+
 def tp_phase(card: str, serve):
     """Phase 9: one process per card (tp_world), NCCL.  (a) llama2_7b
     served at tp = world, all 32 layers; (b) mixtral_8x7b served at
     TP_MOE_LAYERS of 32 layers, tp = world (two cards or more); (c)
     training parity at tp = world (and fsdp = 2 x tp = 2) against card 0
-    alone with a planted fault, and the 7B at full width, twice."""
+    alone with a planted fault, and the 7B at full width, twice; (d) at
+    four cards, the 7B handed from a tp = 2 prefill replica to a tp = 2
+    decode replica."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
     gc.collect()
@@ -3372,8 +3713,10 @@ def tp_phase(card: str, serve):
     result = {"world": world, "launches_rank0": ranks[0]["serve"]["launches"]}
     if world < 2:
         print("tensor parallel (b) mixtral_8x7b, (c) training: need two "
-              "cards (tp over one card is phase 5f's serving); this "
-              "machine shows one", flush=True)
+              "cards (tp over one card is phase 5f's serving); (d) "
+              "disaggregated prefill/decode across tp groups: needs four "
+              "(phase 5e is the one-card handoff); this machine shows one",
+              flush=True)
         return result
 
     # (b) mixtral_8x7b at TP_MOE_LAYERS layers.
@@ -3427,6 +3770,15 @@ def tp_phase(card: str, serve):
                                      "pr9": PR9_FSDP4, "ranks": stats}),
           flush=True)
     result["train_launches_rank0"] = stats[0]["launches"]
+
+    # (d) disaggregated prefill/decode across two tp groups.
+    if world >= 4:
+        result["disagg_launches"] = tp_disagg_verdict(
+            card, ranks, out_dir, ref_logits, gaps, serve)
+    else:
+        print(f"tensor parallel (d) disaggregated prefill/decode across tp "
+              f"groups: needs four cards (two tp = 2 replicas); this "
+              f"machine shows {world}", flush=True)
     print("tensor parallel parts (seconds, rank 0): "
           + json.dumps(ranks[0]["seconds"]), flush=True)
     return result
@@ -5268,7 +5620,10 @@ def main() -> int:
             # Phase 9, rank 0 (every rank's count is checked there);
             # the MoE run needs two cards.
             "tp_serving_rank0": tp["launches_rank0"],
-            "tp_moe_serving_rank0": tp.get("moe_launches_rank0")},
+            "tp_moe_serving_rank0": tp.get("moe_launches_rank0"),
+            # Phase 9 (d), the decode replica's ranks (four cards).
+            **{f"tp_disagg_decode_{k}": v
+               for k, v in tp.get("disagg_launches", {}).items()}},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],

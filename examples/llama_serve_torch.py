@@ -37,6 +37,15 @@ loaded from a HuggingFace Llama, Mistral or Mixtral checkpoint
     # JAX_NUM_PROCESSES); rank 0 serves HTTP, the others follow it:
     python examples/llama_serve_torch.py --config 7b --slots 8 --tp 4
 
+    # a disaggregated pair at tp = 2 each: two jobs of two processes (each
+    # job its own operator env and coordinator), the same --seed; the
+    # pages rank 0 of the prefill job ships carry every KV head, so the
+    # decode side may be a job of any --tp (or the JAX package's server)
+    python examples/llama_serve_torch.py --config 7b --tp 2 \
+        --role decode --port 8081 &          # per process of job 1
+    python examples/llama_serve_torch.py --config 7b --tp 2 \
+        --role prefill --port 8080 &         # per process of job 2
+
     # then:
     curl -s localhost:8080/generate -d \
       '{"tokens": [[1,2,3]], "max_new_tokens": 16, "eos_token_id": 2}'

@@ -132,6 +132,32 @@ class TensorParallel:
             dist.all_reduce(t, group=self.group)
         return t
 
+    def gather_to_first(self, local: torch.Tensor) -> Optional[list]:
+        """Every rank's ``local`` (one shape and dtype on every rank), in
+        rank order, on rank 0 of the axis; None on the others.  One
+        ``gather`` over the group (``[local]`` when size is 1)."""
+        if self.size == 1:
+            return [local]
+        parts = ([torch.empty_like(local) for _ in range(self.size)]
+                 if self.rank == 0 else None)
+        dist.gather(local.contiguous(), parts,
+                    dst=dist.get_global_rank(self.group, 0), group=self.group)
+        return parts
+
+    def scatter_from_first(self, parts: Optional[list],
+                           like: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor of rank 0's ``parts`` (one a rank, in rank
+        order, each of ``like``'s shape and dtype; None on the others).
+        One ``scatter`` over the group (``parts[0]`` when size is 1)."""
+        if self.size == 1:
+            return parts[0]
+        out = torch.empty_like(like)
+        dist.scatter(out, [p.contiguous() for p in parts]
+                     if self.rank == 0 else None,
+                     src=dist.get_global_rank(self.group, 0),
+                     group=self.group)
+        return out
+
 
 class ExpertParallel(TensorParallel):
     """This rank's place on ``ep``: it holds experts

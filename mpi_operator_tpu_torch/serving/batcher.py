@@ -68,8 +68,23 @@ Every branch of the loop then reads only agreed state (``_cancelled``,
 the admission queue of the turn), so every rank runs the same prefills,
 installs, retirements and decode steps.  The followers take no requests
 of their own; a slot-local admission error is fatal under tp (it may
-have happened on one rank only), and KV-page export and import are
-refused (a page would hold only this rank's heads).
+have happened on one rank only).
+
+KV pages under tp carry every head, in the JAX wire's layout (the JAX
+batcher exports its pool's global arrays): rank r's pool holds the
+contiguous KV-head chunk [r*kvh/tp, (r+1)*kvh/tp) (``TensorParallel.
+chunk``), the heads axis is dim 1 of a page leaf, and an export or an
+import is one lock-step operation.  Rank 0 queues it for the scheduler
+thread (an HTTP thread never runs a collective), the turn's record
+carries its headers (digests, parents, tokens, leaf shapes; never leaf
+bytes), and every rank runs it before the turn's admissions: the same
+lookups and verdicts from the same state, held to rank 0's
+(``TickMirror.agree``), then the bytes move over the tp group's device
+communicator.  An export gathers each rank's rows of a wave to rank 0,
+which joins them on the heads axis; an import scatters each rank's head
+chunk of a wave from rank 0, which alone holds the decoded pages
+((tp-1)/tp of a wave's bytes leave it).  A failure there is fatal to the
+batcher and, through the mirror, to the group.
 """
 
 from __future__ import annotations
@@ -108,6 +123,9 @@ log = logging.getLogger(__name__)
 # bounds XLA recompiles.
 _EXPORT_WAVE_WIDTH = 64
 _IMPORT_WAVE_WIDTH = 8
+# Under tp an export waits for the next scheduler turn, which may hold a
+# long admission prefill.
+_TP_EXPORT_TIMEOUT_S = 120.0
 
 
 def _page_digest(parent_hex: str, page) -> str:
@@ -135,6 +153,32 @@ def prefix_page_digests(tokens, page_size: int) -> List[str]:
         parent = _page_digest(parent,
                               tokens[j * page_size:(j + 1) * page_size])
         out.append(parent)
+    return out
+
+
+def _page_header(page: dict) -> dict:
+    """What every rank of a tp group needs of a transferred page to stage
+    it: its digest, parent, tokens and leaf shapes (no leaf bytes)."""
+    return {"digest": str(page.get("digest", "")),
+            "parent": str(page.get("parent", "")),
+            "tokens": [int(t) for t in page.get("tokens", ())],
+            "shapes": {str(path): tuple(int(n) for n in np.shape(leaf))
+                       for path, leaf in page.get("leaves", {}).items()}}
+
+
+def _flat_bytes(tensors) -> torch.Tensor:
+    """The tensors' bytes one after another, as one flat uint8 tensor."""
+    return torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _unflat_bytes(flat: torch.Tensor, like) -> List[torch.Tensor]:
+    """Views of ``flat`` (``_flat_bytes`` of tensors shaped and typed as
+    ``like``) with each one's shape and dtype."""
+    out, pos = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[pos:pos + n].view(t.dtype).view(t.shape))
+        pos += n
     return out
 
 
@@ -349,9 +393,16 @@ class ContinuousBatcher:
                                  "hit_tokens": 0, "evicted": 0}
             # Transferred KV pages wait here until the scheduler thread
             # installs them: all pool and registry mutation stays on that
-            # thread, as admission's does.
+            # thread, as admission's does.  Under tp exports wait here
+            # too, and rank 0 moves both into the turn's record:
+            # (kind, payload, result, done) each.
             self._kv_imports: deque = deque()
             self._kv_imports_lock = threading.Lock()
+            # Tensor parallel: the agreed page operations (headers) of the
+            # turn, and rank 0's own (payload, result, done) of each, in
+            # the same order.
+            self._page_ops: deque = deque()
+            self._page_payload: deque = deque()
         else:
             decode_cfg = cfg
         with torch.inference_mode():
@@ -639,25 +690,27 @@ class ContinuousBatcher:
                 for leaf, tensor in node["attention"].items()
                 if leaf.startswith("pool_")]
 
-    def export_kv_pages(self, digests: List[str]) -> List[dict]:
-        """Snapshot the requested prefix-cache pages for transfer to a
-        decode replica: for each chain digest this replica has
-        registered, the page's tokens, its parent digest and its raw pool
-        K/V leaves as host tensors.
+    def _wave_leaves(self) -> List[tuple]:
+        """``_pool_leaves`` with wider elements first, so every leaf's
+        bytes start aligned to its element size inside the one flat
+        buffer a wave moves in."""
+        return sorted(self._pool_leaves(),
+                      key=lambda pl: -pl[1].element_size())
 
-        Safe from HTTP threads while the scheduler ticks.  Each wave of
-        blocks is gathered with one ``index_select`` per leaf under the
-        device lock, on the stream the scheduler writes the pool on, and
-        copied to the host in ONE copy.  A block that was evicted and
-        reused before the gather changes or loses its digest before the
-        copy returns, so each block's digest is checked again after the
-        copy and a changed one is dropped (best-effort protocol: a
-        missing page just means the importer prefills that span)."""
-        if self.page_size <= 0:
-            raise ValueError(
-                "export_kv_pages requires the paged KV cache "
-                "(page_size > 0)")
-        self._refuse_pages_under_tp("export")
+    def _wire_shapes(self) -> dict:
+        """Wire path -> the shape of that leaf in a page: the pool
+        leaf's per-block shape with every KV head (this rank's head
+        count times tp on dim 1, the heads axis)."""
+        out = {}
+        for path, leaf in self._pool_leaves():
+            shape = list(leaf.shape[1:])
+            shape[1] *= self._tp
+            out[path] = tuple(shape)
+        return out
+
+    def _export_entries(self, digests: List[str]) -> List[tuple]:
+        """(digest, block, parent digest, tokens) of each requested chain
+        digest this replica has registered, in the order asked."""
         by_digest: dict = {}
         for _ in range(8):
             try:
@@ -666,7 +719,7 @@ class ContinuousBatcher:
                 break
             except RuntimeError:
                 continue
-        entries: List[tuple] = []  # (digest, blk, parent, tokens)
+        entries: List[tuple] = []
         for digest in digests:
             blk = by_digest.get(digest)
             meta = self._block_meta.get(blk) if blk is not None else None
@@ -677,10 +730,44 @@ class ContinuousBatcher:
                       else self._block_digest.get(parent_blk, ""))
             entries.append((digest, blk, parent,
                             [int(t) for t in meta["key"][1]]))
-        # Wider elements first, so every leaf's bytes start aligned to its
-        # element size inside the one flat host buffer of a wave.
-        leaves = sorted(self._pool_leaves(),
-                        key=lambda pl: -pl[1].element_size())
+        return entries
+
+    def export_kv_pages(self, digests: List[str]) -> List[dict]:
+        """Snapshot the requested prefix-cache pages for transfer to a
+        decode replica: for each chain digest this replica has
+        registered, the page's tokens, its parent digest and its raw pool
+        K/V leaves as host tensors, every KV head in each.
+
+        Safe from HTTP threads while the scheduler ticks.  Each wave of
+        blocks is gathered with one ``index_select`` per leaf under the
+        device lock, on the stream the scheduler writes the pool on, and
+        copied to the host in ONE copy.  A block that was evicted and
+        reused before the gather changes or loses its digest before the
+        copy returns, so each block's digest is checked again after the
+        copy and a changed one is dropped (best-effort protocol: a
+        missing page just means the importer prefills that span).  Under
+        tp (rank 0 only) the export is a lock-step operation of the
+        scheduler threads: this call queues it and waits."""
+        if self.page_size <= 0:
+            raise ValueError(
+                "export_kv_pages requires the paged KV cache "
+                "(page_size > 0)")
+        if self._mirror is None:
+            return self._export_waves(self._export_entries(digests))
+        result: dict = {"pages": None}
+        self._request_page_op("export", [str(d) for d in digests], result,
+                              _TP_EXPORT_TIMEOUT_S)
+        if result["pages"] is None:
+            raise self._shutdown_error()
+        return result["pages"]
+
+    def _export_waves(self, entries: List[tuple]) -> Optional[List[dict]]:
+        """The entries' pages, wave by wave: each rank gathers its rows
+        of a wave (one ``index_select`` a leaf, one flat buffer); under
+        tp the buffers are gathered to rank 0, which joins them on the
+        heads axis.  None on the other ranks of a tp group."""
+        tp = self.model.tp
+        leaves = self._wave_leaves()
         pages: List[dict] = []
         for off in range(0, len(entries), _EXPORT_WAVE_WIDTH):
             wave = entries[off:off + _EXPORT_WAVE_WIDTH]
@@ -688,15 +775,17 @@ class ContinuousBatcher:
                 idx = self._tensor([e[1] for e in wave], torch.long)
                 with self._device_lock:
                     rows = [leaf.index_select(0, idx) for _, leaf in leaves]
-                    flat = torch.cat([r.reshape(-1).view(torch.uint8)
-                                      for r in rows])
+                    parts = tp.gather_to_first(_flat_bytes(rows))
+                    if parts is None:
+                        continue
+                    if len(parts) > 1:
+                        rows = [torch.cat(chunks, dim=2) for chunks in
+                                zip(*(_unflat_bytes(p, rows)
+                                      for p in parts))]
+                    flat = _flat_bytes(rows) if len(parts) > 1 else parts[0]
                 host = flat.cpu()
-            split = {}
-            pos = 0
-            for (path, _), r in zip(leaves, rows):
-                n = r.numel() * r.element_size()
-                split[path] = host[pos:pos + n].view(r.dtype).view(r.shape)
-                pos += n
+            split = dict(zip((path for path, _ in leaves),
+                             _unflat_bytes(host, rows)))
             for i, (digest, blk, parent, tokens) in enumerate(wave):
                 if self._block_digest.get(blk) != digest:
                     continue  # evicted and reused mid-gather: drop
@@ -705,7 +794,7 @@ class ContinuousBatcher:
                               "leaves": {path: split[path][i]
                                          for path, _ in leaves}})
                 self.telemetry["kv_pages_exported"].inc()
-        return pages
+        return pages if tp.rank == 0 else None
 
     def import_kv_pages(self, pages: List[dict],
                         timeout: float = 30.0) -> dict:
@@ -713,36 +802,44 @@ class ContinuousBatcher:
         prefix registry (decode-replica side).  Called from HTTP threads:
         the pages are queued for the scheduler thread, the only thread
         that mutates the pool, which is woken at once; this call blocks
-        until that import completes.  Returns per-page accounting
-        ``{"imported", "deduped", "rejected"}``."""
+        until that import completes.  Under tp (rank 0 only) every rank
+        installs its heads of them in lock-step.  Returns per-page
+        accounting ``{"imported", "deduped", "rejected"}``."""
         if self.page_size <= 0:
             raise ValueError(
                 "import_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
-        self._refuse_pages_under_tp("import")
-        if self._stop.is_set():
-            raise self._shutdown_error()
+        staged = [(_page_header(page), page.get("leaves", {}))
+                  for page in pages]
         result = {"imported": 0, "deduped": 0, "rejected": 0}
-        done = threading.Event()
-        with self._kv_imports_lock:
-            self._kv_imports.append((pages, result, done))
-        self._queue.poke()
-        if not done.wait(timeout):
-            raise TimeoutError("KV-page import timed out")
-        if self._stop.is_set() and self.fatal_error is not None:
-            raise self._shutdown_error()
+        self._request_page_op("import", staged, result, timeout)
         return result
 
-    def _refuse_pages_under_tp(self, what: str) -> None:
-        if self._mirror is not None:
-            raise NotImplementedError(
-                f"KV-page {what} under tensor parallelism is not ported "
-                f"yet (a page holds only this rank's heads): ROADMAP.md "
-                f"queue 1 item 3")
+    def _request_page_op(self, kind: str, payload, result: dict,
+                         timeout: float) -> None:
+        """Queue a page operation for the scheduler thread, wake it and
+        wait until it ran (under tp: until rank 0 put it in a turn's
+        record and every rank ran it)."""
+        if self._mirror is not None and not self._mirror.leader:
+            raise RuntimeError(
+                f"tensor-parallel rank {self._mirror.tp.rank} runs no "
+                f"KV-page {kind} of its own: rank 0 of the group queues "
+                f"them")
+        if self._stop.is_set():
+            raise self._shutdown_error()
+        done = threading.Event()
+        with self._kv_imports_lock:
+            self._kv_imports.append((kind, payload, result, done))
+        self._queue.poke()
+        if not done.wait(timeout):
+            raise TimeoutError(f"KV-page {kind} timed out")
+        if self._stop.is_set() and self.fatal_error is not None:
+            raise self._shutdown_error()
 
     def _drain_kv_imports(self) -> None:
-        """Scheduler thread: install every queued import.  Pages arrive
-        parent-first; each is digest-verified and registered like a
+        """Scheduler thread: run every queued page operation (under tp:
+        the turn's agreed ones, ``_run_page_ops``).  Imports arrive
+        parent-first; each page is digest-verified and registered like a
         locally prefilled block at refcount 0 (a retired prompt's
         blocks), then the staged blocks' data lands in place, one
         ``index_copy_`` per pool leaf per wave.  Staged blocks are
@@ -752,44 +849,124 @@ class ContinuousBatcher:
         descendants are too), and pool exhaustion rejects rather than
         taking blocks from live slots.  A failure inside the scatter
         leaves the pool half-written, so it is fatal to the batcher."""
+        if self._mirror is not None:
+            self._run_page_ops()
+            return
         while True:
             with self._kv_imports_lock:
                 if not self._kv_imports:
                     return
-                pages, result, done = self._kv_imports.popleft()
-            protected: set = set()
-            staged: List[tuple] = []  # (blk, leaves dict)
+                _, staged, result, done = self._kv_imports.popleft()
             try:
-                shapes = {path: tuple(leaf.shape[1:])
-                          for path, leaf in self._pool_leaves()}
-                for page in pages:
-                    verdict, blk = self._stage_import(page, protected,
-                                                      shapes)
-                    result[verdict] += 1
-                    if verdict == "imported":
-                        staged.append((blk, page["leaves"]))
-                        self.telemetry["kv_pages_imported"].inc()
-                self._scatter_staged(staged)
+                self._import_pages([h for h, _ in staged],
+                                   [lv for _, lv in staged], result)
             except Exception as exc:
                 self._tick_fatal(exc, "kv-import")
                 return
             finally:
                 done.set()
 
+    def _page_ops_to_record(self) -> List[dict]:
+        """Rank 0: move the queued page operations into the turn's record
+        as headers, each with its op id (the turn and its place there;
+        the leaves stay here, in record order).  An import's leaf shapes
+        travel as a table of the distinct shape sets, each page naming
+        its entry."""
+        with self._kv_imports_lock:
+            queued = list(self._kv_imports)
+            self._kv_imports.clear()
+        heads = []
+        for i, (kind, payload, result, done) in enumerate(queued):
+            self._page_payload.append((payload, result, done))
+            op = [self._mirror.turns, i]
+            if kind == "export":
+                heads.append({"op": op, "kind": kind, "digests": payload})
+                continue
+            table: List[dict] = []
+            rows = []
+            for header, _ in payload:
+                shapes = header["shapes"]
+                if shapes not in table:
+                    table.append(shapes)
+                rows.append((header["digest"], header["parent"],
+                             header["tokens"], table.index(shapes)))
+            heads.append({"op": op, "kind": kind, "shapes": table,
+                          "pages": rows})
+        return heads
+
+    def _run_page_ops(self) -> None:
+        """Every rank of a tp group: run the turn's agreed page
+        operations in order.  Rank 0 holds each one's leaves (an import)
+        and its waiter; a failure is fatal ("kv-import", "kv-export")."""
+        while self._page_ops:
+            head = self._page_ops.popleft()
+            payload, result, done = (self._page_payload.popleft()
+                                     if self._mirror.leader
+                                     else (None, None, None))
+            try:
+                if head["kind"] == "export":
+                    pages = self._export_agreed(head["digests"])
+                    if result is not None:
+                        result["pages"] = pages
+                    continue
+                headers = [{"digest": d, "parent": p, "tokens": t,
+                            "shapes": head["shapes"][k]}
+                           for d, p, t, k in head["pages"]]
+                self._import_pages(
+                    headers,
+                    None if payload is None else [lv for _, lv in payload],
+                    result if result is not None else
+                    {"imported": 0, "deduped": 0, "rejected": 0})
+            except Exception as exc:
+                self._tick_fatal(exc, f"kv-{head['kind']}")
+                return
+            finally:
+                if done is not None:
+                    done.set()
+
+    def _export_agreed(self, digests: List[str]) -> Optional[List[dict]]:
+        """Every rank of a tp group: the same lookup, held to rank 0's,
+        then the gather (``_export_waves``); the pages on rank 0."""
+        entries = self._export_entries(digests)
+        self._mirror.agree("export", [(e[0], e[1]) for e in entries])
+        return self._export_waves(entries)
+
+    def _import_pages(self, headers: List[dict], leaves: Optional[list],
+                      result: dict) -> None:
+        """Stage every page (``_stage_import``), hold the verdicts to rank
+        0's under tp, then land the staged blocks' data (``leaves``: each
+        page's wire leaves; None on the other ranks of a tp group)."""
+        shapes = self._wire_shapes()
+        protected: set = set()
+        staged: List[tuple] = []  # (blk, wire leaves or None)
+        verdicts = []
+        for i, header in enumerate(headers):
+            verdict, blk = self._stage_import(header, protected, shapes)
+            result[verdict] += 1
+            verdicts.append((verdict, blk))
+            if verdict == "imported":
+                staged.append((blk, None if leaves is None else leaves[i]))
+                self.telemetry["kv_pages_imported"].inc()
+        if self._mirror is not None:
+            self._mirror.agree("import", verdicts)
+        self._scatter_staged(staged)
+
     def _reject(self, reason: str) -> tuple:
         self.telemetry["kv_import_rejected"].labels(reason).inc()
-        return "rejected", None
+        return "rejected", reason
 
     def _stage_import(self, page: dict, protected: set,
                       shapes: dict) -> tuple:
-        """Verify one transferred page and claim a pool block for it.
-        Returns ``(verdict, blk)``; on "imported" the block is
-        REGISTERED (later pages of the import chain through it) but its
-        data is not in the pool yet: the caller scatters every staged
-        block before the scheduler does anything else."""
-        tokens = [int(t) for t in page.get("tokens", ())]
-        digest = page.get("digest", "")
-        parent_digest = page.get("parent", "")
+        """Verify one transferred page (its header: ``_page_header``)
+        against this replica's chain and the wire leaf ``shapes``, and
+        claim a pool block for it.  Returns ``(verdict, blk)`` (the
+        reason in place of the block when rejected); on "imported" the
+        block is REGISTERED (later pages of the import chain through it)
+        but its data is not in the pool yet: the caller scatters every
+        staged block before the scheduler does anything else."""
+        tokens = page["tokens"]
+        digest = page["digest"]
+        parent_digest = page["parent"]
         if (len(tokens) != self.page_size
                 or _page_digest(parent_digest, tokens) != digest):
             return self._reject("digest_mismatch")
@@ -804,10 +981,8 @@ class ContinuousBatcher:
         key = (parent_blk, tuple(tokens))
         if key in self._registry or digest in self._block_digest.values():
             return "deduped", None
-        leaves = page.get("leaves", {})
         for path, shape in shapes.items():
-            arr = leaves.get(path)
-            if arr is None or tuple(np.shape(arr)) != shape:
+            if page["shapes"].get(path) != shape:
                 return self._reject("shape")
         if not self._free_blocks and not self._evict_one(protected):
             return self._reject("pool_exhausted")
@@ -825,19 +1000,44 @@ class ContinuousBatcher:
 
     def _scatter_staged(self, staged: List[tuple]) -> None:
         """Land an import's K/V data in place: per wave of
-        ``_IMPORT_WAVE_WIDTH`` blocks, one host-to-device copy and one
-        ``index_copy_`` per pool leaf, each leaf cast to the pool's dtype,
-        under the device lock (released between waves)."""
-        leaves = self._pool_leaves()
+        ``_IMPORT_WAVE_WIDTH`` blocks, one ``index_copy_`` per pool leaf,
+        each leaf cast to the pool's dtype, under the device lock
+        (released between waves).  One rank moves each leaf's rows to
+        the card; under tp rank 0 does, cuts them on the heads axis
+        (``_head_chunks``) and scatters each rank its chunk, one flat
+        buffer a rank."""
+        tp = self.model.tp
+        leaves = self._wave_leaves()
         for off in range(0, len(staged), _IMPORT_WAVE_WIDTH):
             wave = staged[off:off + _IMPORT_WAVE_WIDTH]
             idx = self._tensor([blk for blk, _ in wave], torch.long)
             with self._device_lock:
-                for path, leaf in leaves:
-                    rows = torch.stack([torch.as_tensor(lv[path])
-                                        for _, lv in wave])
-                    leaf.index_copy_(0, idx, rows.to(self.device,
-                                                      leaf.dtype))
+                rows = None
+                if tp.rank == 0:
+                    rows = [torch.stack([torch.as_tensor(lv[path])
+                                         for _, lv in wave]).to(
+                                             self.device, leaf.dtype)
+                            for path, leaf in leaves]
+                if tp.size > 1:
+                    like = [torch.empty((len(wave),) + leaf.shape[1:],
+                                        dtype=leaf.dtype, device="meta")
+                            for _, leaf in leaves]
+                    mine = tp.scatter_from_first(
+                        None if rows is None else self._head_chunks(rows),
+                        torch.empty(sum(t.numel() * t.element_size()
+                                        for t in like),
+                                    dtype=torch.uint8, device=self.device))
+                    rows = _unflat_bytes(mine, like)
+                for (_, leaf), r in zip(leaves, rows):
+                    leaf.index_copy_(0, idx, r)
+
+    def _head_chunks(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Rank 0 of a tp group: for each rank r, one flat buffer of its
+        KV-head chunk r of every leaf's wave rows ([wave, page, heads,
+        ...], heads on dim 2), the ``TensorParallel.chunk`` layout."""
+        n = self.model.tp.size
+        return [_flat_bytes([r.chunk(n, dim=2)[k] for r in rows])
+                for k in range(n)]
 
     def _retire_slot(self, slot: int) -> None:
         """Drop the slot's block references and point its table row back
@@ -1223,11 +1423,14 @@ class ContinuousBatcher:
         """Last-position logits [V] of ``tokens`` prefilled into slot 0's
         blocks as admission prefills a prompt (past any cached prefix,
         in ``prefill_chunk``-token forwards when that is set); the
-        blocks are returned afterwards.  Call it before start()."""
+        blocks are returned afterwards.  Call it before start() or after
+        the scheduler loop ended (under tp: on every rank, a collective
+        forward)."""
         if self.page_size <= 0:
             raise ValueError("prefill_logits needs the paged cache "
                              "(page_size > 0)")
-        if self._thread is not None or 0 in self._slot_blocks:
+        running = self._thread is not None and self._thread.is_alive()
+        if running or 0 in self._slot_blocks:
             raise RuntimeError("prefill_logits: slot 0 is in use")
         tokens = [int(t) for t in tokens]
         with torch.inference_mode():
@@ -1312,7 +1515,9 @@ class ContinuousBatcher:
             decisions = {
                 "stop": self._stop.is_set(), "new": new,
                 "cancel": [rid for rid, r in self._live.items()
-                           if r.cancelled.is_set() and not r.cancel_agreed]}
+                           if r.cancelled.is_set() and not r.cancel_agreed],
+                "pages": (self._page_ops_to_record()
+                          if self.page_size > 0 else [])}
         lead = m.exchange(self.ticks_dispatched, decisions)
         if not m.leader:
             for rid, tokens, n, temp, top_p, top_k, seed, stop in \
@@ -1325,6 +1530,7 @@ class ContinuousBatcher:
         for rid in lead["cancel"]:
             if rid in self._live:
                 self._live[rid].cancel_agreed = True
+        self._page_ops.extend(lead.get("pages", ()))
         self._live = {rid: r for rid, r in self._live.items()
                       if not r.done.is_set()}
         return not lead["stop"]
@@ -1447,7 +1653,9 @@ class ContinuousBatcher:
             # Transferred KV pages install before this turn's admissions,
             # so a /generate that raced its own page push still hits the
             # prefix cache.
-            if self.page_size > 0 and self._kv_imports:
+            if self.page_size > 0 and (
+                    self._page_ops
+                    or (self._mirror is None and self._kv_imports)):
                 self._drain_kv_imports()
                 if self._stop.is_set():
                     break
@@ -1638,7 +1846,9 @@ class ContinuousBatcher:
             # (import_kv_pages re-checks the fatal state after the event).
             with self._kv_imports_lock:
                 while self._kv_imports:
-                    self._kv_imports.popleft()[2].set()
+                    self._kv_imports.popleft()[3].set()
+            while self._page_payload:
+                self._page_payload.popleft()[2].set()
         while True:
             try:
                 req = self._queue.get_nowait()

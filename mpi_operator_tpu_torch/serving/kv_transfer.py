@@ -166,7 +166,10 @@ def transfer_pages(batcher, digests: List[str], dest_url: str,
     time into ``export`` (gather + device-to-host copy), ``encode``,
     ``push`` (the HTTP round trips, the receiver's work included) and
     the receiver's ``wire_decode`` and ``import`` where it reports
-    them."""
+    them.  On a tensor-parallel replica this runs on rank 0, and the
+    export is a lock-step operation of the group (every rank gathers its
+    KV heads to rank 0), so ``export`` also holds the wait for the next
+    scheduler turn."""
     have_set = set(have or ())
     missing = [d for d in digests if d not in have_set]
     seconds = {"export": 0.0, "encode": 0.0, "push": 0.0,

@@ -16,6 +16,15 @@ order, blocks, prefix hits, retirement, speculation) follows from those
 inputs, so the cache surgery is the same on every rank without a
 protocol of its own.
 
+KV-page operations (disaggregated serving) ride the same record as
+headers only: rank 0's queued exports (the chain digests asked for) and
+imports (each page's digest, parent, tokens and leaf shapes), never the
+leaf bytes, which move afterwards over the tp group's device
+communicator (``serving/batcher.py``).  Every rank stages the same
+verdicts from the same state; :meth:`TickMirror.agree` holds that
+before a byte moves, and a rank whose verdicts differ from rank 0's
+stops every rank with :class:`TPPeerError`.
+
 Sampled tokens: the gathered logits are the same bits on every rank and
 each slot's generator is seeded alike, so the tokens agree; the checksum
 holds it every turn, and a rank whose turn, step count or checksum
@@ -29,6 +38,7 @@ the model's own collectives time out by the process group's.
 from __future__ import annotations
 
 import datetime
+import pickle
 import time
 from typing import Optional
 
@@ -48,12 +58,18 @@ class TickMirror:
     def __init__(self, tp, timeout_s: float = 120.0):
         self.tp = tp
         self.leader = tp.rank == 0
+        # Only the group's own ranks take part: a world may hold several
+        # tp groups (a prefill replica and a decode replica) whose ranks
+        # build their servers independently.
         self.group = dist.new_group(
             ranks=dist.get_process_group_ranks(tp.group), backend="gloo",
-            timeout=datetime.timedelta(seconds=timeout_s))
+            timeout=datetime.timedelta(seconds=timeout_s),
+            use_local_synchronization=True)
         self.turns = 0
         self.checksum = 0
         self.seconds = 0.0          # wall time spent in exchanges
+        # Pickled size of the largest record that carried page headers.
+        self.page_record_bytes = 0
 
     def tally(self, tokens) -> None:
         """Fold emitted tokens into this rank's running checksum."""
@@ -67,21 +83,42 @@ class TickMirror:
         rank's turn, step count or checksum differs from rank 0's."""
         mine = {"turn": self.turns, "ticks": ticks, "sum": self.checksum,
                 "fatal": fatal, "decisions": decisions}
-        records = [None] * self.tp.size
-        t0 = time.perf_counter()
-        dist.all_gather_object(records, mine, group=self.group)
-        self.seconds += time.perf_counter() - t0
+        if decisions and decisions.get("pages"):
+            self.page_record_bytes = max(self.page_record_bytes,
+                                         len(pickle.dumps(mine)))
+        records = self._gather(mine)
         self.turns += 1
-        for rank, rec in enumerate(records):
-            if rec["fatal"] is not None and rank != self.tp.rank:
-                raise TPPeerError(f"tensor-parallel rank {rank} failed: "
-                                  f"{rec['fatal']}")
-        health = [(r["turn"], r["ticks"], r["sum"]) for r in records]
+        health = [(r["turn"], r.get("ticks"), r.get("sum")) for r in records]
         if len(set(health)) > 1:
             raise TPPeerError(
                 f"tensor-parallel ranks diverged (turn, decode steps, "
                 f"token checksum per rank): {health}")
         return records[0]["decisions"]
+
+    def agree(self, what: str, verdicts) -> None:
+        """Hold this rank's verdicts of a page operation (what it staged
+        or found, block by block) to rank 0's: one all-gather; raises
+        TPPeerError when another rank failed or staged differently."""
+        records = self._gather({"turn": self.turns, "fatal": None,
+                                "verdicts": verdicts})
+        theirs = [r.get("verdicts") for r in records]
+        if any(v != theirs[0] for v in theirs):
+            raise TPPeerError(
+                f"tensor-parallel ranks staged different verdicts for a "
+                f"KV-page {what} (per rank): {theirs}")
+
+    def _gather(self, mine: dict) -> list:
+        """Every rank's record; TPPeerError when another rank sent the
+        error that stopped it."""
+        records = [None] * self.tp.size
+        t0 = time.perf_counter()
+        dist.all_gather_object(records, mine, group=self.group)
+        self.seconds += time.perf_counter() - t0
+        for rank, rec in enumerate(records):
+            if rec["fatal"] is not None and rank != self.tp.rank:
+                raise TPPeerError(f"tensor-parallel rank {rank} failed: "
+                                  f"{rec['fatal']}")
+        return records
 
     def tell_fatal(self, ticks: int, error: BaseException) -> None:
         """This rank stopped on its own error: one last exchange carrying

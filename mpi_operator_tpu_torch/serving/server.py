@@ -45,8 +45,12 @@ the paged pool holds this rank's KV heads, and K4' runs on them.  Every
 rank runs the continuous batcher in lock-step (``serving/mirror.py``);
 rank 0 alone binds the HTTP front end and takes requests, the others
 serve until rank 0 stops (``join()``).  It needs the batcher (multi-row
-requests are served row by row through it); disaggregated roles, KV-page
-export/import and dp/fsdp in a serving mesh are not ported.
+requests are served row by row through it).  Either role works under tp:
+rank 0 alone runs /prefill, /kv/pages and /fleet-state, and a page it
+exports or imports carries every KV head (the JAX wire's layout; the
+ranks move their head chunks in lock-step, ``serving/batcher.py``), so a
+tp replica hands pages to a replica of any tp, the JAX package's
+included.  dp, fsdp, sp and ep in a serving mesh are not ported.
 """
 
 from __future__ import annotations
@@ -288,11 +292,6 @@ class InferenceServer:
             from ..parallel.tensor import TensorParallel, refuse_axes
             refuse_axes(mesh, "InferenceServer", allowed=("tp",))
             tp = TensorParallel.of(mesh)
-            if role != "unified":
-                raise NotImplementedError(
-                    f"role={role!r} under tensor parallelism is not ported "
-                    f"yet (a KV page would hold only this rank's heads): "
-                    f"ROADMAP.md queue 1 item 3")
             if max_batch_slots <= 0:
                 raise ValueError("tensor-parallel serving runs through the "
                                  "continuous batcher (max_batch_slots > 0)")
@@ -565,8 +564,9 @@ class InferenceServer:
     def prefill_logits(self, tokens):
         """A prompt's last-position logits [V] as admission prefills it
         (``ContinuousBatcher.prefill_logits``; paged cache, before
-        ``start()``).  Under tp every rank calls it with the same tokens
-        (the forward is collective) and gets the whole logits."""
+        ``start()`` or after ``stop()``/``join()``).  Under tp every rank
+        calls it with the same tokens (the forward is collective) and
+        gets the whole logits."""
         return self._batcher.prefill_logits(tokens)
 
     def batcher_stats(self) -> dict:

@@ -26,7 +26,8 @@ joined with a deadline.  Held:
 - (v) what still raises: pp (sp and ep are ported: their parity is in
   tests/test_torch_ring_attention.py and
   tests/test_torch_expert_parallel.py), a KV-head count tp does not
-  divide, a disaggregated role under tp;
+  divide, fsdp in a serving mesh (the disaggregated roles under tp are
+  served in tests/test_torch_kv_transfer_tp.py);
 - (vi) a follower that misses a turn, and a rank that raises, end every
   rank with an error within the deadline.
 """
@@ -366,11 +367,9 @@ def test_kv_heads_tp_and_roles_refusals():
                       mesh=_fake_mesh(tp=4))
     from mpi_operator_tpu_torch.serving import InferenceServer
     model = tl.LlamaModel(tl.llama2_tiny(), device="cpu")
-    for role in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            InferenceServer(model, mesh=_fake_mesh(tp=2), role=role,
-                            max_batch_slots=2, kv_page_size=16,
-                            device="cpu")
+    # The disaggregated roles construct and serve under tp
+    # (tests/test_torch_kv_transfer_tp.py); fsdp in a serving mesh still
+    # waits for item 3.
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         InferenceServer(model, mesh=_fake_mesh(tp=2, fsdp=2),
                         max_batch_slots=2, device="cpu")

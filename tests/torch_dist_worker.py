@@ -1,8 +1,8 @@
 """One rank of a gloo process group for tests/test_torch_distributed.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
 tests/test_torch_expert_parallel.py, tests/test_torch_pipeline.py,
-tests/test_torch_moe_pipeline.py, tests/test_torch_resnet.py and
-tests/test_torch_ckpt_resharded.py.
+tests/test_torch_moe_pipeline.py, tests/test_torch_resnet.py,
+tests/test_torch_ckpt_resharded.py and tests/test_torch_kv_transfer_tp.py.
 
     JAX_COORDINATOR_ADDRESS=127.0.0.1:PORT JAX_PROCESS_ID=r \\
     JAX_NUM_PROCESSES=n python tests/torch_dist_worker.py SCENARIO DIR [cuda]
@@ -1339,6 +1339,248 @@ def scenario_resnet_world2(inputs, out_dir):
     """dp = 2: global-batch BatchNorm, and the local-statistics fault."""
     return {"runs": {"global": _resnet_run(inputs, fault=False),
                      "local_bn_init": _resnet_run(inputs, fault=True)}}
+
+
+# -- KV pages under tensor parallelism (tests/test_torch_kv_transfer_tp.py) --
+
+KVTP_PAGE = 16
+
+
+def _kvtp_post(url, path, payload):
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _kvtp_greedy(url, prompt, n=8):
+    return _kvtp_post(url, "/generate", {"tokens": [prompt],
+                                         "max_new_tokens": n,
+                                         "temperature": 0.0})["tokens"][0]
+
+
+def _kvtp_export(server, prompt, path):
+    """Rank 0 of a replica: its pages of ``prompt`` as wire JSON at
+    ``path`` (a lock-step export under tp)."""
+    import json
+
+    from mpi_operator_tpu_torch.serving import kv_transfer as kvt
+    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
+    wire = kvt.encode_pages(server._batcher.export_kv_pages(
+        prefix_page_digests(prompt, KVTP_PAGE)))
+    with open(path, "w") as f:
+        json.dump(wire, f)
+    return wire
+
+
+def _kvtp_rows_match(server, prompt, wire_path, chunk):
+    """Whether this rank's pool rows of ``prompt``'s pages equal head
+    chunk ``chunk`` of the wire pages' leaves, bit for bit, leaf by leaf
+    (scales too)."""
+    import json
+
+    from mpi_operator_tpu_torch.serving import kv_transfer as kvt
+    b = server._batcher
+    with open(wire_path) as f:
+        pages = kvt.decode_pages(json.load(f))
+    by_digest = {d: blk for blk, d in b._block_digest.items()}
+    out = {}
+    for path, leaf in b._pool_leaves():
+        held = leaf[[by_digest[p["digest"]] for p in pages]].cpu()
+        want = torch.stack([p["leaves"][path] for p in pages]).chunk(
+            2, dim=2)[chunk].to(leaf.dtype)
+        out[path] = torch.equal(held.view(torch.uint8),
+                                want.contiguous().view(torch.uint8))
+    return out
+
+
+def _kvtp_pair(inputs, mesh, role, name="dense", kv="auto"):
+    """This rank's tp = 2 server of ``role`` over ``mesh``, started."""
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    server = InferenceServer(
+        _tp_model(inputs, name, mesh), mesh=mesh, role=role,
+        max_batch_slots=2, kv_page_size=KVTP_PAGE, kv_cache_blocks=48,
+        kv_cache_dtype=kv, device="cpu", tp_timeout_s=60).start()
+    # Every page operation's verdicts as this rank holds them to rank 0's.
+    server.agreed = []
+    agree = server.mirror.agree
+
+    def spy(what, verdicts):
+        server.agreed.append((what, verdicts))
+        agree(what, verdicts)
+    server.mirror.agree = spy
+    return server
+
+
+def _kvtp_urls(mine: dict) -> list:
+    """Every rank's {name: url} (gathered over the default group)."""
+    urls = [None] * dist.get_world_size()
+    dist.all_gather_object(urls, mine)
+    return urls
+
+
+def _kvtp_close(server, out):
+    """Stop a tp server (rank 0) or wait for its group to stop; then
+    what every rank reports of its pages."""
+    if server.is_leader:
+        server.stop()
+    else:
+        server.join(timeout=120)
+        server.stop()
+    b = server._batcher
+    out.update(page_ops=server.agreed,
+               record_bytes=server.mirror.page_record_bytes,
+               dispatches=server.telemetry["dispatches_total"].value,
+               prefix=dict(b.prefix_stats))
+
+
+def scenario_kvtp_world4(inputs, out_dir):
+    """Two tp = 2 replicas in one world: ranks 0-1 prefill (P), ranks 2-3
+    decode (D), each its own mesh (``create_mesh(ranks=)``); rank 0 also
+    hosts one-process replicas.  Rank 0 drives over HTTP: tp 2 -> tp 2,
+    a re-ship, tp 2 -> tp 1, tp 1 -> tp 2, the JAX tp = 2 export into D,
+    a bad chain and a dedup into D, exports to files, then a planted
+    head-order fault (D's rank 0 scatters the chunks swapped); int8
+    pools; mixtral_tiny; and a follower that stages other verdicts."""
+    import json
+
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    rank = dist.get_rank()
+    mesh = [tmesh.create_mesh(tmesh.MeshConfig(dp=1, tp=2), DEVICE,
+                              ranks=r) for r in ([0, 1], [2, 3])][rank // 2]
+    role = "decode" if rank >= 2 else "prefill"
+    p = inputs["prompts"]
+    files = {k: os.path.join(out_dir, f"port_{k}.json")
+             for k in ("A", "C", "F", "A_int8")}
+    out = {"files": files}
+
+    # Round 1: f32 pools, llama2_tiny.
+    server = _kvtp_pair(inputs, mesh, role)
+    out["role"] = server.fleet_state()["role"] if server.is_leader else None
+    ones = {}
+    if rank == 0:
+        whole = _tp_model(inputs, "dense", None)
+        ones = {r: InferenceServer(whole, role=r, max_batch_slots=2,
+                                   kv_page_size=KVTP_PAGE,
+                                   kv_cache_blocks=48,
+                                   device="cpu").start()
+                for r in ("prefill", "decode")}
+    mine = {k: s.url for k, s in ones.items()}
+    if server.is_leader:
+        mine[role] = server.url
+    urls = _kvtp_urls(mine)
+    if rank == 0:
+        P, D = urls[0]["prefill"], urls[2]["decode"]
+        one_p, one_d = ones["prefill"].url, ones["decode"].url
+        r = out["drive"] = {}
+        r["tp2_tp2_reply"] = _kvtp_post(P, "/prefill", {
+            "tokens": p["A"], "transfer": {"url": D, "have": []}})
+        r["tp2_tp2"] = _kvtp_greedy(D, p["A"])
+        r["reship"] = _kvtp_post(P, "/prefill", {
+            "tokens": p["A"], "transfer": {"url": D}})
+        r["tp2_tp1_reply"] = _kvtp_post(P, "/prefill", {
+            "tokens": p["A"], "transfer": {"url": one_d, "have": []}})
+        r["tp2_tp1"] = _kvtp_greedy(one_d, p["A"])
+        r["tp1_tp2_reply"] = _kvtp_post(one_p, "/prefill", {
+            "tokens": p["B"], "transfer": {"url": D, "have": []}})
+        r["tp1_tp2"] = _kvtp_greedy(D, p["B"])
+        with open(inputs["jax_wire"]) as f:
+            r["jax_tp2_reply"] = _kvtp_post(D, "/kv/pages",
+                                            {"pages": json.load(f)})
+        r["jax_tp2"] = _kvtp_greedy(D, p["C"])
+        _kvtp_post(P, "/prefill", {"tokens": p["C"]})
+        _kvtp_export(server, p["C"], files["C"])
+        wire_a = _kvtp_export(server, p["A"], files["A"])
+        _kvtp_post(P, "/prefill", {"tokens": p["E"]})
+        bad = json.loads(json.dumps(_kvtp_export(
+            server, p["E"], os.path.join(out_dir, "port_E.json"))))
+        bad[0]["tokens"][0] += 1          # the root no longer hashes
+        r["bad_reply"] = _kvtp_post(D, "/kv/pages", {"pages": bad})
+        r["dedup_reply"] = _kvtp_post(D, "/kv/pages", {"pages": wire_a})
+        r["tp2_prefill_dispatches"] = \
+            server.telemetry["dispatches_total"].value
+    if rank == 3:
+        try:
+            server._batcher.import_kv_pages([])
+        except RuntimeError as exc:
+            out["follower_import"] = str(exc)
+    dist.barrier()
+    if rank == 2:                         # the planted head-order fault
+        real = server._batcher._head_chunks
+        server._batcher._head_chunks = lambda rows: real(rows)[::-1]
+    dist.barrier()
+    if rank == 0:
+        r["fault_reply"] = _kvtp_post(P, "/prefill", {
+            "tokens": p["F"], "transfer": {"url": D, "have": []}})
+        r["fault"] = _kvtp_greedy(D, p["F"])
+        _kvtp_export(server, p["F"], files["F"])
+        for s in ones.values():
+            s.stop()
+    dist.barrier()
+    _kvtp_close(server, out)
+    if rank >= 2:
+        out["rows"] = {k: _kvtp_rows_match(server, p[k], files[k], rank - 2)
+                       for k in ("A", "F")}
+        out["logits"] = {k: server.prefill_logits(p[k]).clone()
+                         for k in ("A", "F")}
+    del server
+
+    # Round 2: int8 pools.
+    server = _kvtp_pair(inputs, mesh, role, kv="int8")
+    urls = _kvtp_urls({role: server.url} if server.is_leader else {})
+    if rank == 0:
+        _kvtp_post(urls[0]["prefill"], "/prefill", {
+            "tokens": p["A"],
+            "transfer": {"url": urls[2]["decode"], "have": []}})
+        out["int8"] = _kvtp_greedy(urls[2]["decode"], p["A"])
+        _kvtp_export(server, p["A"], files["A_int8"])
+    dist.barrier()
+    int8 = out["int8_report"] = {}
+    _kvtp_close(server, int8)
+    if rank >= 2:
+        int8["rows"] = _kvtp_rows_match(server, p["A"], files["A_int8"],
+                                        rank - 2)
+    del server
+
+    # Round 3: mixtral_tiny.
+    server = _kvtp_pair(inputs, mesh, role, name="moe")
+    urls = _kvtp_urls({role: server.url} if server.is_leader else {})
+    if rank == 0:
+        out["moe_reply"] = _kvtp_post(urls[0]["prefill"], "/prefill", {
+            "tokens": p["A"],
+            "transfer": {"url": urls[2]["decode"], "have": []}})
+        out["moe"] = _kvtp_greedy(urls[2]["decode"], p["A"])
+    dist.barrier()
+    _kvtp_close(server, {})
+    del server
+
+    # Round 4: D's rank 1 stages another verdict for the first page.
+    if rank >= 2:
+        from mpi_operator_tpu_torch.serving import kv_transfer as kvt
+        server = _kvtp_pair(inputs, mesh, role)
+        b = server._batcher
+        if rank == 3:
+            real, calls = b._stage_import, []
+
+            def stage(*a):
+                calls.append(1)
+                return ("deduped", None) if len(calls) == 1 else real(*a)
+            b._stage_import = stage
+        errors = []
+        try:
+            if rank == 2:
+                with open(files["A"]) as f:
+                    b.import_kv_pages(kvt.decode_pages(json.load(f)))
+            server.join(timeout=120)
+        except Exception as exc:          # the group's error, both ranks
+            errors.append(f"{type(exc).__name__}: {exc}")
+        server.stop()
+        out["peer_error"] = errors
+    dist.barrier()
+    return out
 
 
 def main() -> int:
