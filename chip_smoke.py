@@ -412,7 +412,9 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
+import tempfile
 import sys
 import threading
 import time
@@ -2234,6 +2236,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+_REMOVALS = []
+
+
+def ckpt_store(out_dir: str) -> str:
+    """Phase 7 (d)'s checkpoint store, in the phase's directory."""
+    return os.path.join(out_dir, "ckpt-store")
+
+
+def remove_later(path: str) -> None:
+    """Remove ``path`` on a thread of this process, beside the phases
+    that follow; ``main`` waits for it before it exits."""
+    t = threading.Thread(target=shutil.rmtree, args=(path, True))
+    t.start()
+    _REMOVALS.append(t)
+
+
 def run_ranks(argv, world: int, what: str, deadline_s: float,
               logs_dir: str):
     """``world`` processes, one per card, each with the operator's env
@@ -2502,12 +2520,12 @@ def local_state_bytes(state) -> int:
     return total
 
 
-def dist_ckpt_run(world: int):
+def dist_ckpt_run(world: int, out_dir: str):
     """One rank of phase (d): llama2_7b at full width with ``world``
     layers, fsdp = world, 1 x 4096 tokens a rank, bf16 compute over f32
     state; 2 steps, a save of step 2 through ManifestCheckpointManager
-    into a directory store (each rank its own range; one process and 4
-    shards at one card), 2 more steps (the straight run), then
+    into a directory store (``ckpt_store(out_dir)``; each rank its own
+    range; one process and 4 shards at one card), 2 more steps (the straight run), then
     restore_resharded onto dp = 2 x fsdp = 2 (four cards; dp = 2 at two,
     the same mesh at one) and the same 2 steps; then a restore in which
     this rank, if it is rank 1 (rank 0 at one card), reads every leaf one
@@ -2515,7 +2533,6 @@ def dist_ckpt_run(world: int):
     range before the save, after the restore and after the planted one,
     the seconds, bytes and host peaks, and the K1'-K3' launches."""
     import shutil
-    import tempfile
 
     import torch.distributed as dist
 
@@ -2577,11 +2594,12 @@ def dist_ckpt_run(world: int):
     state, first = run(step, state, 2)
     mark("steps 1-2")
 
-    # One store for every rank: rank 0's temp dir.
-    root = [tempfile.mkdtemp(prefix="chip-smoke-ckpt-") if rank == 0
-            else None]
-    dist.broadcast_object_list(root, src=0)
-    root = root[0]
+    # One store for every rank, in the phase's directory: the phase
+    # removes it whether or not the ranks succeed.
+    root = ckpt_store(out_dir)
+    if rank == 0:
+        os.makedirs(root)
+    dist.barrier()
     out = {"disk_free_gb": shutil.disk_usage(root).free / 1e9,
            "store": root}
     try:
@@ -2666,9 +2684,9 @@ def dist_ckpt_run(world: int):
             del moved
             free_device()
     finally:
+        # The store is removed off the clock, by the smoke's own process
+        # while the next phases run (``remove_later``).
         dist.barrier()
-        if rank == 0:
-            shutil.rmtree(root, ignore_errors=True)
     out.update({"n_layers": cfg.n_layers, "world": world,
                 "num_shards": mgr.num_shards, "first": first,
                 "straight": straight, "restore": restores[False],
@@ -2714,7 +2732,7 @@ def distributed_rank(out_dir: str) -> int:
             torch.save({k: v[1] for k, v in runs.items()},
                        os.path.join(out_dir, "parity.pt"))
     result["full_width"] = [dist_full_width_run(world) for _ in range(2)]
-    result["ckpt"] = dist_ckpt_run(world)
+    result["ckpt"] = dist_ckpt_run(world, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
@@ -2794,9 +2812,13 @@ def distributed_phase(card: str):
           f"launch_to_first_allreduce_seconds={latency.group(1)}",
           flush=True)
 
-    run_ranks([sys.executable, os.path.abspath(__file__),
-               "distributed-rank", out_dir], world, "train",
-              DIST_DEADLINE_S, out_dir)
+    try:
+        run_ranks([sys.executable, os.path.abspath(__file__),
+                   "distributed-rank", out_dir], world, "train",
+                  DIST_DEADLINE_S, out_dir)
+    finally:
+        # (d)'s store, off the clock: beside the phases that follow.
+        remove_later(ckpt_store(out_dir))
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
              for r in range(world)]
     if any(r["world"] != world or (world > 1 and r["backend"] != "nccl")
@@ -2920,6 +2942,11 @@ PR9_FSDP4 = "fsdp=4, 32 layers: 655-666 ms a step, 6,150-6,250 tokens/s a card"
 TP_DISAGG_FAULT_LEN = 300         # (d): the planted fault's prompt
 TP_DISAGG_INT8_LEN = 700          # (d): the int8 pools' prompt
 TP_DISAGG_BUDGET_S = 120          # (d): printed beside its seconds
+TP_FSDP_BUDGET_S = 60             # (e): printed beside its seconds
+TP_FSDP_NEW_TOKENS = 16           # (e): the first 16 of each of phase
+                                  # 5's streams, to fit its budget
+NVLINK_BYTES_PER_S = 450e9        # (e): NVLink 4 on an H100 SXM, one
+                                  # direction (18 links x 25 GB/s)
 
 
 def tp_world() -> int:
@@ -2989,11 +3016,82 @@ def tp_serve_run(server, prompts, stream_prompt, n_new):
                 (itl.sum - itl0[0]) / (itl.count - itl0[1])}
 
 
+def timed_gathers(fs):
+    """Wrap the gathers of ``fs`` (a ``ServingFSDP``) with CUDA events on
+    the stream each runs on, as ``swapped_gathers`` wraps them; returns a
+    function that restores them and gives the events' summed ms.  A span
+    starts when the side stream reaches the gather (after the main
+    stream's hand-off), so it holds the wait for the peer rank."""
+    real = fs._all_gather
+    spans = []
+
+    def gather(buf, shard):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(buf, shard)
+        end.record()
+        spans.append((start, end))
+    fs._all_gather = gather
+
+    def finish() -> float:
+        fs._all_gather = real
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans)
+    return finish
+
+
+def kernel_overlap(trace_path: str, steps: int) -> dict:
+    """From a ``torch.profiler`` chrome trace: the ms a step of the NCCL
+    kernels off the main stream (the gathers' side stream; the main
+    stream is the one with the most time of other kernels, the tp
+    all-reduces among them), of the main stream's kernels, and of the
+    side stream's NCCL time that main-stream kernels run under, and the
+    share of that NCCL time nothing covers (exposed)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    busy = {}
+    for e in events:
+        if "nccl" not in e.get("name", "").lower():
+            stream = e.get("args", {}).get("stream")
+            busy[stream] = busy.get(stream, 0.0) + float(e["dur"])
+    main = max(busy, key=busy.get) if busy else None
+    side, other = [], []
+    for e in events:
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if e.get("args", {}).get("stream") == main:
+            other.append(span)
+        elif "nccl" in e.get("name", "").lower():
+            side.append(span)
+    merged = []                       # the main stream's busy intervals
+    for a, b in sorted(other):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    covered = sum(max(0.0, min(b, d) - max(a, c))
+                  for a, b in side for c, d in merged)
+    side_us = sum(b - a for a, b in side)
+    return {"side_nccl_kernels": len(side),
+            "side_nccl_ms_per_step": side_us / steps / 1e3,
+            "main_stream_kernels_ms_per_step":
+                sum(b - a for a, b in merged) / steps / 1e3,
+            "side_nccl_under_main_kernels_ms_per_step":
+                covered / steps / 1e3,
+            "side_nccl_exposed_share": (1.0 - covered / side_us)
+            if side_us else None}
+
+
 def decode_timing(model, mirror=None, context: int = 128, steps: int = 20):
     """Host and wall ms of one 8-slot decode step of ``model`` at
     ``context`` cached tokens (a fresh batcher's ``decode_step`` after
-    ``fill_slots``; every rank of a tp group in lock-step), and under tp
-    the ms of one turn's exchange of host records (``mirror``)."""
+    ``fill_slots``; every rank of a serving group in lock-step), under tp
+    the ms of one turn's exchange of host records (``mirror``), and with
+    the weights cut over fsdp the ms a step of the gathers' CUDA-event
+    spans (``timed_gathers``: peer waits included) and, from a
+    ``torch.profiler`` trace of a few steps, of the NCCL kernels and of
+    their part that compute kernels run under (``kernel_overlap``)."""
     from mpi_operator_tpu_torch.serving import ContinuousBatcher
 
     b = ContinuousBatcher(model, max_slots=8, page_size=16,
@@ -3018,6 +3116,25 @@ def decode_timing(model, mirror=None, context: int = 128, steps: int = 20):
         torch.cuda.synchronize()
         out["wall_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
         out["host_ms_per_step"] = host / steps * 1e3
+        fs = model.fsdp_serve
+        if fs is not None:
+            # Timed apart: the events cost host time of their own.
+            finish = timed_gathers(fs)
+            for _ in range(steps):
+                b.decode_step(*args)
+            out["gather_span_ms_per_step_incl_peer_wait"] = \
+                finish() / steps
+            from torch.profiler import ProfilerActivity, profile
+            traced = 5
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(traced):
+                    b.decode_step(*args)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                out["trace"] = kernel_overlap(path, traced)
         if mirror is not None:
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -3120,9 +3237,10 @@ def tp_serve(world: int, rank: int, refs, moe: bool):
     gc.collect()
     torch.cuda.empty_cache()
     if not moe:
-        from mpi_operator_tpu_torch.serving.mirror import TickMirror
+        from mpi_operator_tpu_torch.serving.mirror import (TickMirror,
+                                                          serving_ranks)
         out["decode_timing"] = decode_timing(
-            model, TickMirror(model.tp) if world > 1 else None)
+            model, TickMirror(serving_ranks(mesh)) if world > 1 else None)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3423,9 +3541,118 @@ def tp_disagg(world: int, rank: int, refs, out_dir: str):
     return out
 
 
+def fsdp_mesh_axes(world: int) -> dict:
+    """Phase 9 (e)'s mesh: fsdp = 2 x tp = world / 2."""
+    return {"fsdp": 2, "tp": world // 2}
+
+
+def swapped_gathers(fs):
+    """Phase 9 (e)'s planted fault, on one rank: every gather it makes
+    lays the fsdp shards in the wrong order (rank 1's first)."""
+    real = fs._all_gather
+
+    def gather(buf, shard):
+        real(buf, shard)
+        buf.copy_(buf.view(fs.par.size, -1).flip(0).reshape(-1))
+    fs._all_gather = gather
+
+
+def tp_fsdp_serve(world: int, rank: int, refs):
+    """Phase 9 (e), one rank: llama2_7b at 32 layers from SEED served at
+    fsdp = 2 x tp = world / 2, each rank holding 1/world of every matmul
+    weight and gathering each block as it runs (phase 5's 8 slots, page
+    16, no prefix cache).  Prefill logits of every prompt against one
+    card, the planted fault (rank 1's gathers swap the fsdp shards), the
+    serving run from rank 0 (TP_FSDP_NEW_TOKENS a stream), K4' launches
+    and decode steps on every rank, the rank's resident weight bytes, a
+    decode step's host, wall and gather ms."""
+    from mpi_operator_tpu_torch.models.llama import (LlamaModel, llama2_7b,
+                                                     llama_param_specs)
+    from mpi_operator_tpu_torch.models.params import init_params
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.parallel.fsdp_serve import is_cut
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    from mpi_operator_tpu_torch.serving.mirror import (TickMirror,
+                                                      serving_ranks)
+
+    t_start = time.perf_counter()
+    gc.collect()
+    cuda = TP_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = llama2_7b()
+    axes = fsdp_mesh_axes(world)
+    mesh = tp_mesh(**axes)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(
+        SEED), device=TP_DEVICE, mesh=mesh)
+    if cuda:
+        torch.cuda.synchronize()
+    fs = model.fsdp_serve
+    # The one-card model's bytes: what fsdp x tp cuts, and the rest.
+    specs = llama_param_specs(cfg)
+    whole = {"cut": 0, "norms": 0, "block_cut": 0}
+    for k, t in LlamaModel(cfg, device="meta").state_dict().items():
+        n = t.numel() * t.element_size()
+        whole["cut" if is_cut(specs[k]) else "norms"] += n
+        if k.startswith("layers.0.") and is_cut(specs[k]):
+            whole["block_cut"] += n
+    out = {"init_s": time.perf_counter() - t0, "n_layers": cfg.n_layers,
+           **axes, "whole_bytes": whole, "resident": fs.resident_bytes(),
+           "allocated_after_init": (torch.cuda.memory_allocated() if cuda
+                                    else None)}
+    server = InferenceServer(model, mesh=mesh, max_batch_slots=8,
+                             kv_page_size=16, kv_prefix_cache=False,
+                             device=TP_DEVICE, tp_timeout_s=600)
+    prompts, stream_prompt = refs["prompts"], refs["stream_prompt"]
+    logits = torch.stack([server.prefill_logits(p)
+                          for p in prompts]).float().cpu()
+    out["logit_err"] = logit_err(logits, refs["logits"])
+    real = fs._all_gather
+    if rank == 1:
+        swapped_gathers(fs)
+    fault = server.prefill_logits(prompts[3]).float().cpu()
+    fs._all_gather = real
+    out["fault_logit_err"] = logit_err(fault[None], refs["logits"][3:4])
+    steps0 = server.telemetry["dispatches_total"].value
+    pa.LAUNCHES = 0
+    server.start()
+    try:
+        if server.is_leader:
+            out["run"] = tp_serve_run(server, prompts, stream_prompt,
+                                      TP_FSDP_NEW_TOKENS)
+    finally:
+        if server.is_leader:
+            server.stop()
+        else:
+            server.join(timeout=TP_DEADLINE_S)
+            server.stop()
+    if cuda:
+        torch.cuda.synchronize()
+    out.update(launches=pa.LAUNCHES,
+               decode_steps=server.telemetry["dispatches_total"].value
+               - steps0,
+               exchange_ms_per_turn=(server.mirror.seconds * 1e3
+                                     / server.mirror.turns))
+    del server
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        out["decode_timing"] = decode_timing(
+            model, TickMirror(serving_ranks(mesh)))
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, fs
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def tp_rank(out_dir: str) -> int:
-    """A child of phase 9: (a) always; (b) and (c) with two cards or
-    more; (d) with four."""
+    """A child of phase 9: (a) always; (b), (c) and (e) with two cards
+    or more; (d) with four."""
     import torch.distributed as dist
 
     rank, world = tp_group()
@@ -3463,6 +3690,9 @@ def tp_rank(out_dir: str) -> int:
     if world >= 4:
         result["disagg"] = timed("(d) disagg", tp_disagg, world, rank, refs,
                                  out_dir)
+    if world >= 2:
+        result["fsdp"] = timed("(e) fsdp serving", tp_fsdp_serve, world,
+                               rank, refs)
     if rank == 0:
         torch.save(tensors, os.path.join(out_dir, "tp_tensors.pt"))
     with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
@@ -3636,6 +3866,86 @@ def tp_disagg_verdict(card: str, ranks, out_dir: str, ref_logits, gaps,
             for name in ("bf16", "int8") for r in (2, 3)}
 
 
+def tp_fsdp_verdict(card: str, ranks, serve, gaps):
+    """Phase 9 (e)'s checks over every rank's report; prints them beside
+    (a)'s (tp = world) and returns rank 0's K4' launches."""
+    world = len(ranks)
+    e = [r["fsdp"] for r in ranks]
+    lead, a = e[0], ranks[0]["serve"]
+    tp, fsdp = lead["tp"], lead["fsdp"]
+    err = max(x["logit_err"] for x in e)
+    if not err <= TP_LOGIT_LIMIT:
+        raise SystemExit(f"tensor parallel (e): prefill logits differ from "
+                         f"one card by {err} of the largest logit (limit "
+                         f"{TP_LOGIT_LIMIT})")
+    fault = e[1]["fault_logit_err"]
+    if not fault > TP_LOGIT_LIMIT:
+        raise SystemExit(f"tensor parallel (e): a planted fault (rank 1 "
+                         f"swaps the fsdp shards of every gather) gives "
+                         f"{fault}, within {TP_LOGIT_LIMIT}")
+    run = lead["run"]
+    if run["concurrent"] != run["alone"]:
+        raise SystemExit("tensor parallel (e): concurrent != alone")
+    want = [w[:TP_FSDP_NEW_TOKENS] for w in serve["alone"]]
+    moved = {i: stream_verdict(got, w, gaps[i], err) for i, (got, w)
+             in enumerate(zip(run["alone"], want))}
+    if any(v is not None for v in moved.values()):
+        raise SystemExit(f"tensor parallel (e): streams differ from the "
+                         f"serving phase's beyond a near-tie: {moved}")
+    bad = []
+    for r, x in zip(ranks, e):
+        w, res = x["whole_bytes"], x["resident"]
+        # Each unit's run is padded to a multiple of fsdp: a few bytes.
+        slack = 64 * (x["n_layers"] + 2)
+        units = w["cut"] - x["n_layers"] * w["block_cut"]  # embed + head
+        buffers = (2 * w["block_cut"] + units) / tp
+        if not (w["cut"] / world <= res["shards"] <= w["cut"] / world
+                + slack and res["whole"] == w["norms"]
+                and buffers <= res["buffers"] <= buffers + slack):
+            bad.append(f"rank {r['rank']} holds {res}, want shards "
+                       f"{w['cut'] / world}, norms {w['norms']}, buffers "
+                       f"{buffers}")
+        if x["launches"] != x["decode_steps"] * x["n_layers"] or \
+                x["launches"] == 0 or not x["peak_bytes"] < 80e9:
+            bad.append(f"rank {r['rank']}: K4' launches {x['launches']}, "
+                       f"decode steps {x['decode_steps']} x "
+                       f"{x['n_layers']}, peak {x['peak_bytes']}")
+    if bad:
+        raise SystemExit(f"tensor parallel (e): {bad}")
+    received = lead["whole_bytes"]["cut"] / tp * (fsdp - 1) / fsdp
+    keys = ("ttft_mean_s", "inter_token_latency_mean_s",
+            "output_tokens_per_s", "concurrent_wall_s")
+    print(f"tensor parallel (e) llama2_7b, weights over fsdp={fsdp} x tp="
+          f"{tp}, each block gathered per forward: " + json.dumps({
+              "card": card, "world": world, "n_layers": lead["n_layers"],
+              "slots": 8, "page_size": 16, "logit_err": err,
+              "logit_limit": TP_LOGIT_LIMIT,
+              "planted_fault_logit_err": fault,
+              "new_tokens_each": TP_FSDP_NEW_TOKENS,
+              "streams_differing_from_phase5_at_near_ties": sum(
+                  g != w for g, w in zip(run["alone"], want)),
+              **{k: run[k] for k in keys},
+              "a_tp_world": {"new_tokens_each": SERVE_NEW_TOKENS,
+                             **{k: a["run"][k] for k in keys}},
+              "gather_bytes_received_per_forward": received,
+              "gather_bound_ms_at_nvlink": received / NVLINK_BYTES_PER_S
+              * 1e3,
+              "seconds": max(x["seconds"] for x in e),
+              "budget_s": TP_FSDP_BUDGET_S,
+              "per_rank": [{
+                  "rank": r["rank"], "resident": x["resident"],
+                  "a_weight_bytes": r["serve"]["weight_bytes"],
+                  "whole_weight_bytes": x["whole_bytes"]["cut"]
+                  + x["whole_bytes"]["norms"],
+                  **{k: x.get(k) for k in (
+                      "launches", "decode_steps", "peak_bytes",
+                      "allocated_after_init", "init_s",
+                      "exchange_ms_per_turn", "decode_timing")},
+                  "a_decode_timing": r["serve"].get("decode_timing")}
+                  for r, x in zip(ranks, e)]}), flush=True)
+    return lead["launches"]
+
+
 def tp_phase(card: str, serve):
     """Phase 9: one process per card (tp_world), NCCL.  (a) llama2_7b
     served at tp = world, all 32 layers; (b) mixtral_8x7b served at
@@ -3643,7 +3953,8 @@ def tp_phase(card: str, serve):
     training parity at tp = world (and fsdp = 2 x tp = 2) against card 0
     alone with a planted fault, and the 7B at full width, twice; (d) at
     four cards, the 7B handed from a tp = 2 prefill replica to a tp = 2
-    decode replica."""
+    decode replica; (e) with two cards or more, the 7B served with its
+    weights cut over fsdp = 2 x tp = world / 2."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
     gc.collect()
@@ -3712,11 +4023,11 @@ def tp_phase(card: str, serve):
             for r in ranks]}), flush=True)
     result = {"world": world, "launches_rank0": ranks[0]["serve"]["launches"]}
     if world < 2:
-        print("tensor parallel (b) mixtral_8x7b, (c) training: need two "
-              "cards (tp over one card is phase 5f's serving); (d) "
-              "disaggregated prefill/decode across tp groups: needs four "
-              "(phase 5e is the one-card handoff); this machine shows one",
-              flush=True)
+        print("tensor parallel (b) mixtral_8x7b, (c) training, (e) "
+              "weights over fsdp: need two cards (tp over one card is "
+              "phase 5f's serving); (d) disaggregated prefill/decode "
+              "across tp groups: needs four (phase 5e is the one-card "
+              "handoff); this machine shows one", flush=True)
         return result
 
     # (b) mixtral_8x7b at TP_MOE_LAYERS layers.
@@ -3779,6 +4090,10 @@ def tp_phase(card: str, serve):
         print(f"tensor parallel (d) disaggregated prefill/decode across tp "
               f"groups: needs four cards (two tp = 2 replicas); this "
               f"machine shows {world}", flush=True)
+
+    # (e) llama2_7b with its weights cut over fsdp too.
+    result["fsdp_launches_rank0"] = tp_fsdp_verdict(card, ranks, serve,
+                                                    gaps)
     print("tensor parallel parts (seconds, rank 0): "
           + json.dumps(ranks[0]["seconds"]), flush=True)
     return result
@@ -3850,9 +4165,19 @@ def sp_group():
     return dist.get_rank(), dist.get_world_size()
 
 
+_SP_MESHES = {}
+
+
 def sp_mesh(**axes):
+    """Phase 11's mesh over these axes (dp the rest), made once per
+    process: each DeviceMesh forms communicators of its own, whose NCCL
+    buffers stay on the card, so (a)'s runs and (b)/(c) share them."""
     from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
-    return create_mesh(MeshConfig(**{"dp": -1, **axes}), "cuda")
+    key = tuple(sorted(axes.items()))
+    if key not in _SP_MESHES:
+        _SP_MESHES[key] = create_mesh(MeshConfig(**{"dp": -1, **axes}),
+                                      "cuda")
+    return _SP_MESHES[key]
 
 
 def sp_loss(model, batch):
@@ -4111,11 +4436,13 @@ def sp_full_width_run(world: int, spec: dict, mesh):
     return out
 
 
-def sp_rank(out_dir: str, part: str) -> int:
-    """A child of phase 11: ``part`` "parity" runs (a), parity, planted
-    faults and the re-shard; "full" runs (b) and (c), twice each, in
-    processes of their own (the many groups of (a) hold NCCL buffers on
-    every card)."""
+def sp_rank(out_dir: str) -> int:
+    """A child of phase 11: (b) and (c), twice each, then (a), parity,
+    planted faults and the re-shard, in the same process (the meshes are
+    made once, ``sp_mesh``).  (c) runs near the card's memory, so it
+    runs before (a)'s groups hold NCCL buffers on the card (after them,
+    on four H100 80GB HBM3 at 700 W, its steps took 5.9 s against 0.63
+    with allocator retries)."""
     import faulthandler
 
     import torch.distributed as dist
@@ -4133,32 +4460,31 @@ def sp_rank(out_dir: str, part: str) -> int:
         t0 = time.perf_counter()
         print(f"sp rank {rank}: {what} done", flush=True)
 
-    if part == "parity":
-        kinds = ["sp", "ep"] + (["fsdp_sp", "fsdp_ep"] if world >= 4
-                                else [])
-        runs = {}
-        for kind in kinds:
-            runs[kind] = sp_parity_run(world, kind, fault=False)
-            runs[kind + "_fault"] = sp_parity_run(world, kind, fault=True)
-            done(f"(a) {kind}")
-        result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
-        reshard = sp_reshard_run(world)
-        done("(a) reshard")
-        if rank == 0:
-            torch.save({"parity": {k: v[1] for k, v in runs.items()},
-                        "reshard": reshard},
-                       os.path.join(out_dir, "sp_tensors.pt"))
-    path = os.path.join(out_dir, f"sp_{part}_rank{rank}.json")
-    if part != "parity":
-        result["full_width"] = {}
-        for spec in sp_full_configs(world):
-            mesh = sp_mesh(**spec["mesh"])
-            result["full_width"][spec["preset"]] = [
-                sp_full_width_run(world, spec, mesh) for _ in range(2)]
-            done(f"{'(c)' if spec['preset'].startswith('mixtral') else '(b)'}"
-                 f" {spec['preset']}")
-            with open(path, "w") as f:         # what is done so far
-                json.dump(result, f)
+    path = os.path.join(out_dir, f"sp_rank{rank}.json")
+    result["full_width"] = {}
+    for spec in sp_full_configs(world):
+        mesh = sp_mesh(**spec["mesh"])
+        result["full_width"][spec["preset"]] = [
+            sp_full_width_run(world, spec, mesh) for _ in range(2)]
+        done(f"{'(c)' if spec['preset'].startswith('mixtral') else '(b)'}"
+             f" {spec['preset']}")
+        with open(path, "w") as f:             # what is done so far
+            json.dump(result, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds = ["sp", "ep"] + (["fsdp_sp", "fsdp_ep"] if world >= 4 else [])
+    runs = {}
+    for kind in kinds:
+        runs[kind] = sp_parity_run(world, kind, fault=False)
+        runs[kind + "_fault"] = sp_parity_run(world, kind, fault=True)
+        done(f"(a) {kind}")
+    result["parity_metrics"] = {k: v[0] for k, v in runs.items()}
+    reshard = sp_reshard_run(world)
+    done("(a) reshard")
+    if rank == 0:
+        torch.save({"parity": {k: v[1] for k, v in runs.items()},
+                    "reshard": reshard},
+                   os.path.join(out_dir, "sp_tensors.pt"))
     with open(path, "w") as f:
         json.dump(result, f)
     dist.barrier()
@@ -4190,27 +4516,17 @@ def sp_phase(card: str):
             for preset in ("llama2_tiny", "mixtral_tiny")}
     gc.collect()
     torch.cuda.empty_cache()
-    for part in ("parity", "full"):
-        run_ranks([sys.executable, os.path.abspath(__file__), "sp-rank",
-                   out_dir, part], world, f"sequence/expert parallel "
-                  f"({part})", SP_DEADLINE_S, out_dir)
+    run_ranks([sys.executable, os.path.abspath(__file__), "sp-rank",
+               out_dir], world, "sequence/expert parallel", SP_DEADLINE_S,
+              out_dir)
     return sp_verdict(card, world, out_dir, refs)
 
 
 def sp_verdict(card: str, world: int, out_dir: str, refs):
     """Phase 11's checks and printed results, from the ranks' files in
     ``out_dir`` and the one-card references."""
-    ranks = []
-    for r in range(world):
-        parts = [json.load(open(os.path.join(out_dir,
-                                             f"sp_{part}_rank{r}.json")))
-                 for part in ("parity", "full")]
-        if parts[0]["card"] != parts[1]["card"]:
-            raise SystemExit(f"sequence/expert parallel: rank {r} on cards "
-                             f"{parts[0]['card']} and {parts[1]['card']}")
-        ranks.append({**parts[0], **parts[1],
-                      "seconds": {**parts[0]["seconds"],
-                                  **parts[1]["seconds"]}})
+    ranks = [json.load(open(os.path.join(out_dir, f"sp_rank{r}.json")))
+             for r in range(world)]
     tensors = torch.load(os.path.join(out_dir, "sp_tensors.pt"))
     if any(r["world"] != world or r["backend"] != "nccl"
            or r["card"] != r["rank"] for r in ranks):
@@ -5190,23 +5506,44 @@ def elastic_run(card: str, world: int, out_dir: str):
           f"{[round(c, 1) for c in changes]} s; {card}", flush=True)
 
 
-def mnist_run(card: str, out_dir: str):
-    """Phase 13 (e): examples/mnist_train_torch.py on card 0."""
-    out = subprocess.run([sys.executable, os.path.join(
-        HERE, "examples", "mnist_train_torch.py")], capture_output=True,
-        text=True, timeout=300, cwd=HERE,
+def mnist_start(out_dir: str):
+    """Phase 13 (e): examples/mnist_train_torch.py on card 0, started
+    beside (d) (most of its seconds are its process starting); returns
+    (process, log, deadline)."""
+    log = open(os.path.join(out_dir, "mnist.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.join(
+        HERE, "examples", "mnist_train_torch.py")], stdout=log,
+        stderr=subprocess.STDOUT, cwd=HERE,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
-    first = re.search(r"step=0 loss=(\S+)", out.stdout)
-    done = re.search(r"done processes=1 devices=1 final_loss=(\S+)",
-                     out.stdout)
-    if out.returncode or not first or not done or \
+    return proc, log, time.monotonic() + 300
+
+
+def mnist_finish(started) -> None:
+    """Wait for (e)'s process until its deadline, then kill it."""
+    proc, log, deadline = started
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    finally:
+        log.close()
+
+
+def mnist_check(card: str, started, out_dir: str):
+    """Phase 13 (e)'s checks on the finished example's output."""
+    proc = started[0]
+    text = open(os.path.join(out_dir, "mnist.log")).read()
+    first = re.search(r"step=0 loss=(\S+)", text)
+    done = re.search(r"done processes=1 devices=1 final_loss=(\S+)", text)
+    if proc.returncode or not first or not done or \
             not float(done.group(1)) < float(first.group(1)):
         raise SystemExit(f"image workloads (e) mnist: exit "
-                         f"{out.returncode}\n{out.stdout[-2000:]}"
-                         f"{out.stderr[-2000:]}")
-    goodput = re.search(r"goodput=.*", out.stdout).group(0)
-    print(f"image workloads (e) mnist: step 0 loss {first.group(1)} -> "
-          f"{done.group(0)}; {goodput}; {card}", flush=True)
+                         f"{proc.returncode}\n{text[-4000:]}")
+    goodput = re.search(r"goodput=.*", text).group(0)
+    print(f"image workloads (e) mnist (beside (d)): step 0 loss "
+          f"{first.group(1)} -> {done.group(0)}; {goodput}; {card}",
+          flush=True)
 
 
 def image_phase(card: str):
@@ -5214,12 +5551,18 @@ def image_phase(card: str):
     ResNet-101 at 224, 64 a card, bf16, on one card, twice; (c) with
     two cards or more, dp over every card: the tiny model against one
     card and a planted BatchNorm fault, then ResNet-101 at 64 a card;
-    (d) the elastic example; (e) the MNIST example."""
+    (d) the elastic example; (e) the MNIST example, beside (d).  Prints
+    each part's seconds."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-image-")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    parts, t_part = {}, [t0]
+
+    def part_done(name):
+        parts[name] = time.perf_counter() - t_part[0]
+        t_part[0] = time.perf_counter()
 
     cpu = tiny_resnet_run("cpu", IMAGE_PARITY_BATCH)
     card_run = tiny_resnet_run("cuda", IMAGE_PARITY_BATCH)
@@ -5232,6 +5575,7 @@ def image_phase(card: str):
           f"SGD-momentum steps {IMAGE_STEP_TOL}); largest logit error "
           f"{(card_run['logits'] - cpu['logits']).abs().max().item():.3g}, "
           f"losses {card_run['losses']}", flush=True)
+    part_done("(a) parity")
 
     bench = load_example("resnet_benchmark_torch")
     benchmark_flag = torch.backends.cudnn.benchmark
@@ -5262,6 +5606,7 @@ def image_phase(card: str):
     del runs
     gc.collect()
     torch.cuda.empty_cache()
+    part_done("(b) resnet101 one card, twice")
 
     world = image_world()
     if world >= 2:
@@ -5313,9 +5658,17 @@ def image_phase(card: str):
     else:
         print("image workloads (c) dp: needs two cards; this machine shows "
               "one", flush=True)
+    part_done("(c) dp")
 
-    elastic_run(card, world, out_dir)
-    mnist_run(card, out_dir)
+    mnist = mnist_start(out_dir)
+    try:
+        elastic_run(card, world, out_dir)
+    finally:
+        mnist_finish(mnist)
+    mnist_check(card, mnist, out_dir)
+    part_done("(d) elastic, (e) mnist beside it")
+    print("image workloads parts (seconds): " + json.dumps(parts),
+          flush=True)
     print(f"image workloads: phase 13 in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -5496,7 +5849,7 @@ def main() -> int:
     if sys.argv[1:2] == ["tp-rank"]:
         return tp_rank(sys.argv[2])
     if sys.argv[1:2] == ["sp-rank"]:
-        return sp_rank(sys.argv[2], sys.argv[3])
+        return sp_rank(sys.argv[2])
     if sys.argv[1:2] == ["pp-rank"]:
         return pp_rank(sys.argv[2])
     if sys.argv[1:2] == ["image-rank"]:
@@ -5587,6 +5940,8 @@ def main() -> int:
     if 10 in phases:
         k4_profile = timed("10 profile", serving_profile_phase,
                            serve["prompts"])
+    for t in _REMOVALS:
+        t.join()
     seconds["total"] = time.perf_counter() - t_start
     print("phase seconds: " + json.dumps(seconds), flush=True)
     if phases != set(PHASE_IDS):
@@ -5623,7 +5978,10 @@ def main() -> int:
             "tp_moe_serving_rank0": tp.get("moe_launches_rank0"),
             # Phase 9 (d), the decode replica's ranks (four cards).
             **{f"tp_disagg_decode_{k}": v
-               for k, v in tp.get("disagg_launches", {}).items()}},
+               for k, v in tp.get("disagg_launches", {}).items()},
+            # Phase 9 (e), the weights over fsdp, rank 0 (two cards or
+            # more; every rank's count is checked there).
+            "tp_fsdp_serving_rank0": tp.get("fsdp_launches_rank0")},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],

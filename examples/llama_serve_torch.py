@@ -37,6 +37,15 @@ loaded from a HuggingFace Llama, Mistral or Mixtral checkpoint
     # JAX_NUM_PROCESSES); rank 0 serves HTTP, the others follow it:
     python examples/llama_serve_torch.py --config 7b --slots 8 --tp 4
 
+    # the weights cut over fsdp too (each card holds a quarter of every
+    # matmul weight and gathers each block as it runs): 4 processes
+    python examples/llama_serve_torch.py --config 7b --slots 8 \
+        --fsdp 2 --tp 2
+
+    # on the CPU, two processes (gloo): fsdp = 2
+    python examples/llama_serve_torch.py --config tiny --device cpu \
+        --fsdp 2 --demo
+
     # a disaggregated pair at tp = 2 each: two jobs of two processes (each
     # job its own operator env and coordinator), the same --seed; the
     # pages rank 0 of the prefill job ships carry every KV head, so the
@@ -88,8 +97,8 @@ def load_hf(path: str, dev):
 
 def build_model(config_name: str, device, seed: int, hf: str = "",
                 mesh=None):
-    """The model, or under ``mesh`` this rank's tensor-parallel shard of
-    it (an HF checkpoint is loaded whole and cut by the server)."""
+    """The model, or under ``mesh`` this rank's shard of it (tp, then
+    fsdp; an HF checkpoint is loaded whole and cut by the server)."""
     import torch
 
     from mpi_operator_tpu_torch import resolve_device
@@ -148,6 +157,10 @@ def main() -> int:
                     help="tensor-parallel ranks: one process per card, "
                          "started with the operator's env; rank 0 serves "
                          "HTTP")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="ranks the weights are cut over besides --tp: "
+                         "each block is gathered as it runs; --tp x "
+                         "--fsdp processes")
     ap.add_argument("--demo", action="store_true",
                     help="send one demo request, print it, and exit")
     args = ap.parse_args()
@@ -159,7 +172,8 @@ def main() -> int:
             "--kv-cache-dtype needs continuous batching (--slots > 0); "
             "the single-flight path uses the dense cache")
     mesh = None
-    if args.tp > 1:
+    world = args.tp * args.fsdp
+    if world > 1:
         import torch.distributed as dist
 
         from mpi_operator_tpu_torch import resolve_device
@@ -167,12 +181,12 @@ def main() -> int:
         from mpi_operator_tpu_torch.parallel.mesh import (MeshConfig,
                                                           create_mesh)
         initialize_from_env(device=args.device)
-        if not dist.is_initialized() or dist.get_world_size() != args.tp:
-            raise SystemExit(f"--tp {args.tp} needs {args.tp} processes "
-                             f"started with the operator's env "
-                             f"(JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, "
-                             f"JAX_NUM_PROCESSES)")
-        mesh = create_mesh(MeshConfig(dp=1, tp=args.tp),
+        if not dist.is_initialized() or dist.get_world_size() != world:
+            raise SystemExit(f"--tp {args.tp} --fsdp {args.fsdp} needs "
+                             f"{world} processes started with the "
+                             f"operator's env (JAX_COORDINATOR_ADDRESS, "
+                             f"JAX_PROCESS_ID, JAX_NUM_PROCESSES)")
+        mesh = create_mesh(MeshConfig(dp=1, fsdp=args.fsdp, tp=args.tp),
                            resolve_device(args.device).type)
     model = build_model(args.config, args.device, args.seed, args.hf, mesh)
     if args.weight_dtype == "int8":
@@ -192,7 +206,7 @@ def main() -> int:
         draft_len=args.draft_len, kv_prefill_chunk=args.prefill_chunk,
         device=model.device, mesh=mesh).start()
     if not server.is_leader:
-        # A tensor-parallel follower: serves until rank 0 stops.
+        # A follower of the serving group: serves until rank 0 stops.
         server.join()
         server.stop()
         return 0

@@ -51,6 +51,18 @@ rank's heads alone; a row-parallel product ends in one all-reduce (in
 f32, ``parallel/tensor.py``), the embedding sums the rank that owns each
 token's row, and the logits are gathered whole on every rank.
 
+Serving over ``fsdp`` (``LlamaModel(mesh=, serving=True)`` with fsdp > 1;
+what ``init_params``, ``load_flax_params`` and ``shard_model`` build for
+such a mesh): each rank holds 1/fsdp of every tensor that a mesh axis
+cuts, after the tp and ep cut, and the forward gathers the embedding,
+each block and the head just before they run
+(``parallel/fsdp_serve.py``).  The batch and the KV cache are the same
+on every fsdp rank (KV heads are cut over tp only), so every rank
+computes what one card computes; an MoE layer counts its capacity over
+one copy of the batch.  Without ``serving`` the fsdp axis is the
+training step's (FSDP2 in ``parallel/train.py``) and the model holds its
+tp shards whole.
+
 Sequence parallelism (``sp`` > 1 in the mesh; the training forward): each
 rank holds token columns [i*S/sp, (i+1)*S/sp) (``parallel.mesh.seq_cols``)
 at the global RoPE positions ``i*S/sp + arange(S/sp)``, attention runs
@@ -476,7 +488,8 @@ class LlamaMLP(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, store_dtype,
                  tp: TensorParallel = TensorParallel(),
-                 sp: SequenceParallel = SequenceParallel()):
+                 sp: SequenceParallel = SequenceParallel(),
+                 serving: bool = False):
         super().__init__()
         self.attention = LlamaAttention(cfg, store_dtype, tp, sp)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps,
@@ -486,7 +499,8 @@ class LlamaBlock(nn.Module):
             self.feed_forward = MoEMLP(
                 cfg.dim, cfg.ffn_dim, cfg.n_experts, top_k=cfg.top_k,
                 dtype=cfg.dtype, store_dtype=store_dtype,
-                param_dtype=cfg.param_dtype, mesh=tp.mesh)
+                param_dtype=cfg.param_dtype, mesh=tp.mesh,
+                batch_replicated=serving)
         else:
             self.feed_forward = LlamaMLP(cfg, store_dtype, tp)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, None)
@@ -520,7 +534,10 @@ class LlamaModel(nn.Module):
     Its 'dp' and 'fsdp' axes are the training step's; under 'sp' the
     training forward takes this rank's token columns and runs ring
     attention, under 'ep' each MoE layer holds its experts' share (see
-    the module docstring).  Over 'pp' the model is whole, dense or MoE,
+    the module docstring).  With ``serving`` and fsdp > 1 the model
+    holds 1/fsdp of its tp shards and gathers each unit as it runs (see
+    the module docstring; a dim fsdp does not divide raises ValueError,
+    as ``jax.device_put`` does).  Over 'pp' the model is whole, dense or MoE,
     as the JAX model is under a pp mesh: a pipeline rank builds only its
     stage (``models/llama_pipeline.LlamaStage``, from this module's
     ``LlamaBlock``, ``RMSNorm`` and ``_linear``); pp with tp, sp or ep
@@ -529,7 +546,7 @@ class LlamaModel(nn.Module):
     package."""
 
     def __init__(self, config: LlamaConfig, device=None, store_dtype=None,
-                 mesh=None):
+                 mesh=None, serving: bool = False):
         super().__init__()
         # "meta" allocates nothing: sharded training places the model
         # first and fills each rank's shard (models/params.py).
@@ -543,6 +560,10 @@ class LlamaModel(nn.Module):
         self.sp = sp = SequenceParallel.of(mesh)
         self.ep = ExpertParallel.of(mesh)
         _check_tp(config, tp.size)
+        fsdp = TensorParallel.of(mesh, "fsdp")
+        serving = serving and fsdp.size > 1
+        if serving:
+            _check_fsdp(config, fsdp.size)
         if config.n_experts > 1 and config.n_experts % self.ep.size:
             raise ValueError(f"n_experts {config.n_experts} not divisible "
                              f"by ep={self.ep.size}")
@@ -550,12 +571,16 @@ class LlamaModel(nn.Module):
             self.tok_embeddings = nn.Embedding(config.vocab_size // tp.size,
                                                config.dim, dtype=store)
             self.layers = nn.ModuleList(
-                LlamaBlock(config, store, tp, sp)
+                LlamaBlock(config, store, tp, sp, serving)
                 for _ in range(config.n_layers))
             self.norm = RMSNorm(config.dim, config.norm_eps,
                                 config.param_dtype, None)
             self.output = _linear(config, config.dim,
                                   config.vocab_size // tp.size, store)
+        self.fsdp_serve = None
+        if serving:
+            from ..parallel.fsdp_serve import ServingFSDP
+            self.fsdp_serve = ServingFSDP(self, mesh, dev)
         self.to_empty(device=dev)
         with torch.no_grad():
             for module in self.modules():
@@ -592,6 +617,11 @@ class LlamaModel(nn.Module):
         ``config.remat`` each block of the training forward runs under
         activation checkpointing (flax ``nn.remat``)."""
         cfg = self.config
+        # Under fsdp serving, unit k's gather is waited for just before
+        # it runs (0 the embedding, 1..L the blocks, L + 1 the head).
+        fs = self.fsdp_serve
+        ready = (lambda k: None) if fs is None else fs.ready
+        ready(0)
         # The table is cast to dtype before the lookup, as flax's
         # promote_dtype does.
         x = self._embed(tokens)
@@ -603,6 +633,7 @@ class LlamaModel(nn.Module):
                     "the decode path over a sequence-parallel mesh is not "
                     "ported: ROADMAP.md queue 1 item 3 (serve with sp=1)")
             for i, layer in enumerate(self.layers):
+                ready(i + 1)
                 x = layer(x, cache[f"layers_{i}"]["attention"])
         else:
             if cache is not None:
@@ -612,7 +643,8 @@ class LlamaModel(nn.Module):
             s_local = tokens.shape[1]
             positions = self.sp.rank * s_local + torch.arange(
                 s_local, device=x.device)
-            for layer in self.layers:
+            for i, layer in enumerate(self.layers):
+                ready(i + 1)
                 if cfg.remat:
                     x = checkpoint(layer, x, None, positions,
                                    use_reentrant=False)
@@ -621,6 +653,7 @@ class LlamaModel(nn.Module):
         x = self.norm(x)
         if return_hidden:
             return x
+        ready(len(self.layers) + 1)
         # Under tp: this rank's vocabulary columns, gathered whole.
         return gather_from_tp(self.output(copy_to_tp(x, self.tp)), self.tp)
 
@@ -640,6 +673,14 @@ def _check_tp(cfg: LlamaConfig, tp: int) -> None:
             raise ValueError(f"{what} {n} not divisible by tp={tp}")
 
 
+def _check_fsdp(cfg: LlamaConfig, fsdp: int) -> None:
+    """Every dimension llama_param_specs puts on 'fsdp' (the model dim,
+    opposite 'tp' in every matmul, and the embedding's) divides by it,
+    as ``jax.device_put`` requires of the JAX server's params."""
+    if cfg.dim % fsdp:
+        raise ValueError(f"dim {cfg.dim} not divisible by fsdp={fsdp}")
+
+
 def llama_param_specs(config: LlamaConfig) -> dict:
     """The mesh axis of each dim of each parameter of :class:`LlamaModel`
     (``None``: not sharded): the JAX ``llama_param_specs`` (Megatron
@@ -653,7 +694,9 @@ def llama_param_specs(config: LlamaConfig) -> dict:
 
     ``LlamaModel(mesh=)`` cuts the 'tp' and 'ep' dims (``models/params.py``
     cuts and joins full tensors by them), ``parallel/train.build_train_step``
-    shards the 'fsdp' entries (and grafts 'dp' for its ZeRO update)."""
+    shards the 'fsdp' entries (and grafts 'dp' for its ZeRO update); a
+    serving model cuts every entry with a mesh axis flat over 'fsdp'
+    (``parallel/fsdp_serve.py``)."""
     def linear(name, out_axis, in_axis):
         specs = {f"{name}.weight": (out_axis, in_axis)}
         if config.weight_dtype == "int8":

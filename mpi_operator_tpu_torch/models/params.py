@@ -28,10 +28,14 @@ joins every rank's chunks back (a collective), ``shard_model`` and the
 ``mesh=`` of ``load_flax_params`` and ``init_params`` build a rank's
 shard, and ``init_params_`` draws each tensor in full and keeps the
 rank's part, so random weights at a seed are the one-card weights cut
-up.  A pipeline rank's ``LlamaStage`` takes the same draws (every draw of
-the one-card model is made, the stage keeps its own), its part of a JAX
-tree (``from_flax_params(stage=)``), and ``gather_stage_state_dict``
-joins every stage's tensors into the one-device state dict.
+up.  Over a serving mesh with fsdp > 1 (``parallel/fsdp_serve.py``) those
+builders give the serving model: the tp and ep cut, then each unit's
+flat run of cut tensors cut over fsdp; ``shard_state_dict(fsdp=)`` gives
+its state dict.  A pipeline rank's ``LlamaStage`` takes the same draws
+(every draw of the one-card model is made, the stage keeps its own), its
+part of a JAX tree (``from_flax_params(stage=)``), and
+``gather_stage_state_dict`` joins every stage's tensors into the
+one-device state dict.
 """
 
 from __future__ import annotations
@@ -124,16 +128,23 @@ def from_flax_params(tree, cfg: LlamaConfig,
 
 def shard_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
                      tp: TensorParallel,
-                     ep: ExpertParallel = ExpertParallel()
+                     ep: ExpertParallel = ExpertParallel(),
+                     fsdp: Optional[TensorParallel] = None
                      ) -> Dict[str, torch.Tensor]:
     """This rank's part of a full state dict: each tensor's
     ``torch.chunk`` on the dims ``llama_param_specs`` puts on 'tp' (an
     int8 weight's ``.scale`` follows its output dim) and on 'ep' (the
-    expert stacks' dim 0), the rest whole."""
+    expert stacks' dim 0), the rest whole; with ``fsdp`` (this rank's
+    place on the axis, size > 1) then the serving model's fsdp cut
+    (``parallel/fsdp_serve.flat_shards``)."""
     specs = llama_param_specs(cfg)
-    return {k: ep.chunk(tp.chunk(v, tp_dim(specs.get(k, ()))),
-                        tp_dim(specs.get(k, ()), "ep")).contiguous()
-            for k, v in state.items()}
+    out = {k: ep.chunk(tp.chunk(v, tp_dim(specs.get(k, ()))),
+                       tp_dim(specs.get(k, ()), "ep")).contiguous()
+           for k, v in state.items()}
+    if fsdp is not None and fsdp.size > 1:
+        from ..parallel.fsdp_serve import flat_shards
+        out = flat_shards(out, cfg, fsdp)
+    return out
 
 
 def gather_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
@@ -149,14 +160,26 @@ def gather_state_dict(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
 
 
 def shard_model(model: LlamaModel, mesh) -> LlamaModel:
-    """This rank's tensor- and expert-parallel shard of a whole
-    (one-card) model, on its device, with its store dtype; the caller
-    frees the whole model."""
+    """This rank's serving shard of a whole (one-card) model, or of a
+    model that holds this mesh's tp and ep shards whole over fsdp: the
+    tensor- and expert-parallel cut, then the fsdp cut when the mesh's
+    fsdp > 1; on its device, with its store dtype.  The caller frees the
+    model it passed."""
     sharded = LlamaModel(model.config, device=model.device,
                          store_dtype=model.tok_embeddings.weight.dtype,
-                         mesh=mesh)
-    sharded.load_state_dict(shard_state_dict(
-        model.state_dict(), model.config, sharded.tp, sharded.ep))
+                         mesh=mesh, serving=True)
+    state = model.state_dict()
+    if model.tp.size == 1 and model.ep.size == 1:
+        state = shard_state_dict(state, model.config, sharded.tp, sharded.ep)
+    elif (model.tp.size, model.ep.size) != (sharded.tp.size,
+                                            sharded.ep.size):
+        raise ValueError(f"model holds tp={model.tp.size}, ep="
+                         f"{model.ep.size} shards, the mesh has tp="
+                         f"{sharded.tp.size}, ep={sharded.ep.size}")
+    if sharded.fsdp_serve is not None:
+        from ..parallel.fsdp_serve import flat_shards
+        state = flat_shards(state, model.config, sharded.fsdp_serve.par)
+    sharded.load_state_dict(state)
     return sharded.eval()
 
 
@@ -166,10 +189,14 @@ def load_flax_params(tree, cfg: LlamaConfig, device=None,
     """A LlamaModel on ``device`` holding the JAX model's weights, its
     matmul weights and embedding stored in ``dtype`` (default
     ``cfg.dtype``; ``cfg.param_dtype`` for training); under a ``mesh``
-    with tp or ep > 1, this rank's shard of them."""
-    model = LlamaModel(cfg, device=device, store_dtype=dtype, mesh=mesh)
+    with tp or ep > 1, this rank's shard of them, and with fsdp > 1 the
+    serving model's fsdp shard."""
+    model = LlamaModel(cfg, device=device, store_dtype=dtype, mesh=mesh,
+                       serving=True)
+    fs = model.fsdp_serve
     model.load_state_dict(shard_state_dict(
-        from_flax_params(tree, cfg, dtype), cfg, model.tp, model.ep))
+        from_flax_params(tree, cfg, dtype), cfg, model.tp, model.ep,
+        None if fs is None else fs.par))
     return model.eval()
 
 
@@ -183,7 +210,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     scales 1, matmul weights and embedding stored in ``dtype`` (default
     ``cfg.dtype``).  The values are drawn in f32 on the generator's
     device, which must be ``device``.  Under a ``mesh`` with tp or ep > 1
-    the model is this rank's shard of the one-card model at the seed."""
+    the model is this rank's shard of the one-card model at the seed; with
+    fsdp > 1 the serving model's fsdp shard of it (no rank holds a whole
+    tp shard: each draw is cut as it is made)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
@@ -193,7 +222,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         return quantize_model(init_params(
             dataclasses.replace(cfg, weight_dtype="auto"), generator,
             device=dev, dtype=dtype, mesh=mesh))
-    model = LlamaModel(cfg, device=dev, store_dtype=dtype, mesh=mesh)
+    model = LlamaModel(cfg, device=dev, store_dtype=dtype, mesh=mesh,
+                       serving=True)
     return init_params_(model, generator).eval()
 
 
@@ -225,6 +255,8 @@ def init_params_(model: LlamaModel, generator: torch.Generator
     from torch.distributed.tensor import DTensor
     if hasattr(model, "chunks"):                   # a pipeline stage
         return _init_stage_(model, generator)
+    if model.fsdp_serve is not None:
+        return _init_fsdp_serve_(model, generator)
     tp, ep = model.tp, model.ep
     specs = llama_param_specs(model.config)
     for name, p in model.named_parameters():
@@ -256,6 +288,39 @@ def init_params_(model: LlamaModel, generator: torch.Generator
     return model
 
 
+def _draw(name: str, shape, generator: torch.Generator) -> torch.Tensor:
+    """One parameter's draw of :func:`init_params` (not a norm scale),
+    in full, in f32 on the generator's device."""
+    if len(shape) == 3:                  # an MoE expert stack [E, in, out]
+        return init_expert_stack_(torch.empty(
+            shape, device=generator.device), generator)
+    std = 1.0 if name == "tok_embeddings.weight" else \
+        1.0 / math.sqrt(shape[1])
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32).mul_(std)
+
+
+def _init_fsdp_serve_(model: LlamaModel, generator: torch.Generator):
+    """:func:`init_params_` of a serving model at fsdp > 1: every draw of
+    the one-card model, in its order, cut to this rank's tp and ep shard
+    and then to its part of the unit's flat run."""
+    tp, ep, fs = model.tp, model.ep, model.fsdp_serve
+    specs = llama_param_specs(model.config)
+    whole = LlamaModel(model.config, device="meta")
+    for name, meta in whole.named_parameters():
+        if name.endswith(".scale"):                # norm scales: no draw
+            model.get_parameter(name).fill_(1.0)
+            continue
+        full = _draw(name, tuple(meta.shape), generator)
+        part = ep.chunk(tp.chunk(full, tp_dim(specs[name])),
+                        tp_dim(specs[name], "ep"))
+        if name in fs.layout.where:
+            fs.place(name, part)
+        else:                                      # the MoE router
+            model.get_parameter(name).copy_(part)
+    return model
+
+
 def _init_stage_(stage, generator: torch.Generator):
     """:func:`init_params_` of a ``LlamaStage``: every draw of the
     one-device model is made, in its order, and the stage keeps those of
@@ -269,16 +334,7 @@ def _init_stage_(stage, generator: torch.Generator):
             if p is not None:
                 p.fill_(1.0)
             continue
-        shape = tuple(meta.shape)
-        if meta.dim() == 3:              # an MoE expert stack [E, in, out]
-            full = init_expert_stack_(torch.empty(
-                shape, device=generator.device), generator)
-        else:
-            std = 1.0 if name == "tok_embeddings.weight" else \
-                1.0 / math.sqrt(shape[1])
-            full = torch.randn(shape, generator=generator,
-                               device=generator.device,
-                               dtype=torch.float32).mul_(std)
+        full = _draw(name, tuple(meta.shape), generator)
         if p is not None:
             p.copy_(stage.fsdp_part(name, full))
     return stage
@@ -373,8 +429,9 @@ def share_weights(model: LlamaModel, **overrides) -> LlamaModel:
         raise ValueError(f"share_weights cannot change {sorted(bad)}: they "
                          f"shape the tensors")
     cfg = dataclasses.replace(model.config, **overrides)
-    memo = {id(t): t for t in itertools.chain(model.parameters(),
-                                              model.buffers())}
+    memo = {id(t): t for t in itertools.chain(
+        model.parameters(), model.buffers(),
+        () if model.fsdp_serve is None else model.fsdp_serve.views)}
     twin = copy.deepcopy(model, memo)
     for module in twin.modules():
         if hasattr(module, "config"):

@@ -22,7 +22,10 @@ Under tensor parallelism a rank quantizes its own shard.  A row of a
 column-parallel weight is whole on its rank; a row of a row-parallel one
 (``wo``, ``w2``: input dim on 'tp') is cut over the ranks, so its amax is
 the maximum over the tp group: every rank then holds the one-card int8
-values and scales of its part.
+values and scales of its part.  A serving model over fsdp
+(``parallel/fsdp_serve.py``) is quantized one unit at a time: the unit's
+tp shard gathered over fsdp, quantized as above, and cut flat again, so
+a rank never holds more than one unit whole.
 """
 
 from __future__ import annotations
@@ -115,7 +118,16 @@ def quantize_model(model):
     qcfg = dataclasses.replace(model.config, weight_dtype="int8")
     qmodel = LlamaModel(qcfg, device=model.device,
                         store_dtype=model.tok_embeddings.weight.dtype,
-                        mesh=model.mesh)
-    qmodel.load_state_dict(quantize_params(model.state_dict(), qcfg,
-                                           model.tp))
+                        mesh=model.mesh, serving=model.fsdp_serve is not None)
+    fs = model.fsdp_serve
+    if fs is None:
+        qmodel.load_state_dict(quantize_params(model.state_dict(), qcfg,
+                                               model.tp))
+        return qmodel.eval()
+    for name, p in model.named_parameters():        # the norm scales
+        qmodel.get_parameter(name).copy_(p)
+    for unit in fs.order:
+        for name, t in quantize_params(fs.gathered(unit), qcfg,
+                                       model.tp).items():
+            qmodel.fsdp_serve.place(name, t)
     return qmodel.eval()

@@ -67,6 +67,9 @@ drops it.  The kept assignments of an expert are the first of the
 rank's own, so they take the first slots of a local buffer of min(C, T)
 slots (T the rank's tokens): a rank's memory and expert products stop
 growing with the number of batch and sequence ranks once C passes T.
+A serving model (``batch_replicated``) holds the same batch on every
+fsdp rank, so its capacity counts one copy of the tokens, as on one
+card.
 """
 
 from __future__ import annotations
@@ -95,8 +98,9 @@ class MoEMLP(nn.Module):
     'ep'; so does this one: a mesh's pp axis changes nothing (a pipeline
     stage builds its layers without a mesh, so each counts its capacity
     over the rows of one microbatch of its batch shard, as the JAX
-    stages inside ``shard_map`` do).  An object that is not a mesh
-    raises TypeError."""
+    stages inside ``shard_map`` do).  ``batch_replicated``: the batch is
+    the same on every fsdp rank (a serving model), so fsdp does not shard
+    the tokens.  An object that is not a mesh raises TypeError."""
 
     # Token-chunk size of drop-free dispatch (the JAX NO_DROP_CHUNK): the
     # [T, E, C] one-hots stay linear in T instead of [T, E, T].
@@ -105,14 +109,16 @@ class MoEMLP(nn.Module):
     def __init__(self, dim: int, ffn_dim: int, n_experts: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  dtype=torch.bfloat16, store_dtype=None,
-                 param_dtype=torch.float32, mesh=None, device=None):
+                 param_dtype=torch.float32, mesh=None, device=None,
+                 batch_replicated: bool = False):
         super().__init__()
         self.tp = tp = TensorParallel.of(mesh)
         self.ep = ep = ExpertParallel.of(mesh)
         # The axes that shard the tokens: the columns over sp, the rows
         # over fsdp inside dp.
         self.token_shards = (SequenceParallel.of(mesh),
-                             TensorParallel.of(mesh, "fsdp"),
+                             TensorParallel.of(None if batch_replicated
+                                               else mesh, "fsdp"),
                              TensorParallel.of(mesh, "dp"))
         if ffn_dim % tp.size:
             raise ValueError(f"ffn_dim {ffn_dim} not divisible by "

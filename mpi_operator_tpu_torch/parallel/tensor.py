@@ -48,17 +48,19 @@ def axis_sizes(mesh) -> dict:
     return dict(zip(AXIS_NAMES, tuple(mesh.shape)))
 
 
-def refuse_axes(mesh, what: str, allowed=AXIS_NAMES) -> dict:
+def refuse_axes(mesh, what: str, allowed=AXIS_NAMES,
+                entry: str = "") -> dict:
     """The mesh's axis sizes; NotImplementedError naming the ROADMAP
-    item (queue 1 item 3) of any axis above 1 that ``what`` does not
-    take."""
+    item (queue 1 item 3, and its ``entry`` when given: "3.5" for a
+    serving mesh) of any axis above 1 that ``what`` does not take."""
     sizes = axis_sizes(mesh)
+    where = f"entry {entry}: " if entry else ""
     for axis, n in sizes.items():
         if n > 1 and axis not in allowed:
             raise NotImplementedError(
                 f"{what} over a mesh with {axis}={n} is not ported yet: "
                 f"ROADMAP.md queue 1 item 3 (multi-GPU parallelism, "
-                f"'{axis}' in {what})")
+                f"{where}'{axis}' in {what})")
     return sizes
 
 

@@ -59,16 +59,19 @@ a causal-trace context emits its ``serve_queue_wait`` and ``prefill``
 spans at its first token, and a fatal scheduler error leaves a
 ``batcher-fatal`` flight bundle behind.
 
-Tensor-parallel serving (``mirror``: a ``serving/mirror.TickMirror``,
-the model a tp shard): every rank of the tp group runs this batcher over
-its shard of the model and of the KV pool, and each scheduler turn
-starts with one exchange of host records: rank 0's queue drained into
-the turn's admissions, its cancellations and stop, every rank's health.
-Every branch of the loop then reads only agreed state (``_cancelled``,
-the admission queue of the turn), so every rank runs the same prefills,
-installs, retirements and decode steps.  The followers take no requests
-of their own; a slot-local admission error is fatal under tp (it may
-have happened on one rank only).
+Serving across cards (``mirror``: a ``serving/mirror.TickMirror`` over
+every rank of the serving mesh, fsdp x tp; the model this rank's shard):
+every rank runs this batcher over its shard of the model and of the KV
+pool (KV heads are cut over tp only: the fsdp ranks of a tp rank hold the
+same pool), and each scheduler turn starts with one exchange of host
+records: the leader's (mesh rank 0's) queue drained into the turn's
+admissions, its cancellations and stop, every rank's health.  Every
+branch of the loop then reads only agreed state (``_cancelled``, the
+admission queue of the turn), so every rank runs the same prefills,
+installs, retirements and decode steps, and so the same tp all-reduces
+and fsdp gathers.  A group of two or more ranks always has a mirror.
+The followers take no requests of their own; a slot-local admission
+error is fatal in a group (it may have happened on one rank only).
 
 KV pages under tp carry every head, in the JAX wire's layout (the JAX
 batcher exports its pool's global arrays): rank r's pool holds the
@@ -84,7 +87,9 @@ communicator.  An export gathers each rank's rows of a wave to rank 0,
 which joins them on the heads axis; an import scatters each rank's head
 chunk of a wave from rank 0, which alone holds the decoded pages
 ((tp-1)/tp of a wave's bytes leave it).  A failure there is fatal to the
-batcher and, through the mirror, to the group.
+batcher and, through the mirror, to the group.  Page operations at
+fsdp > 1 raise NotImplementedError (ROADMAP.md queue 1 item 3.5: the
+disaggregated roles at fsdp > 1).
 """
 
 from __future__ import annotations
@@ -299,6 +304,13 @@ def _slot_seed(seed: int, prompt_len: int) -> int:
     return (int(seed) * 0x9E3779B97F4A7C15 + prompt_len) % (1 << 63)
 
 
+def _fsdp_size(model) -> int:
+    """The fsdp ranks a serving model's weights are cut over (1 unless
+    ``model.fsdp_serve``)."""
+    fs = getattr(model, "fsdp_serve", None)
+    return 1 if fs is None else fs.par.size
+
+
 class ContinuousBatcher:
     """Continuous-batching scheduler over ``model``'s decode path; each
     slot carries its own (temperature, top_p, top_k, generator) so
@@ -320,12 +332,17 @@ class ContinuousBatcher:
         cfg = model.config
         self._mirror = mirror
         self._tp = model.tp.size
-        if self._tp > 1 and mirror is None:
-            raise ValueError("a tensor-parallel model needs the tick "
-                             "mirror of its group (InferenceServer(mesh=))")
-        if draft_model is not None and draft_model.tp.size != self._tp:
-            raise ValueError(f"draft model holds tp={draft_model.tp.size} "
-                             f"shards, the target tp={self._tp}")
+        self._fsdp = _fsdp_size(model)
+        if self._tp * self._fsdp > 1 and mirror is None:
+            raise ValueError("a model served over several cards needs the "
+                             "tick mirror of its group "
+                             "(InferenceServer(mesh=))")
+        if draft_model is not None and (
+                draft_model.tp.size, _fsdp_size(draft_model)) != (
+                    self._tp, self._fsdp):
+            raise ValueError(f"draft model holds tp={draft_model.tp.size}, "
+                             f"fsdp={_fsdp_size(draft_model)} shards, the "
+                             f"target tp={self._tp}, fsdp={self._fsdp}")
         # Tensor-parallel serving: requests agreed for admission, and
         # every agreed request not finished yet, by id.
         self._admit: deque = deque()
@@ -752,6 +769,7 @@ class ContinuousBatcher:
             raise ValueError(
                 "export_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
+        self._refuse_pages_over_fsdp("export")
         if self._mirror is None:
             return self._export_waves(self._export_entries(digests))
         result: dict = {"pages": None}
@@ -809,11 +827,19 @@ class ContinuousBatcher:
             raise ValueError(
                 "import_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
+        self._refuse_pages_over_fsdp("import")
         staged = [(_page_header(page), page.get("leaves", {}))
                   for page in pages]
         result = {"imported": 0, "deduped": 0, "rejected": 0}
         self._request_page_op("import", staged, result, timeout)
         return result
+
+    def _refuse_pages_over_fsdp(self, kind: str) -> None:
+        if self._fsdp > 1:
+            raise NotImplementedError(
+                f"KV-page {kind} at fsdp={self._fsdp} is not ported yet: "
+                f"ROADMAP.md queue 1 item 3.5 (the disaggregated roles at "
+                f"fsdp > 1)")
 
     def _request_page_op(self, kind: str, payload, result: dict,
                          timeout: float) -> None:
@@ -822,7 +848,7 @@ class ContinuousBatcher:
         record and every rank ran it)."""
         if self._mirror is not None and not self._mirror.leader:
             raise RuntimeError(
-                f"tensor-parallel rank {self._mirror.tp.rank} runs no "
+                f"serving rank {self._mirror.rank} runs no "
                 f"KV-page {kind} of its own: rank 0 of the group queues "
                 f"them")
         if self._stop.is_set():
@@ -1294,7 +1320,7 @@ class ContinuousBatcher:
                  trace_ctx=None) -> _Request:
         if self._mirror is not None and not self._mirror.leader:
             raise RuntimeError(
-                f"tensor-parallel rank {self._mirror.tp.rank} takes no "
+                f"serving rank {self._mirror.rank} takes no "
                 f"requests: rank 0 of the group admits them")
         headroom = self._headroom(float(temperature))
         if len(tokens) + max_new_tokens + headroom > self._max_seq_len:

@@ -1,9 +1,11 @@
-"""Lock-step ticks for tensor-parallel serving.
+"""Lock-step ticks for serving across cards.
 
 The JAX server has one controller; the port has one process per card,
-and every rank of the tp group must run the same forwards in the same
-order, or their collectives pair up wrongly.  So every rank runs the
-same ``ContinuousBatcher`` over its shard, rank 0 alone takes requests
+and every rank of the serving group (every rank of the serving mesh:
+fsdp x tp) must run the same forwards in the same order, or their
+collectives (the tp all-reduces, the fsdp gathers) pair up wrongly.  So
+every rank runs the same ``ContinuousBatcher`` over its shard, mesh rank
+0 alone takes requests
 (its HTTP front end and queue), and at the top of each scheduler turn
 the ranks exchange one record over a gloo group of host objects
 (:meth:`TickMirror.exchange`): rank 0's decisions that depend on time or
@@ -20,7 +22,8 @@ KV-page operations (disaggregated serving) ride the same record as
 headers only: rank 0's queued exports (the chain digests asked for) and
 imports (each page's digest, parent, tokens and leaf shapes), never the
 leaf bytes, which move afterwards over the tp group's device
-communicator (``serving/batcher.py``).  Every rank stages the same
+communicator (``serving/batcher.py``; at tp only: page operations refuse
+fsdp > 1).  Every rank stages the same
 verdicts from the same state; :meth:`TickMirror.agree` holds that
 before a byte moves, and a rank whose verdicts differ from rank 0's
 stops every rank with :class:`TPPeerError`.
@@ -48,21 +51,30 @@ _MOD = (1 << 61) - 1
 
 
 class TPPeerError(RuntimeError):
-    """Another rank of the tensor-parallel group failed or diverged."""
+    """Another rank of the serving group failed or diverged."""
+
+
+def serving_ranks(mesh) -> list:
+    """The global ranks of a serving mesh, in mesh order (its rank 0
+    leads)."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
 
 
 class TickMirror:
-    """The host side of one tensor-parallel serving group: a gloo group
-    over the tp ranks, this rank's role and its health record."""
+    """The host side of one serving group: a gloo group over its ranks
+    (global ranks, the leader first: ``serving_ranks(mesh)``), this
+    rank's role and its health record."""
 
-    def __init__(self, tp, timeout_s: float = 120.0):
-        self.tp = tp
-        self.leader = tp.rank == 0
+    def __init__(self, ranks, timeout_s: float = 120.0):
+        self.ranks = list(ranks)
+        self.rank = self.ranks.index(dist.get_rank())
+        self.size = len(self.ranks)
+        self.leader = self.rank == 0
         # Only the group's own ranks take part: a world may hold several
-        # tp groups (a prefill replica and a decode replica) whose ranks
-        # build their servers independently.
+        # serving groups (a prefill replica and a decode replica) whose
+        # ranks build their servers independently.
         self.group = dist.new_group(
-            ranks=dist.get_process_group_ranks(tp.group), backend="gloo",
+            ranks=sorted(self.ranks), backend="gloo",
             timeout=datetime.timedelta(seconds=timeout_s),
             use_local_synchronization=True)
         self.turns = 0
@@ -91,7 +103,7 @@ class TickMirror:
         health = [(r["turn"], r.get("ticks"), r.get("sum")) for r in records]
         if len(set(health)) > 1:
             raise TPPeerError(
-                f"tensor-parallel ranks diverged (turn, decode steps, "
+                f"serving ranks diverged (turn, decode steps, "
                 f"token checksum per rank): {health}")
         return records[0]["decisions"]
 
@@ -104,19 +116,22 @@ class TickMirror:
         theirs = [r.get("verdicts") for r in records]
         if any(v != theirs[0] for v in theirs):
             raise TPPeerError(
-                f"tensor-parallel ranks staged different verdicts for a "
+                f"serving ranks staged different verdicts for a "
                 f"KV-page {what} (per rank): {theirs}")
 
     def _gather(self, mine: dict) -> list:
         """Every rank's record; TPPeerError when another rank sent the
         error that stopped it."""
-        records = [None] * self.tp.size
+        gathered = [None] * self.size
         t0 = time.perf_counter()
-        dist.all_gather_object(records, mine, group=self.group)
+        dist.all_gather_object(gathered, mine, group=self.group)
         self.seconds += time.perf_counter() - t0
+        # In the group's rank order; the leader's record first.
+        order = sorted(self.ranks)
+        records = [gathered[order.index(r)] for r in self.ranks]
         for rank, rec in enumerate(records):
-            if rec["fatal"] is not None and rank != self.tp.rank:
-                raise TPPeerError(f"tensor-parallel rank {rank} failed: "
+            if rec["fatal"] is not None and rank != self.rank:
+                raise TPPeerError(f"serving rank {rank} failed: "
                                   f"{rec['fatal']}")
         return records
 

@@ -37,20 +37,25 @@ The card is a serial resource behind one device lock shared with the
 batcher.  ``role`` ("unified", "prefill" or "decode") only changes what
 the replica advertises at /fleet-state: either role serves either verb.
 
-Tensor-parallel serving (``mesh=``: a ``parallel.mesh`` mesh whose only
-axis above 1 is ``tp``, one process per card, every rank constructing
-the server): the model is this rank's tp shard (a whole model is cut
-here, by ``llama_param_specs``, as the JAX server places its params),
-the paged pool holds this rank's KV heads, and K4' runs on them.  Every
-rank runs the continuous batcher in lock-step (``serving/mirror.py``);
+Serving over a mesh (``mesh=``: a ``parallel.mesh`` mesh whose axes
+above 1 are ``tp`` and ``fsdp``, one process per card, every rank
+constructing the server): the model is this rank's shard, its tp shard
+cut again over fsdp, each block gathered over fsdp just before it runs
+(``parallel/fsdp_serve.py``; a whole model, or one that holds its tp
+shards whole, is cut here, by ``llama_param_specs``, as the JAX server
+places its params).  The paged pool holds this rank's KV heads (cut over
+tp only), and K4' runs on them on every rank.  Every rank of the mesh
+runs the continuous batcher in lock-step (``serving/mirror.py``); mesh
 rank 0 alone binds the HTTP front end and takes requests, the others
-serve until rank 0 stops (``join()``).  It needs the batcher (multi-row
-requests are served row by row through it).  Either role works under tp:
-rank 0 alone runs /prefill, /kv/pages and /fleet-state, and a page it
-exports or imports carries every KV head (the JAX wire's layout; the
+serve until it stops (``join()``).  It needs the batcher (multi-row
+requests are served row by row through it).  Either role works under
+tp: rank 0 alone runs /prefill, /kv/pages and /fleet-state, and a page
+it exports or imports carries every KV head (the JAX wire's layout; the
 ranks move their head chunks in lock-step, ``serving/batcher.py``), so a
 tp replica hands pages to a replica of any tp, the JAX package's
-included.  dp, fsdp, sp and ep in a serving mesh are not ported.
+included.  Not ported yet (NotImplementedError, ROADMAP.md queue 1 item
+3, entry 3.5): dp, sp and ep in a serving mesh, and the disaggregated
+roles at fsdp > 1.
 """
 
 from __future__ import annotations
@@ -287,13 +292,21 @@ class InferenceServer:
                 f"role={role!r} (disaggregated serving) requires a "
                 f"paged KV cache (kv_page_size > 0); unpaged replicas "
                 f"can only serve unified")
-        tp = None
+        tp = fsdp = None
         if mesh is not None:
             from ..parallel.tensor import TensorParallel, refuse_axes
-            refuse_axes(mesh, "InferenceServer", allowed=("tp",))
+            sizes = refuse_axes(mesh, "InferenceServer",
+                                allowed=("tp", "fsdp"), entry="3.5")
+            if sizes["fsdp"] > 1 and role != "unified":
+                raise NotImplementedError(
+                    f"role={role!r} at fsdp={sizes['fsdp']} is not ported "
+                    f"yet: ROADMAP.md queue 1 item 3 (multi-GPU "
+                    f"parallelism, entry 3.5: the disaggregated roles at "
+                    f"fsdp > 1)")
             tp = TensorParallel.of(mesh)
+            fsdp = sizes["fsdp"]
             if max_batch_slots <= 0:
-                raise ValueError("tensor-parallel serving runs through the "
+                raise ValueError("serving over a mesh runs through the "
                                  "continuous batcher (max_batch_slots > 0)")
         if weight_dtype not in ("auto", "int8"):
             raise ValueError(f"weight_dtype must be 'auto' or 'int8', "
@@ -321,8 +334,9 @@ class InferenceServer:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, server on "
                              f"{self.device}")
-        if tp is not None and model.tp.size != tp.size:
-            if model.tp.size != 1:
+        if tp is not None and (model.tp.size != tp.size or (
+                fsdp > 1 and model.fsdp_serve is None)):
+            if model.tp.size not in (1, tp.size):
                 raise ValueError(f"model holds tp={model.tp.size} shards, "
                                  f"the mesh has tp={tp.size}")
             # The caller's whole model stays theirs to drop.
@@ -354,9 +368,10 @@ class InferenceServer:
         flight.default_recorder()
         self._batcher = None
         self.mirror = None
-        if tp is not None and tp.size > 1:
-            from .mirror import TickMirror
-            self.mirror = TickMirror(tp, timeout_s=tp_timeout_s)
+        if tp is not None and tp.size * fsdp > 1:
+            from .mirror import TickMirror, serving_ranks
+            self.mirror = TickMirror(serving_ranks(mesh),
+                                     timeout_s=tp_timeout_s)
         if max_batch_slots > 0:
             from .batcher import ContinuousBatcher
             self._batcher = ContinuousBatcher(
@@ -379,7 +394,7 @@ class InferenceServer:
     @property
     def is_leader(self) -> bool:
         """Whether this rank takes requests: always, but for the ranks
-        past 0 of a tensor-parallel group."""
+        past 0 of a serving group (fsdp x tp)."""
         return self.mirror is None or self.mirror.leader
 
     # -- inference ---------------------------------------------------------
@@ -411,7 +426,7 @@ class InferenceServer:
                 top_p=top_p, seed=seed, stop_tokens=stop_tokens,
                 top_k=top_k, trace_ctx=trace_ctx)]
         if self.mirror is not None:
-            # Tensor parallel: every forward must run on every rank, so
+            # A serving group: every forward must run on every rank, so
             # the rows go through the batcher, each in its own slot, and
             # come back in generate()'s shape (rows past their stop
             # token repeat it up to the longest).
@@ -592,14 +607,14 @@ class InferenceServer:
         return self
 
     def join(self, timeout: Optional[float] = None) -> None:
-        """A tensor-parallel follower serves until rank 0 stops the group:
+        """A follower of a serving group serves until rank 0 stops the group:
         wait for that (or ``timeout`` seconds); raise the error that
         stopped it, if one did."""
         if self._batcher is not None:
             self._batcher.join(timeout)
 
     def stop(self) -> None:
-        """Stop serving.  On rank 0 of a tensor-parallel group this stops
+        """Stop serving.  On rank 0 of a serving group this stops
         every rank (at their next turn); on the others it waits for
         that."""
         if self._batcher is not None:
@@ -619,6 +634,6 @@ class InferenceServer:
     @property
     def url(self) -> str:
         if self._http is None:
-            raise RuntimeError(f"tensor-parallel rank {self.mirror.tp.rank} "
+            raise RuntimeError(f"serving rank {self.mirror.rank} "
                                f"serves no HTTP: rank 0 does")
         return f"http://127.0.0.1:{self.port}"

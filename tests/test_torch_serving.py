@@ -325,13 +325,13 @@ def test_entry_points_default_to_the_card(weights):
 
 
 def test_out_of_slice_options_raise(weights):
-    """A serving mesh takes tp alone (tests/test_torch_tensor_parallel.py):
-    fsdp or sp in it still raise, and anything but a DeviceMesh is
+    """A serving mesh takes tp and fsdp (tests/test_torch_tensor_parallel.py):
+    dp or sp in it still raise, and anything but a DeviceMesh is
     refused; a disaggregated role needs the paged cache, as in the JAX
     server, and /kv/pages answers 400 on an unpaged replica."""
     from mpi_operator_tpu_torch.parallel.mesh import AXIS_NAMES
     _, _, tm = weights
-    for shape in ((1, 2, 1, 1, 1, 1), (1, 1, 1, 1, 1, 2)):
+    for shape in ((2, 1, 1, 1, 1, 1), (1, 1, 1, 1, 1, 2)):
         with pytest.raises(NotImplementedError, match="queue 1 item 3"):
             InferenceServer(tm, device="cpu", mesh=types.SimpleNamespace(
                 mesh_dim_names=AXIS_NAMES, shape=shape))

@@ -14,10 +14,17 @@ joined with a deadline.  Held:
   cut up;
 - (ii) logits of ``llama2_tiny`` f32, a GQA variant (2 KV heads) and
   ``mixtral_tiny`` at tp = 2 against the JAX ``LlamaModel.apply``;
-- (iii) ``InferenceServer(mesh=)`` (paged pool, 4 slots) at tp = 2 and 4:
-  greedy tokens equal the JAX ``InferenceServer(mesh=MeshConfig(tp=2,
-  fsdp=2))`` on tests/test_serving.py's prompts, concurrent == alone,
-  sampled streams seed-determined and independent of their neighbours;
+- (iii) ``InferenceServer(mesh=)`` (paged pool, 4 slots) at tp = 2 and 4,
+  and with the weights cut over fsdp too (``parallel/fsdp_serve.py``) at
+  fsdp = 2 x tp = 2 and fsdp = 2: greedy tokens equal the JAX
+  ``InferenceServer(mesh=MeshConfig(tp=2, fsdp=2))`` on
+  tests/test_serving.py's prompts, concurrent == alone, sampled streams
+  seed-determined and independent of their neighbours; ``mixtral_tiny``
+  at fsdp = 2 equals the JAX server at fsdp = 2 (and its no-cache logits,
+  capacity drops included, the JAX forward's); int8 weights (the JAX
+  int8 server's tokens on the same mesh), chunked prefill and
+  speculation at fsdp x tp; each rank holds only its part of
+  every matmul weight, int8 weights and scales included;
 - (iv) three AdamW steps at tp = 2 and at fsdp = 2 x tp = 2 against the
   JAX step on the same mesh (loss, grad_norm, parameters at
   ``STEP_TOL``), the vocab-parallel fused loss against the unsharded
@@ -26,10 +33,11 @@ joined with a deadline.  Held:
 - (v) what still raises: pp (sp and ep are ported: their parity is in
   tests/test_torch_ring_attention.py and
   tests/test_torch_expert_parallel.py), a KV-head count tp does not
-  divide, fsdp in a serving mesh (the disaggregated roles under tp are
-  served in tests/test_torch_kv_transfer_tp.py);
-- (vi) a follower that misses a turn, and a rank that raises, end every
-  rank with an error within the deadline.
+  divide, a model dim fsdp does not divide, dp, sp and ep in a serving
+  mesh and the disaggregated roles at fsdp > 1 (under tp they are served
+  in tests/test_torch_kv_transfer_tp.py);
+- (vi) a follower that misses a turn (at tp = 2 and at fsdp = 2), and a
+  rank that raises, end every rank with an error within the deadline.
 """
 
 import os
@@ -55,6 +63,7 @@ from mpi_operator_tpu_torch.models.params import (from_flax_params,
                                                   shard_state_dict)
 from mpi_operator_tpu_torch.parallel import mesh as tmesh
 from mpi_operator_tpu_torch.parallel import train as ttrain
+from mpi_operator_tpu_torch.parallel.fsdp_serve import flat_shards, layout_of
 from mpi_operator_tpu_torch.parallel.tensor import TensorParallel
 from test_torch_distributed import (LR, REPO, TRAIN_EXAMPLE, WORKER,
                                     _smallest_grads, _tokens,
@@ -62,6 +71,7 @@ from test_torch_distributed import (LR, REPO, TRAIN_EXAMPLE, WORKER,
                                     assert_params_close, join, launch)
 
 LOGIT_TOL = 1e-4                       # f32 model logits (parity rules)
+PROMPTS = [[1, 2, 3, 4, 5], [9, 8, 7]]     # tests/test_serving.py:133
 FAULT_DEADLINE_S = 90
 MODELS = {"dense": ("llama2_tiny", {}),
           "gqa": ("llama2_tiny", {"n_kv_heads": 2}),
@@ -158,7 +168,7 @@ def runs(tmp_path_factory):
                out / "inputs.pt")
     jobs = {name: _start(out, name, world) for name, world in (
         ("tp_world2", 2), ("tp_world4", 4), ("tp_fault_skip", 2),
-        ("tp_fault_raise", 2))}
+        ("tp_fault_raise", 2), ("fsdp_fault_skip", 2))}
     model, variables = jax_models["dense"]
     refs = {
         "logits": {name: np.asarray(m.apply(v, jnp.asarray(_tokens())))
@@ -166,7 +176,16 @@ def runs(tmp_path_factory):
         "serving": JaxServer(model, variables, mesh=jmesh.create_mesh(
             jmesh.MeshConfig(dp=1, tp=2, fsdp=2),
             devices=jax.devices()[:4])).generate(
-                [[1, 2, 3, 4, 5], [9, 8, 7]], max_new_tokens=5),
+                PROMPTS, max_new_tokens=5),
+        "serving_int8": JaxServer(
+            model, variables, weight_dtype="int8",
+            mesh=jmesh.create_mesh(jmesh.MeshConfig(dp=1, tp=2, fsdp=2),
+                                   devices=jax.devices()[:4])).generate(
+                PROMPTS, max_new_tokens=5),
+        "serving_moe_fsdp2": JaxServer(*jax_models["moe"],
+                                       mesh=jmesh.create_mesh(
+            jmesh.MeshConfig(dp=1, fsdp=2),
+            devices=jax.devices()[:2])).generate(PROMPTS, max_new_tokens=5),
         "tp2": _jax_steps(model, variables, {"dp": 1, "tp": 2}, 2),
         "fsdp2tp2": _jax_steps(model, variables,
                                {"dp": 1, "fsdp": 2, "tp": 2}, 4),
@@ -175,7 +194,7 @@ def runs(tmp_path_factory):
         "weights": weights,
     }
     for name, (world, job_dir, t0, procs) in jobs.items():
-        if name.startswith("tp_fault"):
+        if name.endswith(("fault_skip", "fault_raise")):
             refs[name] = _join_failing(procs, str(job_dir), t0)
         else:
             join(procs, str(job_dir))
@@ -231,6 +250,22 @@ def test_init_params_under_tp_is_the_one_card_model_cut(runs):
             assert torch.equal(got[name], piece.detach()), name
 
 
+def test_init_params_under_fsdp_serving_is_the_one_card_model_cut(runs):
+    """At fsdp = 2 x tp = 2 each rank's state dict is the one-card
+    weights at the seed cut over tp, then flat over fsdp (rank = fsdp
+    index * 2 + tp index)."""
+    cfg = tl.llama2_tiny()
+    full = init_params(cfg, torch.Generator().manual_seed(7),
+                       device="cpu").state_dict()
+    for r, rank_result in enumerate(runs["tp_world4"]):
+        want = shard_state_dict(full, cfg, TensorParallel(2, r % 2),
+                                fsdp=TensorParallel(2, r // 2))
+        got = rank_result["fsdp_init"]
+        assert set(got) == set(want)
+        for name, value in want.items():
+            assert torch.equal(got[name], value), name
+
+
 # -- (ii) logits ------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -265,6 +300,176 @@ def test_tp_server_takes_int8_chunked_prefill_and_speculation(runs):
     assert all(r["extras"]["int8_equal"] for r in runs["tp_world2"])
     assert extras["chunked_spec"] == runs["serving"]
     assert extras["spec_stats"]["spec_ticks"] > 0
+
+
+# -- (iii) serving with the weights cut over fsdp -------------------------
+
+FSDP_SERVING = [("tp_world4", "fsdp_tp_serving", 2), ("tp_world2",
+                                                      "fsdp_serving", 1)]
+
+
+@pytest.mark.parametrize("job,key,tp", FSDP_SERVING)
+def test_fsdp_server_greedy_tokens_match_the_jax_server(runs, job, key, tp):
+    """fsdp = 2 x tp = 2 and fsdp = 2 (tp = 1): every rank runs every
+    forward, the pool cut over tp only."""
+    serving = runs[job][0][key]
+    assert serving["single"] == runs["serving"]
+    assert serving["multi"] == runs["serving"]
+    assert serving["concurrent"] == serving["alone"]
+    for rank_result in runs[job]:
+        assert rank_result[key]["pool_heads"] == 4 // tp
+
+
+@pytest.mark.parametrize("job,key,tp", FSDP_SERVING)
+def test_fsdp_server_sampled_streams_follow_the_parity_rules(runs, job, key,
+                                                             tp):
+    serving = runs[job][0][key]
+    first, again = serving["sampled"]
+    assert len(first) == 8 and first == again
+    assert serving["sampled_beside"] == first
+    if tp == 2:
+        # The gather is exact: fsdp x tp computes tp = 2's logits bit for
+        # bit, so one seed gives tp = 2's stream.
+        assert first == runs["tp_world2"][0]["serving"]["sampled"][0]
+
+
+def _whole_from_ranks(ranks, cfg, fsdp, tp, key="state"):
+    """The one-card state dict joined from every rank's own tensors:
+    the fsdp ranks' flat shards of a unit laid end to end, cut back into
+    tensors by the layout, then the tp chunks joined (rank = fsdp index
+    * tp + tp index, the mesh's layout)."""
+    first = ranks[0][key]
+    whole = {}
+    for t in range(tp):
+        states = [ranks[f * tp + t][key] for f in range(fsdp)]
+        flat = {k: torch.cat([st[k] for st in states])
+                for k in first if ".flat_" in k}
+        layout = layout_of(shard_state_dict(_meta_state(cfg), cfg,
+                                            TensorParallel(tp, t)),
+                           cfg, fsdp)
+        part = {k: v for k, v in states[0].items() if ".flat_" not in k}
+        for (unit, dtype), (_, items) in layout.runs.items():
+            run = flat[f"{unit}.flat_{str(dtype).rsplit('.', 1)[-1]}"]
+            for name, shape, off in items:
+                n = int(np.prod(shape))
+                part[name] = run[off:off + n].reshape(shape)
+        for name, value in part.items():
+            whole.setdefault(name, []).append(value)
+    specs = tl.llama_param_specs(cfg)
+    return {name: parts[0] if len(parts) == 1 or "tp" not in specs[name]
+            else torch.cat(parts, dim=specs[name].index("tp"))
+            for name, parts in whole.items()}
+
+
+def _meta_state(cfg):
+    """The one-card state dict of ``cfg`` on the meta device: the names,
+    shapes and dtypes a layout is made of."""
+    return tl.LlamaModel(cfg, device="meta").state_dict()
+
+
+@pytest.mark.parametrize("job,key,tp", FSDP_SERVING)
+def test_fsdp_ranks_hold_only_their_part_of_every_matmul_weight(runs, job,
+                                                                key, tp):
+    """From each rank's own tensors: the flat shards of all ranks join
+    into the one-card state dict, no rank registers a tensor of a matmul
+    weight's shape (its tp shard or the whole), and a rank's shards are
+    1/(fsdp x tp) of the matmul bytes (padding aside); at fsdp x tp the
+    int8 weights and their scales too."""
+    from mpi_operator_tpu_torch.models.quant import quantize_params
+    cfg = tl.llama2_tiny()
+    full = runs["weights"]["dense"][2]
+    ranks = [r[key]["holdings"] for r in runs[job]]
+    cases = [(cfg, full, ranks)]
+    if job == "tp_world4":
+        qcfg = tl.llama2_tiny(weight_dtype="int8")
+        cases.append((qcfg, quantize_params(full, qcfg), [
+            r["fsdp_tp_extras"]["int8_holdings"] for r in runs[job]]))
+    specs = tl.llama_param_specs(cfg)
+    matmul = {k for k, spec in specs.items() if any(spec)}
+    for c, want, held in cases:
+        got = _whole_from_ranks(held, c, 2, tp)
+        assert set(got) == set(want)
+        for name, value in want.items():
+            assert torch.equal(got[name], value), name
+        cut = {k for k in want if k in matmul or k.endswith(".scale")
+               and k.rsplit(".", 2)[-2] not in ("attention_norm",
+                                                "ffn_norm", "norm")}
+        shapes = {tuple(want[k].shape) for k in cut
+                  if want[k].dim() > 1} | {
+            tuple(v.shape) for v in shard_state_dict(
+                want, c, TensorParallel(tp, 0)).values() if v.dim() > 1}
+        world = 2 * tp
+        per_rank = sum(want[k].numel() * want[k].element_size()
+                       for k in cut) / world
+        for rank in held:
+            assert not cut & set(rank["shapes"])
+            assert not {s for n, s in rank["shapes"].items()
+                        if ".flat_" not in n} & shapes
+            mine = sum(v.numel() * v.element_size()
+                       for k, v in rank["state"].items() if ".flat_" in k)
+            assert per_rank <= mine < per_rank + 4096, (mine, per_rank)
+
+
+def test_fsdp_server_cuts_a_whole_model_itself(runs):
+    assert runs["tp_world4"][0]["fsdp_tp_whole"] == runs["serving"]
+
+
+def test_fsdp_tp_server_takes_int8_chunked_prefill_and_speculation(runs):
+    extras = runs["tp_world4"][0]["fsdp_tp_extras"]
+    assert all(r["fsdp_tp_extras"]["int8_equal"] for r in runs["tp_world4"])
+    assert extras["chunked_spec"] == runs["serving"]
+    assert extras["self_draft"] == runs["serving"]
+    assert extras["chunked_spec_stats"]["spec_ticks"] > 0
+    assert extras["self_draft_stats"]["spec_ticks"] > 0
+    # int8 weights read through the gather buffers: the JAX int8 server's
+    # tokens on the same mesh.
+    assert extras["int8"] == runs["serving_int8"]
+
+
+def test_mixtral_at_fsdp2_matches_the_jax_server(runs):
+    """mixtral_tiny served at fsdp = 2: greedy tokens equal the JAX
+    server's on a mesh of two CPU devices, and the no-cache forward (the
+    capacity path) equals the JAX forward's logits: capacity counts one
+    copy of the batch, as on one card."""
+    for rank_result in runs["tp_world2"]:
+        moe = rank_result["fsdp_moe"]
+        np.testing.assert_allclose(moe["logits"].numpy(),
+                                   runs["logits"]["moe"], atol=LOGIT_TOL,
+                                   rtol=LOGIT_TOL)
+    assert runs["tp_world2"][0]["fsdp_moe"]["single"] == \
+        runs["serving_moe_fsdp2"]
+
+
+def test_flat_shards_partition_each_unit():
+    """The fsdp cut is flat: the ranks' shards of a unit, laid end to
+    end, are its cut tensors laid end to end (padded), for dense and
+    MoE models, f32, bf16 and int8 (weights and scales)."""
+    from mpi_operator_tpu_torch.models.quant import quantize_params
+    for cfg in (tl.llama2_tiny(), tl.mixtral_tiny(dtype=torch.bfloat16),
+                tl.llama2_tiny(n_kv_heads=2, n_layers=1)):
+        model = init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+        states = [(cfg, model.state_dict())]
+        if cfg.n_experts == 0:
+            qcfg = tl.llama2_tiny(weight_dtype="int8",
+                                  n_kv_heads=cfg.n_kv_heads,
+                                  n_layers=cfg.n_layers)
+            states.append((qcfg, quantize_params(model.state_dict(), qcfg)))
+        for c, state in states:
+            for n in (2, 3):
+                parts = [flat_shards(state, c, TensorParallel(n, r))
+                         for r in range(n)]
+                layout = layout_of(state, c, n)
+                assert {k for k in state if k not in layout.where} | {
+                    k for k in parts[0] if ".flat_" in k} == set(parts[0])
+                for (unit, dtype), (total, items) in layout.runs.items():
+                    key = f"{unit}.flat_{str(dtype).rsplit('.', 1)[-1]}"
+                    joined = torch.cat([p[key] for p in parts])
+                    assert joined.numel() == total and joined.dtype == dtype
+                    want = torch.cat([state[name].reshape(-1)
+                                      for name, _, _ in items])
+                    assert torch.equal(joined[:want.numel()], want)
+                    assert not joined[want.numel():].any()
 
 
 def test_tp_server_sampled_streams_follow_the_parity_rules(runs):
@@ -368,21 +573,45 @@ def test_kv_heads_tp_and_roles_refusals():
     from mpi_operator_tpu_torch.serving import InferenceServer
     model = tl.LlamaModel(tl.llama2_tiny(), device="cpu")
     # The disaggregated roles construct and serve under tp
-    # (tests/test_torch_kv_transfer_tp.py); fsdp in a serving mesh still
-    # waits for item 3.
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        InferenceServer(model, mesh=_fake_mesh(tp=2, fsdp=2),
-                        max_batch_slots=2, device="cpu")
+    # (tests/test_torch_kv_transfer_tp.py); at fsdp > 1 they still wait
+    # for item 3's entry 3.5.
+    for role in ("prefill", "decode"):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 3 .*entry 3.5: the "
+                                 "disaggregated roles at fsdp > 1"):
+            InferenceServer(model, mesh=_fake_mesh(tp=2, fsdp=2),
+                            role=role, kv_page_size=16,
+                            max_batch_slots=2, device="cpu")
+    # A model dim fsdp does not divide, as jax.device_put refuses it.
+    with pytest.raises(ValueError, match="dim 128 not divisible by "
+                                         "fsdp=3"):
+        tl.LlamaModel(tl.llama2_tiny(), device="meta", serving=True,
+                      mesh=_fake_mesh(fsdp=3))
     with pytest.raises(ValueError, match="param_specs"):
         ttrain.build_train_step(lambda m, b: 0, ttrain.adamw(LR),
                                 mesh=_fake_mesh(tp=2))
+
+
+@pytest.mark.parametrize("axis", ["dp", "sp", "ep"])
+def test_serving_mesh_refusals_that_remain(axis):
+    """dp, sp and ep in a serving mesh (beside fsdp and tp, which serve)
+    name their ROADMAP.md entry."""
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    model = tl.LlamaModel(tl.llama2_tiny(), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=f"{axis}=2 is not ported yet: ROADMAP.md "
+                             f"queue 1 item 3 .*entry 3.5: '{axis}'"):
+        InferenceServer(model, mesh=_fake_mesh(**{axis: 2, "fsdp": 2,
+                                                  "tp": 2}),
+                        max_batch_slots=2, device="cpu")
 
 
 # -- (vi) faults ------------------------------------------------------------------
 
 @pytest.mark.parametrize("job,words", [
     ("tp_fault_skip", "tp-exchange"),
-    ("tp_fault_raise", "planted fault in rank 1's fetch")])
+    ("tp_fault_raise", "planted fault in rank 1's fetch"),
+    ("fsdp_fault_skip", "tp-exchange")])
 def test_a_faulty_rank_ends_every_rank_within_the_deadline(runs, job,
                                                             words):
     hung, seconds, errors = runs[job]
@@ -396,7 +625,8 @@ def test_a_faulty_rank_ends_every_rank_within_the_deadline(runs, job,
 def test_serve_and_train_examples_over_two_tp_processes(tmp_path):
     """``--tp 2`` on the CPU: the serving example's demo from rank 0 (its
     follower prints nothing) equals the one-process demo at the same
-    seed, and the training example trains over the tp mesh."""
+    seed, as does ``--fsdp 2``'s, and the training example trains over
+    the tp mesh."""
     serve = os.path.join(REPO, "examples", "llama_serve_torch.py")
     base = ["--config", "tiny", "--device", "cpu"]
     jobs = {}
@@ -404,6 +634,8 @@ def test_serve_and_train_examples_over_two_tp_processes(tmp_path):
             ("one", [serve, *base, "--demo", "--port", "0"], 1),
             ("serve", [serve, *base, "--demo", "--port", "0", "--tp", "2"],
              2),
+            ("serve_fsdp", [serve, *base, "--demo", "--port", "0",
+                            "--fsdp", "2"], 2),
             ("train", [TRAIN_EXAMPLE, *base, "--steps", "2", "--tp", "2",
                        "--seq-len", "32"], 2)):
         (tmp_path / name).mkdir()
@@ -416,7 +648,9 @@ def test_serve_and_train_examples_over_two_tp_processes(tmp_path):
                 if line.startswith("demo:")]
 
     assert demo(logs["serve"][0]) == demo(logs["one"][0]) != []
+    assert demo(logs["serve_fsdp"][0]) == demo(logs["one"][0])
     assert "serving on" not in logs["serve"][1]
+    assert "serving on" not in logs["serve_fsdp"][1]
     assert "mesh dp=1 fsdp=1 pp=1 ep=1 tp=2 sp=1 processes=2" in \
         logs["train"][0]
     assert np.isfinite(float(logs["train"][0].split("loss=")[1].split()[0]))

@@ -217,15 +217,30 @@ def _tp_mesh(**axes):
     return tmesh.create_mesh(tmesh.MeshConfig(**{"dp": 1, **axes}), DEVICE)
 
 
-def _tp_model(inputs, name, mesh):
+def _tp_model(inputs, name, mesh, serving=False):
+    """This rank's shard of ``inputs``' model ``name``; with ``serving``
+    and fsdp > 1 in the mesh, the serving model's fsdp shard."""
     from mpi_operator_tpu_torch.models.params import shard_state_dict
     preset, kw, weights = inputs["models"][name]
     cfg = getattr(tl, preset)(**kw)
     model = tl.LlamaModel(cfg, device=None if DEVICE == "cuda" else "cpu",
-                          store_dtype=torch.float32, mesh=mesh)
+                          store_dtype=torch.float32, mesh=mesh,
+                          serving=serving)
+    fs = model.fsdp_serve
     model.load_state_dict(shard_state_dict(weights, cfg, model.tp,
-                                           model.ep))
+                                           model.ep,
+                                           None if fs is None else fs.par))
     return model
+
+
+def _holdings(model):
+    """What this rank holds of a serving model: its state dict and the
+    shape of every tensor it registers (parameters and buffers)."""
+    import itertools
+    return {"state": {k: v.detach().clone()
+                      for k, v in model.state_dict().items()},
+            "shapes": {n: tuple(t.shape) for n, t in itertools.chain(
+                model.named_parameters(), model.named_buffers())}}
 
 
 def _tp_full(state):
@@ -290,28 +305,33 @@ def _tp_checkpoint(inputs, out_dir, mesh, tag, name="dense"):
             "resumed": resumed, "saved_shapes": saved}
 
 
-def _tp_serving(inputs, mesh, whole=False):
+def _tp_serving(inputs, mesh, whole=False, light=False, name="dense"):
     """Greedy prompts one by one and as one multi-row request, sampled
     streams (twice alone, once beside neighbours), concurrent == alone;
-    ``whole`` hands the server the one-card model to cut."""
+    ``whole`` hands the server the one-card model to cut, ``light``
+    stops after the greedy prompts one by one."""
     import threading
 
     from mpi_operator_tpu_torch.serving import InferenceServer
     if whole:
-        model = _tp_model(inputs, "dense", None)
+        model = _tp_model(inputs, name, None)
     else:
-        model = _tp_model(inputs, "dense", mesh)
+        model = _tp_model(inputs, name, mesh, serving=True)
     server = InferenceServer(model, mesh=mesh, max_batch_slots=4,
                              kv_page_size=16, device=model.device,
                              tp_timeout_s=60).start()
     out = {"pool_heads": server._batcher._cache["layers_0"]["attention"][
         "pool_key"].shape[2]}
+    if server.model.fsdp_serve is not None and not light:
+        out["holdings"] = _holdings(server.model)
     if not server.is_leader:
         server.join(timeout=240)
         server.stop()
         return out
     try:
         out["single"] = [server.generate([p], 5)[0] for p in TP_PROMPTS]
+        if light:
+            return out
         out["multi"] = server.generate(TP_PROMPTS, 5)
         long = [list(range(1 + i, 40 + 7 * i)) for i in range(4)]
         out["alone"] = [server.generate([p], 8)[0] for p in long]
@@ -341,35 +361,59 @@ def _tp_serving(inputs, mesh, whole=False):
     return out
 
 
-def _tp_extras(inputs, mesh):
-    """What tp serving takes without code of its own: int8 weights (the
-    rank's quantized shard against the one-card int8 state dict cut up)
-    and a server with chunked prefill and prompt-lookup speculation."""
+def _tp_extras(inputs, mesh, self_draft=False):
+    """What serving over a mesh takes without code of its own: int8
+    weights (the rank's quantized shard against the one-card int8 state
+    dict cut up) and a server with chunked prefill and prompt-lookup
+    speculation; ``self_draft`` adds a server whose draft is the model
+    itself and one that quantizes it (``weight_dtype="int8"``)."""
     from mpi_operator_tpu_torch.models.params import shard_state_dict
     from mpi_operator_tpu_torch.models.quant import (quantize_model,
                                                      quantize_params)
     from mpi_operator_tpu_torch.serving import InferenceServer
-    model = _tp_model(inputs, "dense", mesh)
+    model = _tp_model(inputs, "dense", mesh, serving=True)
+    fs = model.fsdp_serve
     qcfg = tl.llama2_tiny(weight_dtype="int8")
     want = shard_state_dict(quantize_params(inputs["models"]["dense"][2],
-                                            qcfg), qcfg, model.tp)
-    got = quantize_model(model).state_dict()
+                                            qcfg), qcfg, model.tp,
+                            fsdp=None if fs is None else fs.par)
+    qmodel = quantize_model(model)
+    got = qmodel.state_dict()
     out = {"int8_equal": set(got) == set(want) and all(
         torch.equal(got[k], want[k]) for k in want)}
-    server = InferenceServer(model, mesh=mesh, max_batch_slots=4,
-                             kv_page_size=16, kv_prefill_chunk=2,
-                             draft_strategy="prompt_lookup", device="cpu",
-                             tp_timeout_s=60).start()
-    if not server.is_leader:
-        server.join(timeout=240)
-        server.stop()
-        return out
-    try:
-        out["chunked_spec"] = [server.generate([p], 5)[0]
-                               for p in TP_PROMPTS]
-        out["spec_stats"] = server.batcher_stats()["spec"]
-    finally:
-        server.stop()
+    if fs is not None:
+        out["int8_holdings"] = _holdings(qmodel)
+    del qmodel
+    servers = [("chunked_spec", dict(kv_prefill_chunk=2,
+                                     draft_strategy="prompt_lookup"))]
+    if self_draft:
+        servers += [("self_draft", dict(draft_model=model)),
+                    ("int8", dict(weight_dtype="int8"))]
+    for key, kw in servers:
+        server = InferenceServer(model, mesh=mesh, max_batch_slots=4,
+                                 kv_page_size=16, device="cpu",
+                                 tp_timeout_s=60, **kw).start()
+        if not server.is_leader:
+            server.join(timeout=240)
+            server.stop()
+            continue
+        try:
+            out[key] = [server.generate([p], 5)[0] for p in TP_PROMPTS]
+            out[key + "_stats"] = server.batcher_stats()["spec"]
+        finally:
+            server.stop()
+    out["spec_stats"] = out.get("chunked_spec_stats")
+    return out
+
+
+def _fsdp_moe(inputs, mesh):
+    """mixtral_tiny served at fsdp: the no-cache forward's logits
+    (capacity drops over one copy of the batch) and greedy tokens."""
+    model = _tp_model(inputs, "moe", mesh, serving=True)
+    with torch.inference_mode():
+        logits = model(inputs["tokens"]).detach()
+    out = _tp_serving(inputs, mesh, light=True, name="moe")
+    out["logits"] = logits
     return out
 
 
@@ -389,6 +433,10 @@ def scenario_tp_world2(inputs, out_dir):
     out["serving_whole"] = _tp_serving(inputs, mesh, whole=True).get(
         "single")
     out["extras"] = _tp_extras(inputs, mesh)
+    # fsdp = 2 serving (tp = 1): the dense model, and mixtral_tiny.
+    fsdp = _tp_mesh(fsdp=2)
+    out["fsdp_serving"] = _tp_serving(inputs, fsdp)
+    out["fsdp_moe"] = _fsdp_moe(inputs, fsdp)
     # The vocab-parallel fused loss against the unsharded one (value and
     # input gradient), on every rank.
     tp = TensorParallel.of(mesh)
@@ -411,12 +459,21 @@ def scenario_tp_world2(inputs, out_dir):
 
 
 def scenario_tp_world4(inputs, out_dir):
-    """fsdp = 2 x tp = 2: three steps and a checkpoint; tp = 4 serving."""
+    """fsdp = 2 x tp = 2: three steps and a checkpoint, and serving (the
+    weights cut over fsdp too: a whole model cut by the server, int8,
+    chunked prefill, speculation); tp = 4 serving."""
     mesh = _tp_mesh(fsdp=2, tp=2)
     run = _tp_train(inputs, mesh)
     out = {"train": {"metrics": run["metrics"],
                      "params": _tp_full(run["state"])},
            "ckpt": _tp_checkpoint(inputs, out_dir, mesh, "fsdp2tp2")}
+    out["fsdp_init"] = {k: v.clone() for k, v in init_params(
+        tl.llama2_tiny(), torch.Generator().manual_seed(7), device="cpu",
+        mesh=mesh).state_dict().items()}
+    out["fsdp_tp_serving"] = _tp_serving(inputs, mesh)
+    out["fsdp_tp_whole"] = _tp_serving(inputs, mesh, whole=True,
+                                       light=True).get("single")
+    out["fsdp_tp_extras"] = _tp_extras(inputs, mesh, self_draft=True)
     out["serving4"] = _tp_serving(inputs, _tp_mesh(tp=4))
     zero = _tp_train(inputs, _tp_mesh(dp=2, tp=2), shard_update=True)
     out["dp_zero"] = {"metrics": zero["metrics"],
@@ -424,12 +481,14 @@ def scenario_tp_world4(inputs, out_dir):
     return out
 
 
-def _tp_fault(inputs, planted):
-    """A tp = 2 server whose rank 1 carries ``planted``; rank 0 asks for
-    a generation.  Every rank must end in an error."""
+def _tp_fault(inputs, planted, axes=None):
+    """A server over two ranks (tp = 2, or ``axes``) whose rank 1 carries
+    ``planted``; rank 0 asks for a generation.  Every rank must end in
+    an error."""
     from mpi_operator_tpu_torch.serving import InferenceServer
-    mesh = _tp_mesh(tp=2)
-    server = InferenceServer(_tp_model(inputs, "dense", mesh), mesh=mesh,
+    mesh = _tp_mesh(**(axes or {"tp": 2}))
+    server = InferenceServer(_tp_model(inputs, "dense", mesh, serving=True),
+                             mesh=mesh,
                              max_batch_slots=2, kv_page_size=16,
                              device="cpu", tp_timeout_s=4).start()
     if dist.get_rank() == 1:
@@ -443,19 +502,28 @@ def _tp_fault(inputs, planted):
     return {"error": None}
 
 
+def _skip_a_turn(batcher):
+    """Planted in rank 1: it misses one exchange once it is decoding."""
+    mirror, real = batcher._mirror, batcher._mirror.exchange
+
+    def exchange(ticks, decisions=None, fatal=None):
+        if ticks >= 2 and not getattr(mirror, "skipped", False):
+            mirror.skipped = True
+            mirror.turns += 1
+            return {"stop": False, "new": [], "cancel": []}
+        return real(ticks, decisions, fatal)
+    mirror.exchange = exchange
+
+
 def scenario_tp_fault_skip(inputs, out_dir):
     """Rank 1 misses one exchange once it is decoding."""
-    def planted(batcher):
-        mirror, real = batcher._mirror, batcher._mirror.exchange
+    return _tp_fault(inputs, _skip_a_turn)
 
-        def exchange(ticks, decisions=None, fatal=None):
-            if ticks >= 2 and not getattr(mirror, "skipped", False):
-                mirror.skipped = True
-                mirror.turns += 1
-                return {"stop": False, "new": [], "cancel": []}
-            return real(ticks, decisions, fatal)
-        mirror.exchange = exchange
-    return _tp_fault(inputs, planted)
+
+def scenario_fsdp_fault_skip(inputs, out_dir):
+    """At fsdp = 2 (tp = 1): rank 1 misses one exchange once it is
+    decoding."""
+    return _tp_fault(inputs, _skip_a_turn, {"fsdp": 2})
 
 
 def scenario_tp_fault_raise(inputs, out_dir):
@@ -515,6 +583,74 @@ def scenario_tp_cuda_serving(inputs, out_dir):
         server.stop()
     torch.cuda.synchronize()
     out.update(logits=logits, launches=pa.LAUNCHES,
+               steps=server.telemetry["dispatches_total"].value,
+               n_layers=cfg.n_layers, backend=dist.get_backend())
+    return out
+
+
+def scenario_fsdp_cuda_gather(inputs, out_dir):
+    """fsdp = 2 on the cards: llama2_tiny in bf16 from a seed, each
+    rank's weights cut flat over fsdp.  Each unit gathered over NCCL
+    against the plain cut of the one-card weights (the same draws on each
+    rank), the prefill logits against the one-card model's, and a served
+    stream against one card's with K4' launches == decode steps x
+    n_layers."""
+    from mpi_operator_tpu_torch.models.params import (init_params,
+                                                      shard_state_dict)
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import (ContinuousBatcher,
+                                                InferenceServer)
+    cfg = tl.llama2_tiny(dtype=torch.bfloat16, **inputs["config"])
+    prompts = inputs["prompts"]
+    one = init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                      device="cuda")
+    ref = ContinuousBatcher(one, max_slots=4, page_size=16,
+                            prefix_cache=False, device="cuda")
+    out = {"one_logits": torch.stack([ref.prefill_logits(p)
+                                      for p in prompts]).float().cpu()}
+    ref.start()
+    out["one_streams"] = [ref.submit(p, 12) for p in prompts]
+    ref.stop()
+    mesh = _tp_mesh(fsdp=2)
+    model = init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                        device="cuda", mesh=mesh)
+    plain = shard_state_dict(one.state_dict(), cfg, model.tp)
+    fs = model.fsdp_serve
+    out["units_equal"] = all(
+        torch.equal(t, plain[name]) for unit in fs.order
+        for name, t in fs.gathered(unit).items())
+    out["units"] = len(fs.order)
+    # The gathers timed by CUDA events on the stream they run on.
+    real, spans = fs._all_gather, []
+
+    def timed(buf, shard):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(buf, shard)
+        end.record()
+        spans.append((start, end))
+    fs._all_gather = timed
+    server = InferenceServer(model, mesh=mesh, max_batch_slots=4,
+                             kv_page_size=16, kv_prefix_cache=False,
+                             device="cuda")
+    out["logits"] = torch.stack([server._batcher.prefill_logits(p)
+                                 for p in prompts]).float().cpu()
+    fs._all_gather = real
+    torch.cuda.synchronize()
+    out["gather_ms"] = sum(a.elapsed_time(b) for a, b in spans)
+    pa.LAUNCHES = 0
+    server.start()
+    if server.is_leader:
+        try:
+            out["streams"] = [server.generate([p], 12)[0] for p in prompts]
+        finally:
+            server.stop()
+    else:
+        server.join(timeout=240)
+        server.stop()
+    torch.cuda.synchronize()
+    out.update(launches=pa.LAUNCHES,
                steps=server.telemetry["dispatches_total"].value,
                n_layers=cfg.n_layers, backend=dist.get_backend())
     return out
@@ -1591,7 +1727,7 @@ def main() -> int:
     t0 = time.time()
     initialize_from_env(
         timeout_seconds=60, device=None if DEVICE == "cuda" else "cpu",
-        collective_timeout_seconds=(10 if scenario.startswith("tp_fault")
+        collective_timeout_seconds=(10 if "_fault_" in scenario
                                     else None))
     inputs = torch.load(os.path.join(out_dir, "inputs.pt"))
     try:
