@@ -2943,8 +2943,10 @@ TP_DISAGG_FAULT_LEN = 300         # (d): the planted fault's prompt
 TP_DISAGG_INT8_LEN = 700          # (d): the int8 pools' prompt
 TP_DISAGG_BUDGET_S = 120          # (d): printed beside its seconds
 TP_FSDP_BUDGET_S = 60             # (e): printed beside its seconds
-TP_FSDP_NEW_TOKENS = 16           # (e): the first 16 of each of phase
-                                  # 5's streams, to fit its budget
+TP_FSDP_NEW_TOKENS = 16           # (e), (f): the first 16 of each of
+                                  # phase 5's streams, to fit the budget
+TP_FSDP_DISAGG_LEN = 2000         # (f): the prompt whose (d) pages it takes
+TP_FSDP_DISAGG_BUDGET_S = 30      # (f): printed beside its seconds
 NVLINK_BYTES_PER_S = 450e9        # (e): NVLink 4 on an H100 SXM, one
                                   # direction (18 links x 25 GB/s)
 
@@ -2983,6 +2985,16 @@ def tp_group():
 def tp_mesh(**axes):
     from mpi_operator_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     return create_mesh(MeshConfig(dp=1, **axes), TP_DEVICE)
+
+
+def stop_serving(server) -> None:
+    """Stop a server of a serving group: rank 0 stops the group, the
+    others wait for that."""
+    if server.is_leader:
+        server.stop()
+    else:
+        server.join(timeout=TP_DEADLINE_S)
+        server.stop()
 
 
 def tp_serve_run(server, prompts, stream_prompt, n_new):
@@ -3215,11 +3227,7 @@ def tp_serve(world: int, rank: int, refs, moe: bool):
             out["run"] = tp_serve_run(server, prompts, stream_prompt,
                                       SERVE_NEW_TOKENS)
     finally:
-        if server.is_leader:
-            server.stop()
-        else:
-            server.join(timeout=TP_DEADLINE_S)
-            server.stop()
+        stop_serving(server)
     torch.cuda.synchronize()
     out.update(launches=pa.LAUNCHES,
                decode_steps=server.telemetry["dispatches_total"].value
@@ -3353,34 +3361,39 @@ def tp_full_width_run(world: int):
 
 
 def head_chunk_digests(pages, tp: int):
-    """Per rank r of a tp group, one digest of head chunk r (dim 1) of
-    every wire leaf of ``pages``, page by page, leaves by path."""
-    hashes = [hashlib.blake2b(digest_size=16) for _ in range(tp)]
+    """Per page, per rank r of a tp group, one digest of head chunk r
+    (dim 1) of the page's wire leaves, leaves by path."""
+    out = []
     for page in pages:
+        hashes = [hashlib.blake2b(digest_size=16) for _ in range(tp)]
         for path in sorted(page["leaves"]):
             for r, part in enumerate(page["leaves"][path].chunk(tp, dim=1)):
                 hashes[r].update(part.contiguous().view(torch.uint8)
                                  .numpy().tobytes())
-    return [h.hexdigest() for h in hashes]
+        out.append([h.hexdigest() for h in hashes])
+    return out
 
 
-def pool_rows_digest(batcher, digests) -> str:
-    """One digest of this rank's pool rows of the pages ``digests`` name,
-    in the order of ``head_chunk_digests``."""
+def pool_rows_digest(batcher, digests):
+    """Per page ``digests`` name, one digest of this rank's pool rows of
+    it, in the order of ``head_chunk_digests``."""
     by_digest = {d: b for b, d in batcher._block_digest.items()}
     idx = torch.tensor([by_digest[d] for d in digests],
                        device=batcher.device)
     rows = {path: leaf.index_select(0, idx).cpu()
             for path, leaf in batcher._pool_leaves()}
-    h = hashlib.blake2b(digest_size=16)
+    out = []
     for i in range(len(digests)):
+        h = hashlib.blake2b(digest_size=16)
         for path in sorted(rows):
             h.update(rows[path][i].contiguous().view(torch.uint8)
                      .numpy().tobytes())
-    return h.hexdigest()
+        out.append(h.hexdigest())
+    return out
 
 
-def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
+def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord,
+                    keep_len=None):
     """One prefill/decode pair of (d): ranks 0-1 the prefill replica,
     ranks 2-3 the decode replica, each a tp = 2 server over ``model``
     with ``kv`` pools.  Rank 0 drives every prompt through /prefill (the
@@ -3389,7 +3402,9 @@ def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
     decode replica's rank 0 scatters the chunks swapped for that prompt.
     Rank 0 re-exports the pages and takes each rank's head-chunk digest;
     the decode ranks, after the stop, their rows' digests and their
-    last-position logits over the imported pages."""
+    last-position logits over the imported pages.  Returns the report,
+    the logits and, on rank 0, the re-exported pages of the prompt of
+    ``keep_len`` tokens (host tensors, for (f))."""
     import torch.distributed as dist
 
     from mpi_operator_tpu_torch.ops import paged_attention as pa
@@ -3397,6 +3412,7 @@ def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
     from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
 
     role = "decode" if rank >= 2 else "prefill"
+    kept = None
     pa.LAUNCHES = 0
     server = InferenceServer(model, mesh=mesh, role=role, max_batch_slots=8,
                              kv_page_size=16, kv_cache_blocks=DISAGG_BLOCKS,
@@ -3428,6 +3444,8 @@ def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
         for prompt in ship:
             pages = server._batcher.export_kv_pages(
                 prefix_page_digests(prompt, 16))
+            if len(prompt) == keep_len:
+                kept = pages
             out["wire"].append({"pages": len(pages),
                                 "raw_kv_bytes": page_bytes(pages),
                                 "chunks": head_chunk_digests(pages, 2)})
@@ -3444,11 +3462,7 @@ def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
                page_record_bytes=server.mirror.page_record_bytes,
                exchange_ms_per_turn=(server.mirror.seconds * 1e3
                                      / max(1, server.mirror.turns)))
-    if server.is_leader:
-        server.stop()
-    else:
-        server.join(timeout=TP_DEADLINE_S)
-        server.stop()
+    stop_serving(server)
     logits = None
     if rank >= 2:
         out["rows"] = [pool_rows_digest(server._batcher,
@@ -3460,7 +3474,7 @@ def tp_disagg_round(rank, mesh, model, kv, prompts, fault_prompt, coord):
     gc.collect()
     if TP_DEVICE == "cuda":
         torch.cuda.empty_cache()
-    return out, logits
+    return out, logits, kept
 
 
 def tp_disagg_handoff(urls, prompt):
@@ -3496,7 +3510,9 @@ def tp_disagg(world: int, rank: int, refs, out_dir: str):
     each rank's shard of the SEED weights; the bf16 round over
     DISAGG_PROMPT_LENS with the planted fault, then the int8 round over
     the 700-token prompt on new servers over the same models.  The
-    decode ranks' logits go to ``out_dir`` from rank 2."""
+    decode ranks' logits go to ``out_dir`` from rank 2.  Returns the
+    report and, on rank 0, the bf16 pages of the TP_FSDP_DISAGG_LEN
+    prompt as the prefill replica exported them (for (f))."""
     import torch.distributed as dist
 
     from mpi_operator_tpu_torch.models.llama import llama2_7b
@@ -3520,13 +3536,13 @@ def tp_disagg(world: int, rank: int, refs, out_dir: str):
            "weight_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters())}
     by_len = dict(zip(SERVE_PROMPT_LENS, refs["prompts"]))
-    bf16, logits = tp_disagg_round(
+    bf16, logits, pages = tp_disagg_round(
         rank, meshes[rank // 2], model, "auto",
         [by_len[n] for n in DISAGG_PROMPT_LENS], by_len[TP_DISAGG_FAULT_LEN],
-        coord)
-    int8, int8_logits = tp_disagg_round(rank, meshes[rank // 2], model,
-                                        "int8", [by_len[TP_DISAGG_INT8_LEN]],
-                                        None, coord)
+        coord, keep_len=TP_FSDP_DISAGG_LEN)
+    int8, int8_logits, _ = tp_disagg_round(
+        rank, meshes[rank // 2], model, "int8",
+        [by_len[TP_DISAGG_INT8_LEN]], None, coord)
     out.update(bf16=bf16, int8=int8)
     if rank == 2:
         torch.save({"bf16": logits, "int8": int8_logits},
@@ -3538,7 +3554,7 @@ def tp_disagg(world: int, rank: int, refs, out_dir: str):
         torch.cuda.empty_cache()
     dist.barrier(group=coord)
     out["seconds"] = time.perf_counter() - t_start
-    return out
+    return out, pages
 
 
 def fsdp_mesh_axes(world: int) -> dict:
@@ -3565,7 +3581,8 @@ def tp_fsdp_serve(world: int, rank: int, refs):
     card, the planted fault (rank 1's gathers swap the fsdp shards), the
     serving run from rank 0 (TP_FSDP_NEW_TOKENS a stream), K4' launches
     and decode steps on every rank, the rank's resident weight bytes, a
-    decode step's host, wall and gather ms."""
+    decode step's host, wall and gather ms.  Returns the report, the
+    model and its mesh ((f) serves the same model)."""
     from mpi_operator_tpu_torch.models.llama import (LlamaModel, llama2_7b,
                                                      llama_param_specs)
     from mpi_operator_tpu_torch.models.params import init_params
@@ -3623,11 +3640,7 @@ def tp_fsdp_serve(world: int, rank: int, refs):
             out["run"] = tp_serve_run(server, prompts, stream_prompt,
                                       TP_FSDP_NEW_TOKENS)
     finally:
-        if server.is_leader:
-            server.stop()
-        else:
-            server.join(timeout=TP_DEADLINE_S)
-            server.stop()
+        stop_serving(server)
     if cuda:
         torch.cuda.synchronize()
     out.update(launches=pa.LAUNCHES,
@@ -3642,17 +3655,172 @@ def tp_fsdp_serve(world: int, rank: int, refs):
         out["decode_timing"] = decode_timing(
             model, TickMirror(serving_ranks(mesh)))
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    del model, fs
+    out["seconds"] = time.perf_counter() - t_start
+    return out, model, mesh
+
+
+def pages_against(pages, ref_pages) -> dict:
+    """Two exports of one prompt, leaf by leaf: the same digests, parents
+    and tokens, the largest ``head_rel_err`` over the pages' stacked
+    leaves, and whether every leaf is bit-equal."""
+    meta = [[(p["digest"], p["parent"], p["tokens"]) for p in ps]
+            for ps in (pages, ref_pages)]
+    err, equal = 0.0, meta[0] == meta[1]
+    dev = TP_DEVICE
+    for path in sorted(ref_pages[0]["leaves"]):
+        a, b = (torch.stack([p["leaves"][path] for p in ps]).to(dev)
+                for ps in (pages, ref_pages))
+        equal = equal and torch.equal(a, b)
+        err = max(err, head_rel_err(a, b))
+    return {"pages": len(pages), "same_headers": meta[0] == meta[1],
+            "head_rel_err": err, "bit_equal": equal}
+
+
+def landed_buffer_early(fs):
+    """Phase 9 (f)'s planted fault, on one rank: its import takes its
+    fsdp broadcast's buffer before the broadcast fills it (the broadcast
+    still runs, into another buffer, so the collectives pair)."""
+    real = fs.broadcast_from_first
+
+    def early(t):
+        real(t.clone())
+        return t
+    fs.broadcast_from_first = early
+    return lambda: fs.__dict__.pop("broadcast_from_first")
+
+
+def tp_fsdp_disagg(rank: int, model, mesh, refs, d_pages):
+    """Phase 9 (f), one rank of four: the disaggregated roles over (e)'s
+    model (the 7B at fsdp = 2 x tp = 2: ranks 0-1 fsdp replica 0, 2-3
+    replica 1).  A role="prefill" server prefills the TP_FSDP_DISAGG_LEN
+    prompt and exports its pages (replica 0 gathers them to rank 0; held
+    there to (d)'s tp = 2 export, ``d_pages``).  A fresh role="decode"
+    server imports ``d_pages`` (every rank of both replicas lands its
+    head chunk), imports them again (all dedup) and streams
+    TP_FSDP_NEW_TOKENS tokens of the prompt; after the stop every rank's
+    pool rows against its chunk of each wire page and its logits over
+    them.  Then a decode server with the planted fault on rank 2
+    (``landed_buffer_early``) imports and streams SERVE_NEW_TOKENS: the
+    group must stop (the replicas' tokens differ) or the stream leave
+    phase 5's, and rank 2's rows and replica 1's logits must be off."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
+
+    t_start = time.perf_counter()
+    cuda = TP_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    coord = dist.new_group(backend="gloo")
+    at = SERVE_PROMPT_LENS.index(TP_FSDP_DISAGG_LEN)
+    prompt = refs["prompts"][at]
+    digests = prefix_page_digests(prompt, 16)
+    tp = model.tp
+    out = {"prompt_len": len(prompt), "pages": len(digests),
+           "tp_rank": tp.rank, "fsdp_rank": model.fsdp_serve.par.rank}
+    wire = [None]
+    if rank == 0:
+        wire = [head_chunk_digests(d_pages, tp.size)]
+        out["raw_kv_bytes"] = page_bytes(d_pages)
+    dist.broadcast_object_list(wire, src=0, group=coord)
+
+    def server_of(role):
+        return InferenceServer(model, mesh=mesh, role=role,
+                               max_batch_slots=8, kv_page_size=16,
+                               kv_cache_blocks=DISAGG_BLOCKS,
+                               model_name="llama2_7b", device=TP_DEVICE,
+                               tp_timeout_s=600)
+
+    def rows_and_logits(server):
+        got = pool_rows_digest(server._batcher, digests)
+        bad = sum(g != w[tp.rank] for g, w in zip(got, wire[0]))
+        logits = server.prefill_logits(prompt).float().cpu()
+        return bad, logit_err(logits[None], refs["logits"][at:at + 1])
+
+    # Export at fsdp x tp.
+    server = server_of("prefill").start()
+    if rank == 0:
+        t0 = time.perf_counter()
+        post(server.url + "/prefill", {"tokens": prompt})
+        out["prefill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pages = server._batcher.export_kv_pages(digests)
+        out["export_s"] = time.perf_counter() - t0
+        out["export"] = pages_against(pages, d_pages)
+        del pages
+    stop_serving(server)
+    del server
+    gc.collect()
+
+    # Import at fsdp x tp.
+    server = server_of("decode")
+    pa.LAUNCHES = 0
+    server.start()
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["import"] = server._batcher.import_kv_pages(d_pages,
+                                                        timeout=600)
+        out["import_s"] = time.perf_counter() - t0
+        out["reimport"] = server._batcher.import_kv_pages(d_pages)
+        events, out["decode_ttft_s"] = read_sse(server.url + "/generate", {
+            "tokens": [prompt], "max_new_tokens": TP_FSDP_NEW_TOKENS,
+            "stream": True})
+        out["stream"] = [e["token"] for e in events if "token" in e]
+    stop_serving(server)
+    if cuda:
+        torch.cuda.synchronize()
+    out.update(launches=pa.LAUNCHES,
+               decode_steps=server.telemetry["dispatches_total"].value,
+               prefix_hit_blocks=server.batcher_stats()["prefix"][
+                   "hit_blocks"])
+    out["row_mismatches"], out["logit_err"] = rows_and_logits(server)
+    del server
+    gc.collect()
+
+    # The planted fault: rank 2 lands its broadcast's buffer unfilled.
+    server = server_of("decode")
+    undo = landed_buffer_early(model.fsdp_serve) if rank == 2 else None
+    server.start()
+    try:
+        if rank == 0:
+            out["fault_import"] = server._batcher.import_kv_pages(
+                d_pages, timeout=600)
+            # Replica 1's wrong rows show in the stream once its tokens
+            # differ from replica 0's: give it phase 5's whole stream.
+            events, _ = read_sse(server.url + "/generate", {
+                "tokens": [prompt], "max_new_tokens": SERVE_NEW_TOKENS,
+                "stream": True})
+            out["fault_stream"] = [e["token"] for e in events
+                                   if "token" in e]
+            out["fault_stream_error"] = next(
+                (e["error"] for e in events if "error" in e), None)
+        stop_serving(server)
+    except RuntimeError as exc:           # the group's error (followers)
+        out["fault_group_error"] = str(exc)[:300]
+    finally:
+        if undo is not None:
+            undo()
+    b = server._batcher
+    with torch.inference_mode():
+        for slot in list(b._slot_blocks):  # the stopped stream's blocks
+            b._retire_slot(slot)
+    out["fault_row_mismatches"], out["fault_logit_err"] = \
+        rows_and_logits(server)
+    del server
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    dist.barrier(group=coord)
     out["seconds"] = time.perf_counter() - t_start
     return out
 
 
 def tp_rank(out_dir: str) -> int:
     """A child of phase 9: (a) always; (b), (c) and (e) with two cards
-    or more; (d) with four."""
+    or more; (d) and (f) with four."""
     import torch.distributed as dist
 
     rank, world = tp_group()
@@ -3688,11 +3856,20 @@ def tp_rank(out_dir: str) -> int:
                                       tp_full_width_run, world)
                                 for i in range(2)]
     if world >= 4:
-        result["disagg"] = timed("(d) disagg", tp_disagg, world, rank, refs,
-                                 out_dir)
+        result["disagg"], d_pages = timed("(d) disagg", tp_disagg, world,
+                                          rank, refs, out_dir)
     if world >= 2:
-        result["fsdp"] = timed("(e) fsdp serving", tp_fsdp_serve, world,
-                               rank, refs)
+        result["fsdp"], model, mesh = timed("(e) fsdp serving",
+                                            tp_fsdp_serve, world, rank, refs)
+        if world >= 4:
+            result["fsdp_disagg"] = timed("(f) disagg at fsdp",
+                                          tp_fsdp_disagg, rank, model, mesh,
+                                          refs, d_pages)
+            del d_pages
+        del model
+        gc.collect()
+        if TP_DEVICE == "cuda":
+            torch.cuda.empty_cache()
     if rank == 0:
         torch.save(tensors, os.path.join(out_dir, "tp_tensors.pt"))
     with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
@@ -3788,8 +3965,9 @@ def tp_disagg_verdict(card: str, ranks, out_dir: str, ref_logits, gaps,
         rows_equal = {}
         for i, n in enumerate(ship):
             chunks = lead["wire"][i]["chunks"]
-            held = [d[2][name]["rows"][i], d[3][name]["rows"][i]]
-            rows_equal[n] = [h == c for h, c in zip(held, chunks)]
+            rows_equal[n] = [d[r][name]["rows"][i] == [c[r - 2] for c in
+                                                       chunks]
+                             for r in (2, 3)]
             planted = fault and n == TP_DISAGG_FAULT_LEN
             if planted == any(rows_equal[n]) or \
                     (not planted and not all(rows_equal[n])):
@@ -3946,6 +4124,100 @@ def tp_fsdp_verdict(card: str, ranks, serve, gaps):
     return lead["launches"]
 
 
+def tp_fsdp_disagg_verdict(card: str, ranks, serve, gaps):
+    """Phase 9 (f)'s checks over the four ranks' reports; prints them and
+    returns every rank's K4' launches in the decode run."""
+    f = [r["fsdp_disagg"] for r in ranks]
+    lead = f[0]
+    at = SERVE_PROMPT_LENS.index(TP_FSDP_DISAGG_LEN)
+    n = lead["pages"]
+    failures = []
+    exp = lead["export"]
+    if not (exp["pages"] == n and exp["same_headers"]
+            and exp["head_rel_err"] <= TP_LOGIT_LIMIT):
+        failures.append(f"the fsdp x tp export against (d)'s tp = 2 export:"
+                        f" {exp} (limit {TP_LOGIT_LIMIT})")
+    if lead["import"] != {"imported": n, "deduped": 0, "rejected": 0} or \
+            lead["reimport"] != {"imported": 0, "deduped": n,
+                                 "rejected": 0}:
+        failures.append(f"import {lead['import']}, again "
+                        f"{lead['reimport']} of {n} pages")
+    errs = [x["logit_err"] for x in f]
+    err = max(errs)
+    if not all(e <= TP_LOGIT_LIMIT for e in errs):
+        failures.append(f"logits over the imported pages differ from one "
+                        f"card by {errs} per rank (limit {TP_LOGIT_LIMIT})")
+    want = serve["alone"][at][:TP_FSDP_NEW_TOKENS]
+    moved = stream_verdict(lead["stream"], want, gaps[at], err)
+    if moved is not None or len(lead["stream"]) != TP_FSDP_NEW_TOKENS:
+        failures.append(f"the decode stream leaves phase 5's at {moved}, "
+                        f"beyond a near-tie")
+    for r, x in enumerate(f):
+        if x["row_mismatches"]:
+            failures.append(f"rank {r}: {x['row_mismatches']} of {n} pages'"
+                            f" pool rows are not its head chunk")
+        if x["prefix_hit_blocks"] != n:
+            failures.append(f"rank {r}: {x['prefix_hit_blocks']} prefix "
+                            f"hits of {n} imported pages (a page "
+                            f"prefilled again?)")
+        if x["launches"] != x["decode_steps"] * ranks[r]["fsdp"][
+                "n_layers"] or x["launches"] == 0:
+            failures.append(f"rank {r}: K4' launches {x['launches']}, "
+                            f"decode steps {x['decode_steps']}")
+        if not x.get("peak_bytes", 0) < 80e9:
+            failures.append(f"rank {r}: peak {x.get('peak_bytes')}")
+    # The planted fault (rank 2 of fsdp replica 1): its rows, replica 1's
+    # logits and the stream (the group stops: the replicas diverged).
+    rows = [x["fault_row_mismatches"] for x in f]
+    fault_errs = [x["fault_logit_err"] for x in f]
+    caught_stream = (lead.get("fault_stream_error") is not None or
+                     stream_verdict(lead.get("fault_stream", []),
+                                    serve["alone"][at], gaps[at],
+                                    err) is not None)
+    if not (rows[2] > 0 and rows[0] == rows[1] == rows[3] == 0):
+        failures.append(f"the planted fault's row mismatches per rank "
+                        f"{rows}: want rank 2's alone")
+    if not (all(e <= TP_LOGIT_LIMIT for e in fault_errs[:2])
+            and not any(e <= TP_LOGIT_LIMIT for e in fault_errs[2:])):
+        failures.append(f"the planted fault's logit errors per rank "
+                        f"{fault_errs}: want replica 1's above "
+                        f"{TP_LOGIT_LIMIT}, replica 0's within")
+    if not caught_stream:
+        failures.append(f"the planted fault's stream passed: "
+                        f"{lead.get('fault_stream')}")
+    raw = lead["raw_kv_bytes"]
+    tp = 2
+    report = {
+        "card": card, "n_layers": ranks[0]["fsdp"]["n_layers"],
+        "prompt_len": lead["prompt_len"], "pages": n, "raw_kv_bytes": raw,
+        "export_vs_d": exp, "prefill_s": lead["prefill_s"],
+        "export_s": lead["export_s"], "import": lead["import"],
+        "reimport": lead["reimport"], "import_s": lead["import_s"],
+        "import_bytes_received_per_rank": [0] + [raw / tp] * 3,
+        "import_bytes_sent_per_rank": [raw, raw / tp, 0, 0],
+        "logit_err": err, "logit_limit": TP_LOGIT_LIMIT,
+        "stream_first_departure": moved,
+        "decode_ttft_s": lead["decode_ttft_s"],
+        "fault_row_mismatches_per_rank": rows,
+        "fault_logit_err_per_rank": fault_errs,
+        "fault_stream_error": lead.get("fault_stream_error"),
+        "fault_group_errors": [x.get("fault_group_error") for x in f[1:]],
+        "per_rank": [{k: x.get(k) for k in (
+            "tp_rank", "fsdp_rank", "launches", "decode_steps",
+            "prefix_hit_blocks", "row_mismatches", "logit_err",
+            "peak_bytes", "seconds")} for x in f],
+        "seconds": max(x["seconds"] for x in f),
+        "budget_s": TP_FSDP_DISAGG_BUDGET_S}
+    print("tensor parallel (f) disaggregated llama2_7b at fsdp = 2 x tp = "
+          "2: pages exported from fsdp replica 0, landed on both: "
+          + json.dumps(report), flush=True)
+    if failures:
+        raise SystemExit("tensor parallel (f): " + "; ".join(failures))
+    print(f"tensor parallel (f): {report['seconds']:.1f} s (budget "
+          f"{TP_FSDP_DISAGG_BUDGET_S} s); {card}", flush=True)
+    return {f"rank{r}": x["launches"] for r, x in enumerate(f)}
+
+
 def tp_phase(card: str, serve):
     """Phase 9: one process per card (tp_world), NCCL.  (a) llama2_7b
     served at tp = world, all 32 layers; (b) mixtral_8x7b served at
@@ -3954,7 +4226,8 @@ def tp_phase(card: str, serve):
     alone with a planted fault, and the 7B at full width, twice; (d) at
     four cards, the 7B handed from a tp = 2 prefill replica to a tp = 2
     decode replica; (e) with two cards or more, the 7B served with its
-    weights cut over fsdp = 2 x tp = world / 2."""
+    weights cut over fsdp = 2 x tp = world / 2; (f) at four cards, (e)'s
+    model in the disaggregated roles, with (d)'s pages."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
     gc.collect()
@@ -4026,8 +4299,9 @@ def tp_phase(card: str, serve):
         print("tensor parallel (b) mixtral_8x7b, (c) training, (e) "
               "weights over fsdp: need two cards (tp over one card is "
               "phase 5f's serving); (d) disaggregated prefill/decode "
-              "across tp groups: needs four (phase 5e is the one-card "
-              "handoff); this machine shows one", flush=True)
+              "across tp groups and (f) the roles at fsdp = 2 x tp = 2: "
+              "need four (phase 5e is the one-card handoff); this "
+              "machine shows one", flush=True)
         return result
 
     # (b) mixtral_8x7b at TP_MOE_LAYERS layers.
@@ -4094,6 +4368,15 @@ def tp_phase(card: str, serve):
     # (e) llama2_7b with its weights cut over fsdp too.
     result["fsdp_launches_rank0"] = tp_fsdp_verdict(card, ranks, serve,
                                                     gaps)
+
+    # (f) the disaggregated roles at fsdp = 2 x tp = 2.
+    if world >= 4:
+        result["fsdp_disagg_launches"] = tp_fsdp_disagg_verdict(
+            card, ranks, serve, gaps)
+    else:
+        print(f"tensor parallel (f) the disaggregated roles at fsdp = 2 x "
+              f"tp = 2: needs four cards; this machine shows {world}",
+              flush=True)
     print("tensor parallel parts (seconds, rank 0): "
           + json.dumps(ranks[0]["seconds"]), flush=True)
     return result
@@ -5981,7 +6264,11 @@ def main() -> int:
                for k, v in tp.get("disagg_launches", {}).items()},
             # Phase 9 (e), the weights over fsdp, rank 0 (two cards or
             # more; every rank's count is checked there).
-            "tp_fsdp_serving_rank0": tp.get("fsdp_launches_rank0")},
+            "tp_fsdp_serving_rank0": tp.get("fsdp_launches_rank0"),
+            # Phase 9 (f), the decode run on imported pages at fsdp = 2
+            # x tp = 2, every rank (four cards).
+            **{f"tp_fsdp_disagg_decode_{k}": v
+               for k, v in tp.get("fsdp_disagg_launches", {}).items()}},
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "max_rel_err": {n: k["max_rel_err"] for n, k in kernels.items()},
         "planted_fault_rel_err": main_case["planted_fault_rel_err"],

@@ -55,6 +55,25 @@ loaded from a HuggingFace Llama, Mistral or Mixtral checkpoint
     python examples/llama_serve_torch.py --config 7b --tp 2 \
         --role prefill --port 8080 &         # per process of job 2
 
+    # the same pair with the weights cut over fsdp as well (each job
+    # --fsdp 2 --tp 2, four processes); either side may be of any layout:
+    # rank 0 of an fsdp replica exports from its first fsdp replica and
+    # an import lands on every replica
+    python examples/llama_serve_torch.py --config 7b --fsdp 2 --tp 2 \
+        --role decode --port 8081 &          # per process of job 1
+    python examples/llama_serve_torch.py --config 7b --fsdp 2 --tp 2 \
+        --role prefill --port 8080 &         # per process of job 2
+
+    # on the CPU, two jobs of two processes (gloo) at fsdp = 2: the
+    # decode job serves; the prefill job's demo prefills a 40-token
+    # prompt, ships its pages to the decode job, generates there and
+    # here, prints both and exits
+    python examples/llama_serve_torch.py --config tiny --device cpu \
+        --fsdp 2 --role decode --port 8081 &          # per process
+    python examples/llama_serve_torch.py --config tiny --device cpu \
+        --fsdp 2 --role prefill --port 0 --demo \
+        --decode-url http://127.0.0.1:8081           # per process
+
     # then:
     curl -s localhost:8080/generate -d \
       '{"tokens": [[1,2,3]], "max_new_tokens": 16, "eos_token_id": 2}'
@@ -117,6 +136,28 @@ def build_model(config_name: str, device, seed: int, hf: str = "",
     return init_params(cfg, gen, device=dev, mesh=mesh)
 
 
+def post(url: str, payload: dict) -> dict:
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def handoff_demo(url: str, decode_url: str) -> dict:
+    """A prefill replica's demo: a 40-token prompt prefilled at ``url``,
+    its two full pages shipped to ``decode_url``, then 8 greedy tokens
+    from each replica (equal when the handoff is right)."""
+    prompt = list(range(1, 41))
+    reply = post(url + "/prefill", {
+        "tokens": prompt, "transfer": {"url": decode_url, "have": []}})
+    gen = {"tokens": [prompt], "max_new_tokens": 8, "temperature": 0.0}
+    return {"handoff": {k: reply[k] for k in ("shipped", "imported",
+                                              "deduped", "rejected")},
+            "decode": post(decode_url + "/generate", gen)["tokens"][0],
+            "prefill": post(url + "/generate", gen)["tokens"][0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="tiny", choices=CONFIGS,
@@ -163,6 +204,11 @@ def main() -> int:
                          "--fsdp processes")
     ap.add_argument("--demo", action="store_true",
                     help="send one demo request, print it, and exit")
+    ap.add_argument("--decode-url", default="",
+                    help="with --role prefill --demo: prefill the demo's "
+                         "40-token prompt here, ship its pages to the "
+                         "decode replica at this URL, and generate there "
+                         "and here")
     args = ap.parse_args()
 
     from mpi_operator_tpu_torch.serving import InferenceServer
@@ -217,15 +263,15 @@ def main() -> int:
           f"prefill_chunk={args.prefill_chunk}, "
           f"draft={args.draft_strategy or 'off'})", flush=True)
     try:
+        if args.demo and args.decode_url:
+            print("demo:", json.dumps(handoff_demo(server.url,
+                                                   args.decode_url)),
+                  flush=True)
+            return 0
         if args.demo:
-            req = urllib.request.Request(
-                server.url + "/generate",
-                data=json.dumps({"tokens": [[1, 2, 3, 4]],
-                                 "max_new_tokens": 8}).encode(),
-                headers={"Content-Type": "application/json"},
-                method="POST")
-            with urllib.request.urlopen(req, timeout=600) as resp:
-                print("demo:", resp.read().decode(), flush=True)
+            print("demo:", json.dumps(post(server.url + "/generate", {
+                "tokens": [[1, 2, 3, 4]], "max_new_tokens": 8})),
+                  flush=True)
             return 0
         stopped = threading.Event()
         signal.signal(signal.SIGTERM, lambda *a: stopped.set())

@@ -32,7 +32,9 @@ stream on the card (after the main stream's work so far, so the
 buffer's last reader, two blocks back, is done), whose event the main
 stream waits on.  So the next block's gather runs under this block's
 products.  On the CPU the gathers run in line.  Every rank issues the
-same gathers in the same order.
+same gathers in the same order.  A KV-page import between forwards
+reaches every fsdp replica through :meth:`ServingFSDP.broadcast_from_first`
+over the same group, ordered after the side stream.
 """
 
 from __future__ import annotations
@@ -229,6 +231,18 @@ class ServingFSDP:
             torch.cuda.current_stream(self.device).wait_event(done)
         if k + 1 < len(self.order):
             self._issue(k + 1)
+
+    def broadcast_from_first(self, t: torch.Tensor) -> torch.Tensor:
+        """Fsdp rank 0's ``t`` on every rank of the axis, in place (one
+        broadcast over the fsdp group: a KV-page import, between
+        forwards).  On the card the main stream first waits for the side
+        stream, so the broadcast follows every gather issued so far, on
+        one stream, in the same order on every rank."""
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        dist.broadcast(t, src=dist.get_global_rank(self.par.group, 0),
+                       group=self.par.group)
+        return t
 
     def gathered(self, unit: str) -> dict:
         """``unit``'s cut tensors, gathered now (name -> a view of its

@@ -73,23 +73,28 @@ and fsdp gathers.  A group of two or more ranks always has a mirror.
 The followers take no requests of their own; a slot-local admission
 error is fatal in a group (it may have happened on one rank only).
 
-KV pages under tp carry every head, in the JAX wire's layout (the JAX
-batcher exports its pool's global arrays): rank r's pool holds the
-contiguous KV-head chunk [r*kvh/tp, (r+1)*kvh/tp) (``TensorParallel.
-chunk``), the heads axis is dim 1 of a page leaf, and an export or an
-import is one lock-step operation.  Rank 0 queues it for the scheduler
-thread (an HTTP thread never runs a collective), the turn's record
-carries its headers (digests, parents, tokens, leaf shapes; never leaf
-bytes), and every rank runs it before the turn's admissions: the same
-lookups and verdicts from the same state, held to rank 0's
-(``TickMirror.agree``), then the bytes move over the tp group's device
-communicator.  An export gathers each rank's rows of a wave to rank 0,
-which joins them on the heads axis; an import scatters each rank's head
-chunk of a wave from rank 0, which alone holds the decoded pages
-((tp-1)/tp of a wave's bytes leave it).  A failure there is fatal to the
-batcher and, through the mirror, to the group.  Page operations at
-fsdp > 1 raise NotImplementedError (ROADMAP.md queue 1 item 3.5: the
-disaggregated roles at fsdp > 1).
+KV pages across cards carry every head, in the JAX wire's layout (the
+JAX batcher exports its pool's global arrays): the pool of tp rank r
+holds the contiguous KV-head chunk [r*kvh/tp, (r+1)*kvh/tp)
+(``TensorParallel.chunk``), the same on every fsdp replica, the heads
+axis is dim 1 of a page leaf, and an export or an import is one
+lock-step operation of the whole serving group.  Mesh rank 0 queues it
+for the scheduler thread (an HTTP thread never runs a collective), the
+turn's record carries its headers (digests, parents, tokens, leaf
+shapes; never leaf bytes), and every rank runs it before the turn's
+admissions: the same lookups and verdicts from the same state, held to
+mesh rank 0's (``TickMirror.agree``, on every rank, those that move no
+bytes too), then the bytes move over the device communicators.  An
+export needs one copy of the pool: fsdp replica 0's tp group gathers
+each rank's rows of a wave to mesh rank 0, which joins them on the heads
+axis; the other replicas move nothing.  An import must land on every
+replica bit for bit, or their decode steps diverge: mesh rank 0, which
+alone holds the decoded pages, scatters each rank of replica 0's tp
+group its head chunk of a wave ((tp-1)/tp of the wave's bytes leave
+it), and each of those ranks broadcasts its chunk over its fsdp group
+(``ServingFSDP.broadcast_from_first``, ordered after the weight gathers'
+side stream).  A failure there is fatal to the batcher and, through the
+mirror, to the group.
 """
 
 from __future__ import annotations
@@ -162,8 +167,9 @@ def prefix_page_digests(tokens, page_size: int) -> List[str]:
 
 
 def _page_header(page: dict) -> dict:
-    """What every rank of a tp group needs of a transferred page to stage
-    it: its digest, parent, tokens and leaf shapes (no leaf bytes)."""
+    """What every rank of a serving group needs of a transferred page to
+    stage it: its digest, parent, tokens and leaf shapes (no leaf
+    bytes)."""
     return {"digest": str(page.get("digest", "")),
             "parent": str(page.get("parent", "")),
             "tokens": [int(t) for t in page.get("tokens", ())],
@@ -333,6 +339,8 @@ class ContinuousBatcher:
         self._mirror = mirror
         self._tp = model.tp.size
         self._fsdp = _fsdp_size(model)
+        # The fsdp side of a serving model (None at fsdp = 1).
+        self._fs = getattr(model, "fsdp_serve", None)
         if self._tp * self._fsdp > 1 and mirror is None:
             raise ValueError("a model served over several cards needs the "
                              "tick mirror of its group "
@@ -762,14 +770,13 @@ class ContinuousBatcher:
         reused before the gather changes or loses its digest before the
         copy returns, so each block's digest is checked again after the
         copy and a changed one is dropped (best-effort protocol: a
-        missing page just means the importer prefills that span).  Under
-        tp (rank 0 only) the export is a lock-step operation of the
-        scheduler threads: this call queues it and waits."""
+        missing page just means the importer prefills that span).  Across
+        cards (mesh rank 0 only) the export is a lock-step operation of
+        the scheduler threads: this call queues it and waits."""
         if self.page_size <= 0:
             raise ValueError(
                 "export_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
-        self._refuse_pages_over_fsdp("export")
         if self._mirror is None:
             return self._export_waves(self._export_entries(digests))
         result: dict = {"pages": None}
@@ -780,11 +787,15 @@ class ContinuousBatcher:
         return result["pages"]
 
     def _export_waves(self, entries: List[tuple]) -> Optional[List[dict]]:
-        """The entries' pages, wave by wave: each rank gathers its rows
-        of a wave (one ``index_select`` a leaf, one flat buffer); under
-        tp the buffers are gathered to rank 0, which joins them on the
-        heads axis.  None on the other ranks of a tp group."""
+        """The entries' pages, wave by wave: each rank of fsdp replica 0
+        gathers its rows of a wave (one ``index_select`` a leaf, one
+        flat buffer); under tp the buffers are gathered to mesh rank 0,
+        which joins them on the heads axis.  The other fsdp replicas
+        hold the same pool and move nothing.  None on every rank but
+        mesh rank 0."""
         tp = self.model.tp
+        if self._fs is not None and self._fs.par.rank != 0:
+            return None
         leaves = self._wave_leaves()
         pages: List[dict] = []
         for off in range(0, len(entries), _EXPORT_WAVE_WIDTH):
@@ -812,7 +823,8 @@ class ContinuousBatcher:
                               "leaves": {path: split[path][i]
                                          for path, _ in leaves}})
                 self.telemetry["kv_pages_exported"].inc()
-        return pages if tp.rank == 0 else None
+        return pages if self._mirror is None or self._mirror.leader \
+            else None
 
     def import_kv_pages(self, pages: List[dict],
                         timeout: float = 30.0) -> dict:
@@ -820,32 +832,25 @@ class ContinuousBatcher:
         prefix registry (decode-replica side).  Called from HTTP threads:
         the pages are queued for the scheduler thread, the only thread
         that mutates the pool, which is woken at once; this call blocks
-        until that import completes.  Under tp (rank 0 only) every rank
-        installs its heads of them in lock-step.  Returns per-page
-        accounting ``{"imported", "deduped", "rejected"}``."""
+        until that import completes.  Across cards (mesh rank 0 only)
+        every rank of every fsdp replica installs its heads of them in
+        lock-step.  Returns per-page accounting ``{"imported",
+        "deduped", "rejected"}``."""
         if self.page_size <= 0:
             raise ValueError(
                 "import_kv_pages requires the paged KV cache "
                 "(page_size > 0)")
-        self._refuse_pages_over_fsdp("import")
         staged = [(_page_header(page), page.get("leaves", {}))
                   for page in pages]
         result = {"imported": 0, "deduped": 0, "rejected": 0}
         self._request_page_op("import", staged, result, timeout)
         return result
 
-    def _refuse_pages_over_fsdp(self, kind: str) -> None:
-        if self._fsdp > 1:
-            raise NotImplementedError(
-                f"KV-page {kind} at fsdp={self._fsdp} is not ported yet: "
-                f"ROADMAP.md queue 1 item 3.5 (the disaggregated roles at "
-                f"fsdp > 1)")
-
     def _request_page_op(self, kind: str, payload, result: dict,
                          timeout: float) -> None:
         """Queue a page operation for the scheduler thread, wake it and
-        wait until it ran (under tp: until rank 0 put it in a turn's
-        record and every rank ran it)."""
+        wait until it ran (across cards: until mesh rank 0 put it in a
+        turn's record and every rank ran it)."""
         if self._mirror is not None and not self._mirror.leader:
             raise RuntimeError(
                 f"serving rank {self._mirror.rank} runs no "
@@ -863,8 +868,8 @@ class ContinuousBatcher:
             raise self._shutdown_error()
 
     def _drain_kv_imports(self) -> None:
-        """Scheduler thread: run every queued page operation (under tp:
-        the turn's agreed ones, ``_run_page_ops``).  Imports arrive
+        """Scheduler thread: run every queued page operation (across
+        cards: the turn's agreed ones, ``_run_page_ops``).  Imports arrive
         parent-first; each page is digest-verified and registered like a
         locally prefilled block at refcount 0 (a retired prompt's
         blocks), then the staged blocks' data lands in place, one
@@ -893,9 +898,9 @@ class ContinuousBatcher:
                 done.set()
 
     def _page_ops_to_record(self) -> List[dict]:
-        """Rank 0: move the queued page operations into the turn's record
-        as headers, each with its op id (the turn and its place there;
-        the leaves stay here, in record order).  An import's leaf shapes
+        """Mesh rank 0: move the queued page operations into the turn's
+        record as headers, each with its op id (the turn and its place
+        there; the leaves stay here, in record order).  An import's leaf shapes
         travel as a table of the distinct shape sets, each page naming
         its entry."""
         with self._kv_imports_lock:
@@ -921,9 +926,10 @@ class ContinuousBatcher:
         return heads
 
     def _run_page_ops(self) -> None:
-        """Every rank of a tp group: run the turn's agreed page
-        operations in order.  Rank 0 holds each one's leaves (an import)
-        and its waiter; a failure is fatal ("kv-import", "kv-export")."""
+        """Every rank of the serving group (fsdp x tp): run the turn's
+        agreed page operations in order.  Mesh rank 0 holds each one's
+        leaves (an import) and its waiter; a failure is fatal
+        ("kv-import", "kv-export")."""
         while self._page_ops:
             head = self._page_ops.popleft()
             payload, result, done = (self._page_payload.popleft()
@@ -951,17 +957,19 @@ class ContinuousBatcher:
                     done.set()
 
     def _export_agreed(self, digests: List[str]) -> Optional[List[dict]]:
-        """Every rank of a tp group: the same lookup, held to rank 0's,
-        then the gather (``_export_waves``); the pages on rank 0."""
+        """Every rank of the serving group: the same lookup, held to mesh
+        rank 0's, then the gather over fsdp replica 0
+        (``_export_waves``); the pages on mesh rank 0."""
         entries = self._export_entries(digests)
         self._mirror.agree("export", [(e[0], e[1]) for e in entries])
         return self._export_waves(entries)
 
     def _import_pages(self, headers: List[dict], leaves: Optional[list],
                       result: dict) -> None:
-        """Stage every page (``_stage_import``), hold the verdicts to rank
-        0's under tp, then land the staged blocks' data (``leaves``: each
-        page's wire leaves; None on the other ranks of a tp group)."""
+        """Stage every page (``_stage_import``), hold the verdicts to mesh
+        rank 0's across cards, then land the staged blocks' data
+        (``leaves``: each page's wire leaves; None on every rank of the
+        serving group but mesh rank 0)."""
         shapes = self._wire_shapes()
         protected: set = set()
         staged: List[tuple] = []  # (blk, wire leaves or None)
@@ -1028,39 +1036,47 @@ class ContinuousBatcher:
         """Land an import's K/V data in place: per wave of
         ``_IMPORT_WAVE_WIDTH`` blocks, one ``index_copy_`` per pool leaf,
         each leaf cast to the pool's dtype, under the device lock
-        (released between waves).  One rank moves each leaf's rows to
-        the card; under tp rank 0 does, cuts them on the heads axis
-        (``_head_chunks``) and scatters each rank its chunk, one flat
-        buffer a rank."""
-        tp = self.model.tp
+        (released between waves).  Mesh rank 0 alone holds the pages: it
+        moves each leaf's rows to the card.  Across cards it cuts them on
+        the heads axis (``_head_chunks``) and scatters each rank of fsdp
+        replica 0's tp group its chunk, one flat buffer a rank; at fsdp >
+        1 each of those ranks broadcasts its buffer over its fsdp group,
+        so every replica lands the same bytes."""
+        tp, fs = self.model.tp, self._fs
+        holder = self._mirror is None or self._mirror.leader
         leaves = self._wave_leaves()
         for off in range(0, len(staged), _IMPORT_WAVE_WIDTH):
             wave = staged[off:off + _IMPORT_WAVE_WIDTH]
             idx = self._tensor([blk for blk, _ in wave], torch.long)
             with self._device_lock:
                 rows = None
-                if tp.rank == 0:
+                if holder:
                     rows = [torch.stack([torch.as_tensor(lv[path])
                                          for _, lv in wave]).to(
                                              self.device, leaf.dtype)
                             for path, leaf in leaves]
-                if tp.size > 1:
+                if self._mirror is not None:
                     like = [torch.empty((len(wave),) + leaf.shape[1:],
                                         dtype=leaf.dtype, device="meta")
                             for _, leaf in leaves]
-                    mine = tp.scatter_from_first(
-                        None if rows is None else self._head_chunks(rows),
-                        torch.empty(sum(t.numel() * t.element_size()
-                                        for t in like),
-                                    dtype=torch.uint8, device=self.device))
+                    mine = torch.empty(sum(t.numel() * t.element_size()
+                                           for t in like),
+                                       dtype=torch.uint8, device=self.device)
+                    if fs is None or fs.par.rank == 0:
+                        mine = tp.scatter_from_first(
+                            self._head_chunks(rows) if holder else None,
+                            mine)
+                    if fs is not None:
+                        mine = fs.broadcast_from_first(mine)
                     rows = _unflat_bytes(mine, like)
                 for (_, leaf), r in zip(leaves, rows):
                     leaf.index_copy_(0, idx, r)
 
     def _head_chunks(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Rank 0 of a tp group: for each rank r, one flat buffer of its
+        """Mesh rank 0: for each tp rank r, one flat buffer of its
         KV-head chunk r of every leaf's wave rows ([wave, page, heads,
-        ...], heads on dim 2), the ``TensorParallel.chunk`` layout."""
+        ...], heads on dim 2), the ``TensorParallel.chunk`` layout (the
+        chunk every fsdp replica's tp rank r lands)."""
         n = self.model.tp.size
         return [_flat_bytes([r.chunk(n, dim=2)[k] for r in rows])
                 for k in range(n)]
@@ -1450,8 +1466,8 @@ class ContinuousBatcher:
         blocks as admission prefills a prompt (past any cached prefix,
         in ``prefill_chunk``-token forwards when that is set); the
         blocks are returned afterwards.  Call it before start() or after
-        the scheduler loop ended (under tp: on every rank, a collective
-        forward)."""
+        the scheduler loop ended (across cards: on every rank, a
+        collective forward)."""
         if self.page_size <= 0:
             raise ValueError("prefill_logits needs the paged cache "
                              "(page_size > 0)")

@@ -21,12 +21,13 @@ protocol of its own.
 KV-page operations (disaggregated serving) ride the same record as
 headers only: rank 0's queued exports (the chain digests asked for) and
 imports (each page's digest, parent, tokens and leaf shapes), never the
-leaf bytes, which move afterwards over the tp group's device
-communicator (``serving/batcher.py``; at tp only: page operations refuse
-fsdp > 1).  Every rank stages the same
-verdicts from the same state; :meth:`TickMirror.agree` holds that
-before a byte moves, and a rank whose verdicts differ from rank 0's
-stops every rank with :class:`TPPeerError`.
+leaf bytes, which move afterwards over the device communicators
+(``serving/batcher.py``: gathered over fsdp replica 0's tp group for an
+export, scattered over it and broadcast over each fsdp group for an
+import).  Every rank of the group, those that move no bytes too, stages
+the same verdicts from the same state; :meth:`TickMirror.agree` holds
+that before a byte moves, and a rank whose verdicts differ from rank
+0's stops every rank with :class:`TPPeerError`.
 
 Sampled tokens: the gathered logits are the same bits on every rank and
 each slot's generator is seeded alike, so the tokens agree; the checksum
@@ -72,11 +73,15 @@ class TickMirror:
         self.leader = self.rank == 0
         # Only the group's own ranks take part: a world may hold several
         # serving groups (a prefill replica and a decode replica) whose
-        # ranks build their servers independently.
+        # ranks build their servers independently.  Such a group's name
+        # counts the groups each rank made before, so a group of the
+        # whole world is made by every rank (named by the world's shared
+        # count): its ranks may have made different numbers of groups.
+        local = self.size < dist.get_world_size()
         self.group = dist.new_group(
             ranks=sorted(self.ranks), backend="gloo",
             timeout=datetime.timedelta(seconds=timeout_s),
-            use_local_synchronization=True)
+            use_local_synchronization=local)
         self.turns = 0
         self.checksum = 0
         self.seconds = 0.0          # wall time spent in exchanges
@@ -109,7 +114,8 @@ class TickMirror:
 
     def agree(self, what: str, verdicts) -> None:
         """Hold this rank's verdicts of a page operation (what it staged
-        or found, block by block) to rank 0's: one all-gather; raises
+        or found, block by block) to rank 0's: one all-gather over the
+        whole group, so every rank calls it; raises
         TPPeerError when another rank failed or staged differently."""
         records = self._gather({"turn": self.turns, "fatal": None,
                                 "verdicts": verdicts})

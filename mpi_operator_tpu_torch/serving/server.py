@@ -48,14 +48,15 @@ tp only), and K4' runs on them on every rank.  Every rank of the mesh
 runs the continuous batcher in lock-step (``serving/mirror.py``); mesh
 rank 0 alone binds the HTTP front end and takes requests, the others
 serve until it stops (``join()``).  It needs the batcher (multi-row
-requests are served row by row through it).  Either role works under
-tp: rank 0 alone runs /prefill, /kv/pages and /fleet-state, and a page
-it exports or imports carries every KV head (the JAX wire's layout; the
-ranks move their head chunks in lock-step, ``serving/batcher.py``), so a
-tp replica hands pages to a replica of any tp, the JAX package's
-included.  Not ported yet (NotImplementedError, ROADMAP.md queue 1 item
-3, entry 3.5): dp, sp and ep in a serving mesh, and the disaggregated
-roles at fsdp > 1.
+requests are served row by row through it).  Either role works over
+the mesh, at any tp and fsdp: mesh rank 0 alone runs /prefill, /kv/pages
+and /fleet-state, and a page it exports or imports carries every KV head
+(the JAX wire's layout; the ranks move their head chunks in lock-step,
+fsdp replica 0 for an export, every replica for an import,
+``serving/batcher.py``), so a replica hands pages to a replica of any
+layout, the JAX package's included.  Not ported yet
+(NotImplementedError, ROADMAP.md queue 1 item 3, entry 3.5): dp, sp and
+ep in a serving mesh.
 """
 
 from __future__ import annotations
@@ -297,12 +298,6 @@ class InferenceServer:
             from ..parallel.tensor import TensorParallel, refuse_axes
             sizes = refuse_axes(mesh, "InferenceServer",
                                 allowed=("tp", "fsdp"), entry="3.5")
-            if sizes["fsdp"] > 1 and role != "unified":
-                raise NotImplementedError(
-                    f"role={role!r} at fsdp={sizes['fsdp']} is not ported "
-                    f"yet: ROADMAP.md queue 1 item 3 (multi-GPU "
-                    f"parallelism, entry 3.5: the disaggregated roles at "
-                    f"fsdp > 1)")
             tp = TensorParallel.of(mesh)
             fsdp = sizes["fsdp"]
             if max_batch_slots <= 0:

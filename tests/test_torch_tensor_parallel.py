@@ -68,7 +68,8 @@ from mpi_operator_tpu_torch.parallel.tensor import TensorParallel
 from test_torch_distributed import (LR, REPO, TRAIN_EXAMPLE, WORKER,
                                     _smallest_grads, _tokens,
                                     assert_metrics_close,
-                                    assert_params_close, join, launch)
+                                    assert_params_close, free_port, join,
+                                    launch)
 
 LOGIT_TOL = 1e-4                       # f32 model logits (parity rules)
 PROMPTS = [[1, 2, 3, 4, 5], [9, 8, 7]]     # tests/test_serving.py:133
@@ -572,15 +573,13 @@ def test_kv_heads_tp_and_roles_refusals():
                       mesh=_fake_mesh(tp=4))
     from mpi_operator_tpu_torch.serving import InferenceServer
     model = tl.LlamaModel(tl.llama2_tiny(), device="cpu")
-    # The disaggregated roles construct and serve under tp
-    # (tests/test_torch_kv_transfer_tp.py); at fsdp > 1 they still wait
-    # for item 3's entry 3.5.
+    # The disaggregated roles construct and serve under tp and at fsdp >
+    # 1 (tests/test_torch_kv_transfer_tp.py); what a role still refuses
+    # on a mesh is an unpaged cache: there is nothing to hand over.
     for role in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 3 .*entry 3.5: the "
-                                 "disaggregated roles at fsdp > 1"):
+        with pytest.raises(ValueError, match="requires a paged KV cache"):
             InferenceServer(model, mesh=_fake_mesh(tp=2, fsdp=2),
-                            role=role, kv_page_size=16,
+                            role=role, kv_page_size=0,
                             max_batch_slots=2, device="cpu")
     # A model dim fsdp does not divide, as jax.device_put refuses it.
     with pytest.raises(ValueError, match="dim 128 not divisible by "
@@ -654,3 +653,40 @@ def test_serve_and_train_examples_over_two_tp_processes(tmp_path):
     assert "mesh dp=1 fsdp=1 pp=1 ep=1 tp=2 sp=1 processes=2" in \
         logs["train"][0]
     assert np.isfinite(float(logs["train"][0].split("loss=")[1].split()[0]))
+
+
+def test_serve_example_hands_off_between_fsdp_roles(tmp_path):
+    """``--fsdp 2 --role decode`` and ``--fsdp 2 --role prefill --demo
+    --decode-url`` on the CPU, two jobs of two processes: the prefill
+    job's demo ships the prompt's two pages to the decode job, whose
+    greedy tokens equal the prefill job's own; SIGTERM stops the decode
+    job's rank 0 and, through it, its follower."""
+    import json
+    import signal
+    serve = os.path.join(REPO, "examples", "llama_serve_torch.py")
+    base = [sys.executable, serve, "--config", "tiny", "--device", "cpu",
+            "--fsdp", "2"]
+    port = free_port()
+    (tmp_path / "decode").mkdir()
+    (tmp_path / "prefill").mkdir()
+    decode = launch(base + ["--role", "decode", "--port", str(port)], 2,
+                    str(tmp_path / "decode"))
+    try:
+        wait_until(lambda: "serving on" in (
+            tmp_path / "decode" / "rank0.log").read_text(), timeout=120,
+            interval=0.2, desc="the decode job to serve")
+        prefill = launch(base + ["--role", "prefill", "--port", "0",
+                                 "--demo", "--decode-url",
+                                 f"http://127.0.0.1:{port}"], 2,
+                         str(tmp_path / "prefill"))
+        logs = join(prefill, str(tmp_path / "prefill"))
+    finally:
+        decode[0][2].send_signal(signal.SIGTERM)
+        join(decode, str(tmp_path / "decode"))
+    (line,) = [line for line in logs[0].splitlines()
+               if line.startswith("demo:")]
+    demo = json.loads(line[len("demo:"):])
+    assert demo["handoff"] == {"shipped": 2, "imported": 2, "deduped": 0,
+                               "rejected": 0}, demo
+    assert demo["decode"] == demo["prefill"] and len(demo["decode"]) == 8
+    assert "serving on" not in logs[1]

@@ -15,6 +15,11 @@ decode steps x n_layers (K4' runs on the rank's heads).  At fsdp = 2
 (``tests/torch_dist_worker.py fsdp_cuda_gather DIR cuda``) each unit
 gathered over NCCL equals the plain cut of the one-card weights bit for
 bit, and the logits, streams and K4' launches are held the same way.
+KV pages at fsdp = 2 (``tests/torch_dist_worker.py fsdp_cuda_pages DIR
+cuda``): pages a one-card replica exported, imported while another
+stream decodes, land on both ranks as the wire pages bit for bit (the
+plain cut at tp = 1), and the imported prompt's stream equals a one-card
+replica's over the same pages.
 """
 
 import os
@@ -90,3 +95,20 @@ def test_cuda_tp2_serving_matches_one_card(two_cards, tmp_path):
         assert res["steps"] > 0
         assert res["launches"] == res["steps"] * res["n_layers"]
     assert got[0]["streams"] == got[0]["one_streams"]
+
+
+@pytest.mark.cuda
+def test_cuda_fsdp2_page_wave_broadcast_is_the_plain_cut(two_cards,
+                                                         tmp_path):
+    got = _two_ranks("fsdp_cuda_pages", tmp_path)
+    lead = got[0]
+    assert lead["reply"] == lead["one_reply"] == {
+        "imported": lead["pages"], "deduped": 0, "rejected": 0}
+    assert lead["stream"] == lead["one_stream"]
+    assert len(lead["busy"]) == 48
+    for res in got:
+        assert res["backend"] == "nccl"
+        assert res["rows"] == lead["wire"]
+        assert res["hits"] == lead["pages"]
+        assert res["steps"] > 0
+        assert res["launches"] == res["steps"] * res["n_layers"]

@@ -656,6 +656,90 @@ def scenario_fsdp_cuda_gather(inputs, out_dir):
     return out
 
 
+def _rows_digest(leaves, n_pages: int) -> str:
+    """One digest of ``leaves`` ({path: [pages, ...] tensor}), page by
+    page, paths sorted."""
+    import hashlib
+    h = hashlib.sha256()
+    for i in range(n_pages):
+        for path in sorted(leaves):
+            h.update(leaves[path][i].contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def scenario_fsdp_cuda_pages(inputs, out_dir):
+    """KV pages at fsdp = 2 on the cards: rank 0 prefills a prompt on a
+    one-card replica of llama2_tiny in bf16 (from a seed) and exports its
+    pages; an fsdp = 2 decode server imports them while it decodes
+    another stream, so the import's broadcast follows the weight gathers
+    of in-flight steps.  Each rank's pool rows against the wire pages
+    (at tp = 1 the plain cut is the whole page), the imported prompt's
+    stream against a one-card replica that imported the same pages, K4'
+    launches == decode steps x n_layers."""
+    import threading
+
+    from mpi_operator_tpu_torch.models.params import init_params
+    from mpi_operator_tpu_torch.ops import paged_attention as pa
+    from mpi_operator_tpu_torch.serving import (ContinuousBatcher,
+                                                InferenceServer)
+    from mpi_operator_tpu_torch.serving.batcher import prefix_page_digests
+    cfg = tl.llama2_tiny(dtype=torch.bfloat16, **inputs["config"])
+    prompts = inputs["prompts"]
+    digests = prefix_page_digests(prompts[3], 16)
+    out = {"backend": dist.get_backend(), "n_layers": cfg.n_layers}
+    pages = None
+    if dist.get_rank() == 0:
+        one = init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                          device="cuda")
+        ref = ContinuousBatcher(one, max_slots=4, page_size=16,
+                                device="cuda").start()
+        ref.submit(prompts[3], 1)
+        pages = ref.export_kv_pages(digests)
+        ref.stop()
+        out["wire"] = _rows_digest(
+            {path: torch.stack([p["leaves"][path] for p in pages])
+             for path in pages[0]["leaves"]}, len(pages))
+        ref = ContinuousBatcher(one, max_slots=4, page_size=16,
+                                device="cuda").start()
+        out["one_reply"] = ref.import_kv_pages(pages)
+        out["one_stream"] = ref.submit(prompts[3], 12)
+        ref.stop()
+        del one, ref
+    mesh = _tp_mesh(fsdp=2)
+    model = init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                        device="cuda", mesh=mesh)
+    server = InferenceServer(model, mesh=mesh, role="decode",
+                             max_batch_slots=4, kv_page_size=16,
+                             device="cuda")
+    pa.LAUNCHES = 0
+    server.start()
+    if server.is_leader:
+        try:
+            busy = threading.Thread(target=lambda: out.__setitem__(
+                "busy", server.generate([prompts[2]], 48)[0]))
+            busy.start()
+            out["reply"] = server._batcher.import_kv_pages(pages)
+            busy.join()
+            out["stream"] = server.generate([prompts[3]], 12)[0]
+        finally:
+            server.stop()
+    else:
+        server.join(timeout=240)
+        server.stop()
+    torch.cuda.synchronize()
+    b = server._batcher
+    by_digest = {d: blk for blk, d in b._block_digest.items()}
+    idx = torch.tensor([by_digest[d] for d in digests], device="cuda")
+    out.update(rows=_rows_digest({path: leaf.index_select(0, idx)
+                                  for path, leaf in b._pool_leaves()},
+                                 len(digests)),
+               pages=len(digests), launches=pa.LAUNCHES,
+               steps=server.telemetry["dispatches_total"].value,
+               hits=b.prefix_stats["hit_blocks"])
+    return out
+
+
 # -- sequence and expert parallelism (tests/test_torch_ring_attention.py,
 # -- tests/test_torch_expert_parallel.py) ------------------------------------
 
@@ -1512,14 +1596,14 @@ def _kvtp_export(server, prompt, path):
     return wire
 
 
-def _kvtp_rows_match(server, prompt, wire_path, chunk):
-    """Whether this rank's pool rows of ``prompt``'s pages equal head
-    chunk ``chunk`` of the wire pages' leaves, bit for bit, leaf by leaf
-    (scales too)."""
+def _kvtp_rows_match(server, prompt, wire_path):
+    """Whether this rank's pool rows of ``prompt``'s pages equal its tp
+    rank's head chunk of the wire pages' leaves, bit for bit, leaf by
+    leaf (scales too)."""
     import json
 
     from mpi_operator_tpu_torch.serving import kv_transfer as kvt
-    b = server._batcher
+    b, tp = server._batcher, server.model.tp
     with open(wire_path) as f:
         pages = kvt.decode_pages(json.load(f))
     by_digest = {d: blk for blk, d in b._block_digest.items()}
@@ -1527,17 +1611,18 @@ def _kvtp_rows_match(server, prompt, wire_path, chunk):
     for path, leaf in b._pool_leaves():
         held = leaf[[by_digest[p["digest"]] for p in pages]].cpu()
         want = torch.stack([p["leaves"][path] for p in pages]).chunk(
-            2, dim=2)[chunk].to(leaf.dtype)
+            tp.size, dim=2)[tp.rank].to(leaf.dtype)
         out[path] = torch.equal(held.view(torch.uint8),
                                 want.contiguous().view(torch.uint8))
     return out
 
 
 def _kvtp_pair(inputs, mesh, role, name="dense", kv="auto"):
-    """This rank's tp = 2 server of ``role`` over ``mesh``, started."""
+    """This rank's server of ``role`` over ``mesh`` (tp, fsdp or both),
+    started."""
     from mpi_operator_tpu_torch.serving import InferenceServer
     server = InferenceServer(
-        _tp_model(inputs, name, mesh), mesh=mesh, role=role,
+        _tp_model(inputs, name, mesh, serving=True), mesh=mesh, role=role,
         max_batch_slots=2, kv_page_size=KVTP_PAGE, kv_cache_blocks=48,
         kv_cache_dtype=kv, device="cpu", tp_timeout_s=60).start()
     # Every page operation's verdicts as this rank holds them to rank 0's.
@@ -1580,7 +1665,8 @@ def scenario_kvtp_world4(inputs, out_dir):
     a re-ship, tp 2 -> tp 1, tp 1 -> tp 2, the JAX tp = 2 export into D,
     a bad chain and a dedup into D, exports to files, then a planted
     head-order fault (D's rank 0 scatters the chunks swapped); int8
-    pools; mixtral_tiny; and a follower that stages other verdicts."""
+    pools; mixtral_tiny; and a follower that stages other verdicts.
+    Then the same four ranks serve at fsdp > 1 (``_kvtp_fsdp_rounds``)."""
     import json
 
     from mpi_operator_tpu_torch.serving import InferenceServer
@@ -1590,7 +1676,8 @@ def scenario_kvtp_world4(inputs, out_dir):
     role = "decode" if rank >= 2 else "prefill"
     p = inputs["prompts"]
     files = {k: os.path.join(out_dir, f"port_{k}.json")
-             for k in ("A", "C", "F", "A_int8")}
+             for k in ("A", "C", "F", "A_int8", "A_moe", "A_mixed",
+                       "A_fsdp")}
     out = {"files": files}
 
     # Round 1: f32 pools, llama2_tiny.
@@ -1658,7 +1745,7 @@ def scenario_kvtp_world4(inputs, out_dir):
     dist.barrier()
     _kvtp_close(server, out)
     if rank >= 2:
-        out["rows"] = {k: _kvtp_rows_match(server, p[k], files[k], rank - 2)
+        out["rows"] = {k: _kvtp_rows_match(server, p[k], files[k])
                        for k in ("A", "F")}
         out["logits"] = {k: server.prefill_logits(p[k]).clone()
                          for k in ("A", "F")}
@@ -1677,8 +1764,7 @@ def scenario_kvtp_world4(inputs, out_dir):
     int8 = out["int8_report"] = {}
     _kvtp_close(server, int8)
     if rank >= 2:
-        int8["rows"] = _kvtp_rows_match(server, p["A"], files["A_int8"],
-                                        rank - 2)
+        int8["rows"] = _kvtp_rows_match(server, p["A"], files["A_int8"])
     del server
 
     # Round 3: mixtral_tiny.
@@ -1689,6 +1775,7 @@ def scenario_kvtp_world4(inputs, out_dir):
             "tokens": p["A"],
             "transfer": {"url": urls[2]["decode"], "have": []}})
         out["moe"] = _kvtp_greedy(urls[2]["decode"], p["A"])
+        _kvtp_export(server, p["A"], files["A_moe"])
     dist.barrier()
     _kvtp_close(server, {})
     del server
@@ -1716,7 +1803,176 @@ def scenario_kvtp_world4(inputs, out_dir):
         server.stop()
         out["peer_error"] = errors
     dist.barrier()
+    _kvtp_fsdp_rounds(inputs, out_dir, files, out)
     return out
+
+
+def _kvtp_collectives(server) -> dict:
+    """Count this rank's page collectives: the export gather and the
+    import scatter over its tp group, the import broadcast over its fsdp
+    group (the model's ``TensorParallel`` is frozen: set on the
+    instance)."""
+    counts = {"gather": 0, "scatter": 0, "broadcast": 0}
+
+    def counted(owner, name, key):
+        real = getattr(owner, name)
+
+        def call(*a):
+            counts[key] += 1
+            return real(*a)
+        object.__setattr__(owner, name, call)
+    tp, fs = server.model.tp, server.model.fsdp_serve
+    counted(tp, "gather_to_first", "gather")
+    counted(tp, "scatter_from_first", "scatter")
+    if fs is not None:
+        counted(fs, "broadcast_from_first", "broadcast")
+    return counts
+
+
+def _kvtp_fsdp_rounds(inputs, out_dir, files, out):
+    """The roles at fsdp > 1, in the same world.  Round 5: a tp = 2
+    replica (ranks 0-1) and an fsdp = 2 replica (ranks 2-3) hand each
+    other a prompt over HTTP.  Rounds 6-9: one fsdp = 2 x tp = 2 replica
+    over all four ranks (mesh ranks 0-1 fsdp replica 0, 2-3 replica 1):
+    the JAX tp = 2 x fsdp = 2 export of C imported, A prefilled and
+    exported, a dedup, a bad chain, a follower's import, then a planted
+    fault (rank 2 lands its fsdp broadcast's buffer before it is
+    filled) on F; int8 pools; mixtral_tiny handing off both ways; a rank
+    that stages other verdicts."""
+    import json
+
+    from mpi_operator_tpu_torch.serving import InferenceServer
+    from mpi_operator_tpu_torch.serving import kv_transfer as kvt
+    rank = dist.get_rank()
+    p = inputs["prompts"]
+
+    # Round 5: tp = 2 <-> fsdp = 2.
+    mesh = [tmesh.create_mesh(tmesh.MeshConfig(dp=1, **axes), DEVICE,
+                              ranks=r)
+            for axes, r in (({"tp": 2}, [0, 1]),
+                            ({"fsdp": 2}, [2, 3]))][rank // 2]
+    role = "decode" if rank >= 2 else "prefill"
+    server = _kvtp_pair(inputs, mesh, role)
+    mixed = out["mixed"] = {
+        "role": server.fleet_state()["role"] if server.is_leader else None}
+    urls = _kvtp_urls({role: server.url} if server.is_leader else {})
+    if rank == 0:
+        X, Y = urls[0]["prefill"], urls[2]["decode"]
+        mixed["tp2_fsdp2_reply"] = _kvtp_post(X, "/prefill", {
+            "tokens": p["A"], "transfer": {"url": Y, "have": []}})
+        mixed["tp2_fsdp2"] = _kvtp_greedy(Y, p["A"])
+        mixed["fsdp2_tp2_reply"] = _kvtp_post(Y, "/prefill", {
+            "tokens": p["B"], "transfer": {"url": X, "have": []}})
+        mixed["fsdp2_tp2"] = _kvtp_greedy(X, p["B"])
+        _kvtp_export(server, p["A"], files["A_mixed"])
+    dist.barrier()
+    _kvtp_close(server, mixed)
+    if rank >= 2:
+        mixed["rows"] = _kvtp_rows_match(server, p["A"], files["A_mixed"])
+    del server
+
+    # Round 6: fsdp = 2 x tp = 2, f32 pools.
+    mesh = tmesh.create_mesh(tmesh.MeshConfig(dp=1, fsdp=2, tp=2), DEVICE)
+    server = _kvtp_pair(inputs, mesh, "decode")
+    counts = _kvtp_collectives(server)
+    f = out["fsdp_tp"] = {
+        "role": server.fleet_state()["role"] if server.is_leader else None}
+    urls = _kvtp_urls({"S": server.url} if server.is_leader else {})
+    S = urls[0]["S"]
+    if rank == 0:
+        with open(inputs["jax_fsdp_wire"]) as fh:
+            jax_c = json.load(fh)
+        f["jax_reply"] = _kvtp_post(S, "/kv/pages", {"pages": jax_c})
+        f["jax"] = _kvtp_greedy(S, p["C"])
+        _kvtp_post(S, "/prefill", {"tokens": p["A"]})
+        _kvtp_export(server, p["A"], files["A_fsdp"])
+        f["dedup_reply"] = _kvtp_post(S, "/kv/pages", {"pages": jax_c})
+        with open(os.path.join(out_dir, "port_E.json")) as fh:
+            bad = json.load(fh)
+        bad[0]["tokens"][0] += 1          # the root no longer hashes
+        f["bad_reply"] = _kvtp_post(S, "/kv/pages", {"pages": bad})
+    if rank == 2:
+        try:
+            server._batcher.import_kv_pages([])
+        except RuntimeError as exc:
+            f["follower_import"] = str(exc)
+    dist.barrier()
+    f["counts_before_fault"] = dict(counts)
+    if rank == 2:                      # the planted fault, fsdp replica 1
+        fs = server.model.fsdp_serve
+        real = fs.broadcast_from_first
+        fs.broadcast_from_first = lambda t: (real(t.clone()), t)[1]
+    dist.barrier()
+    if rank == 0:
+        with open(files["F"]) as fh:
+            f["fault_reply"] = _kvtp_post(S, "/kv/pages",
+                                          {"pages": json.load(fh)})
+    dist.barrier()
+    _kvtp_close(server, f)
+    f["collectives"] = counts
+    f["rows"] = {k: _kvtp_rows_match(server, p[k], path) for k, path in
+                 (("C", inputs["jax_fsdp_wire"]), ("F", files["F"]))}
+    f["logits"] = {k: server.prefill_logits(p[k]).clone()
+                   for k in ("C", "F")}
+    del server
+
+    # Round 7: fsdp = 2 x tp = 2, int8 pools, round 2's tp = 2 export.
+    server = _kvtp_pair(inputs, mesh, "decode", kv="int8")
+    i8 = out["fsdp_tp_int8"] = {}
+    if rank == 0:
+        with open(files["A_int8"]) as fh:
+            i8["reply"] = server._batcher.import_kv_pages(
+                kvt.decode_pages(json.load(fh)))
+        i8["tokens"] = _kvtp_greedy(server.url, p["A"])
+    dist.barrier()
+    _kvtp_close(server, i8)
+    i8["rows"] = _kvtp_rows_match(server, p["A"], files["A_int8"])
+    del server
+
+    # Round 8: mixtral_tiny at fsdp = 2 x tp = 2 (role prefill): B handed
+    # to a one-process decode replica, round 3's tp = 2 export of A
+    # imported.
+    server = _kvtp_pair(inputs, mesh, "prefill", name="moe")
+    moe = out["fsdp_tp_moe"] = {
+        "role": server.fleet_state()["role"] if server.is_leader else None}
+    if rank == 0:
+        one = InferenceServer(_tp_model(inputs, "moe", None), role="decode",
+                              max_batch_slots=2, kv_page_size=KVTP_PAGE,
+                              kv_cache_blocks=48, device="cpu").start()
+        moe["export_reply"] = _kvtp_post(server.url, "/prefill", {
+            "tokens": p["B"], "transfer": {"url": one.url, "have": []}})
+        moe["export"] = _kvtp_greedy(one.url, p["B"])
+        one.stop()
+        with open(files["A_moe"]) as fh:
+            moe["import_reply"] = _kvtp_post(server.url, "/kv/pages",
+                                             {"pages": json.load(fh)})
+        moe["import"] = _kvtp_greedy(server.url, p["A"])
+    dist.barrier()
+    _kvtp_close(server, moe)
+    del server
+
+    # Round 9: rank 3 (fsdp replica 1) stages another verdict for the
+    # first page of an import.
+    server = _kvtp_pair(inputs, mesh, "decode")
+    b = server._batcher
+    if rank == 3:
+        real_stage, calls = b._stage_import, []
+
+        def stage(*a):
+            calls.append(1)
+            return ("deduped", None) if len(calls) == 1 else real_stage(*a)
+        b._stage_import = stage
+    errors = []
+    try:
+        if rank == 0:
+            with open(files["A"]) as fh:
+                b.import_kv_pages(kvt.decode_pages(json.load(fh)))
+        server.join(timeout=120)
+    except Exception as exc:              # the group's error, every rank
+        errors.append(f"{type(exc).__name__}: {exc}")
+    server.stop()
+    out["fsdp_peer_error"] = errors
+    dist.barrier()
 
 
 def main() -> int:
